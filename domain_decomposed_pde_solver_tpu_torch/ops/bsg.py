@@ -1,0 +1,337 @@
+"""The unstructured device operator: sliced ELL behind the BSG interface.
+
+Counterpart of the JAX package's ``ops/bsg.py::BSGMatrix``.  The TPU form
+(binned shuffle-gather micro-ops, ``bsg.py:1-36`` there) exists because the
+TPU has no vector gather; a GPU has one, so the port keeps the operator's
+job and vector-space contract and stores the matrix in a format native to
+the GPU:
+
+- **sliced ELL** with 32-row slices (one warp), each slice padded only to
+  its own widest row, column-major inside a slice, int32 columns;
+- values stored as float32 (the widest type the JAX BSG stores), or as
+  float64 for operators that keep f64 coefficients
+  (:func:`..dia.choose_operator` at ``dtype=float64``);
+- ``x``, ``y`` and the accumulator in the compute dtype of the vector
+  passed to :meth:`BSGMatrix.matvec`.
+
+The vector-space contract is the JAX one: vectors live in the *internal*
+(RCM-permuted, padded) space of length ``n_pad`` (a multiple of 1024 for
+:func:`bsg_from_csr` and :func:`bsg_from_coo`); ``put_vector`` /
+``get_vector`` convert from and to original order; ``perm[i]`` is the
+internal row of original row ``i``.  RCM is scipy's
+``reverse_cuthill_mckee(symmetric_mode=True)``, exactly as the JAX packer
+runs it, so both packages share one internal numbering.
+
+On a CUDA tensor :meth:`BSGMatrix.matvec` launches the hand-written kernel
+(``csrc/spmv.cu`` through :mod:`._kernels`) or raises; on a CPU tensor it
+evaluates :func:`spmv_plain`, the plain PyTorch version of the same
+function over the same arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .csr import CSRMatrix
+
+__all__ = [
+    "BSGMatrix",
+    "bsg_from_csr",
+    "bsg_from_coo",
+    "bsg_spmv",
+    "spmv_plain",
+    "sell_pack",
+]
+
+TILE = 1024  # padded-length granule of the JAX BSG layout (8 x 128 rows)
+SLICE = 32  # rows per sliced-ELL slice: one warp
+
+_STORAGE = {"float32": torch.float32, "float64": torch.float64}
+
+
+@dataclasses.dataclass
+class BSGMatrix:
+    """Sliced-ELL sparse operator with the JAX ``BSGMatrix`` contract.
+
+    ``slice_ptr[s]`` is the first slot of slice ``s`` (int64, length
+    ``n_slices + 1``); slot ``j`` of row ``32*s + i`` is at
+    ``slice_ptr[s] + 32*j + i`` in ``cols`` (int32) and ``vals``.
+    ``x_len`` is the length of the input space a matvec accepts: ``n_pad``
+    for square operators, the given input length for :func:`bsg_from_coo`.
+    ``shape`` is the true logical shape ``(n_rows, n_cols)``, rectangular
+    for :func:`bsg_from_coo` (the JAX class reports it square).
+    """
+
+    slice_ptr: torch.Tensor  # (n_slices + 1,) int64
+    cols: torch.Tensor  # (n_slots,) int32, 0 on padding slots
+    vals: torch.Tensor  # (n_slots,) float32 or float64, 0 on padding slots
+    diag: torch.Tensor  # (n_pad,) float32 diagonal (internal order), 0-padded
+    perm: Optional[torch.Tensor]  # (n_rows,) int64 original -> internal row
+    n_rows: int  # logical output rows
+    n_cols: int  # logical input columns
+    n_pad: int  # padded output length (rows computed by a matvec)
+    x_len: int  # input-space length
+    _slot_row: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False
+    )
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    @property
+    def storage(self) -> str:
+        return str(self.vals.dtype).replace("torch.", "")
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.cols.numel())
+
+    def put_vector(self, x, dtype=torch.float32) -> torch.Tensor:
+        """Original-order (n,) host vector -> internal padded device vector."""
+        x = torch.as_tensor(np.asarray(x), dtype=dtype)
+        out = torch.zeros(self.n_pad, dtype=dtype)
+        if self.perm is not None:
+            out[self.perm.cpu()] = x
+        else:
+            out[: self.n_rows] = x
+        return out.to(self.device)
+
+    def get_vector(self, xp: torch.Tensor) -> np.ndarray:
+        """Internal padded device vector -> original-order (n,) host vector."""
+        if self.perm is not None:
+            return xp[self.perm].cpu().numpy()
+        return xp[: self.n_rows].cpu().numpy()
+
+    def diagonal_padded(self, fill: float = 1.0) -> torch.Tensor:
+        return self.diag.masked_fill(self.diag == 0, fill)
+
+    def matvec(self, x_padded: torch.Tensor) -> torch.Tensor:
+        return bsg_spmv(self, x_padded)
+
+    def matvec_reference(self, x_padded: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch evaluation on any device (validation only)."""
+        return spmv_plain(self, x_padded)
+
+    def slot_row(self) -> torch.Tensor:
+        """Row of every slot (int64), built once for :func:`spmv_plain`."""
+        if self._slot_row is None:
+            widths = (self.slice_ptr[1:] - self.slice_ptr[:-1]) // SLICE
+            n_slices = widths.numel()
+            slice_of = torch.repeat_interleave(
+                torch.arange(n_slices, device=self.device), widths * SLICE
+            )
+            within = torch.arange(self.n_slots, device=self.device) - (
+                self.slice_ptr[:-1][slice_of]
+            )
+            self._slot_row = slice_of * SLICE + within % SLICE
+        return self._slot_row
+
+
+def _check_input(A: BSGMatrix, x: torch.Tensor) -> None:
+    if x.dim() != 1:
+        raise ValueError(f"matvec takes a 1-D vector, got shape {tuple(x.shape)}")
+    if x.numel() > A.x_len:
+        raise ValueError(
+            f"input of length {x.numel()} exceeds the operator's input "
+            f"space ({A.x_len})"
+        )
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported vector dtype {x.dtype}")
+    if A.vals.dtype == torch.float64 and x.dtype != torch.float64:
+        raise TypeError("float64-stored operator needs float64 vectors")
+    if x.device != A.device:
+        raise ValueError(f"x is on {x.device}, the operator on {A.device}")
+
+
+def spmv_plain(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch sliced-ELL SpMV: a gather, a multiply and a row sum
+    over the kernel's own arrays, in the kernel's slot order per row.
+
+    Same contract as the kernel: columns past ``len(x)`` read 0 (a shorter
+    input is zero-extended), empty and padding rows give 0."""
+    _check_input(A, x_padded)
+    n_x = x_padded.numel()
+    xe = torch.cat([x_padded, x_padded.new_zeros(1)])
+    idx = A.cols.to(torch.int64).clamp_(max=n_x)
+    prod = A.vals.to(x_padded.dtype) * xe[idx]
+    y = x_padded.new_zeros(A.n_pad)
+    return y.index_add_(0, A.slot_row(), prod)
+
+
+def bsg_spmv(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
+    """y = A @ x in the internal padded space.
+
+    A CUDA tensor goes to the hand-written kernel (which raises on failure);
+    a CPU tensor to :func:`spmv_plain`.  Nothing moves between devices."""
+    if x_padded.device.type == "cpu":
+        return spmv_plain(A, x_padded)
+    _check_input(A, x_padded)
+    if x_padded.device.type != "cuda":
+        raise ValueError(f"no SpMV for device {x_padded.device}")
+    from ._kernels import sell_spmv
+
+    return sell_spmv(A.slice_ptr, A.cols, A.vals, x_padded.contiguous(),
+                     A.n_pad)
+
+
+# ---------------------------------------------------------------------------
+# Host packing
+# ---------------------------------------------------------------------------
+
+
+def sell_pack(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+              n_pad: int, value_dtype=np.float32):
+    """Pack row-sorted CSR arrays (``len(indptr) - 1 <= n_pad`` rows) into
+    sliced-ELL host arrays ``(slice_ptr, cols, vals)``."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n = indptr.size - 1
+    n_slices = -(-n_pad // SLICE)
+    lens = np.zeros(n_slices * SLICE, dtype=np.int64)
+    lens[:n] = np.diff(indptr)
+    widths = lens.reshape(n_slices, SLICE).max(axis=1)
+    slice_ptr = np.zeros(n_slices + 1, dtype=np.int64)
+    np.cumsum(widths * SLICE, out=slice_ptr[1:])
+    n_slots = int(slice_ptr[-1])
+    nnz = int(indptr[-1])
+    rows = np.repeat(np.arange(n, dtype=np.int64), lens[:n])
+    pos = np.arange(nnz, dtype=np.int64) - indptr[rows]
+    dst = slice_ptr[rows // SLICE] + pos * SLICE + rows % SLICE
+    cols = np.zeros(n_slots, dtype=np.int32)
+    vals = np.zeros(n_slots, dtype=value_dtype)
+    cols[dst] = indices
+    vals[dst] = data
+    return slice_ptr, cols, vals
+
+
+def _rcm_perm(csr: CSRMatrix) -> np.ndarray:
+    """``perm[i]`` = internal row of original row ``i`` — the JAX packer's
+    RCM (``bsg.py:220-234`` there), so both packages number alike."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    S = sp.csr_matrix(
+        (np.asarray(csr.data), np.asarray(csr.indices), np.asarray(csr.indptr)),
+        shape=csr.shape,
+    )
+    order = np.asarray(reverse_cuthill_mckee(S, symmetric_mode=True))
+    perm = np.empty(csr.n_rows, dtype=np.int64)
+    perm[order] = np.arange(csr.n_rows)
+    return perm
+
+
+def _storage_dtype(storage: str) -> torch.dtype:
+    if storage == "auto":
+        storage = "float32"
+    if storage not in _STORAGE:
+        raise ValueError(f"storage must be auto|float32|float64, got {storage!r}")
+    return _STORAGE[storage]
+
+
+def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
+            device) -> BSGMatrix:
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    return BSGMatrix(
+        slice_ptr=torch.from_numpy(slice_ptr).to(dev),
+        cols=torch.from_numpy(cols).to(dev),
+        vals=torch.from_numpy(vals).to(dev),
+        diag=torch.from_numpy(diag).to(dev),
+        perm=torch.from_numpy(perm).to(dev) if perm is not None else None,
+        n_rows=int(n_rows),
+        n_cols=int(n_cols),
+        n_pad=int(n_pad),
+        x_len=int(x_len),
+    )
+
+
+def bsg_from_csr(
+    csr: CSRMatrix,
+    *,
+    reorder: bool = True,
+    perm: Optional[np.ndarray] = None,
+    storage: str = "auto",
+    device=None,
+) -> BSGMatrix:
+    """Pack a square CSR matrix as a sliced-ELL operator.
+
+    ``reorder=True`` applies the RCM symmetric permutation first (tighter
+    column clusters per slice: fewer x cache lines per warp); ``perm``
+    adopts a given permutation instead (e.g. a JAX operator's ``perm``).
+    ``storage="auto"`` stores float32 (the widest type the JAX BSG stores;
+    exact for the graph Laplacian); ``"float64"`` keeps f64 coefficients.
+    The padded length is a multiple of 1024, as in the JAX BSG layout."""
+    if csr.shape[0] != csr.shape[1]:
+        raise ValueError("bsg_from_csr requires a square operator")
+    import scipy.sparse as sp
+
+    n = csr.n_rows
+    if perm is None and reorder:
+        perm = _rcm_perm(csr)
+    S = sp.csr_matrix(
+        (np.asarray(csr.data), np.asarray(csr.indices), np.asarray(csr.indptr)),
+        shape=csr.shape,
+    )
+    if perm is not None:
+        perm = np.asarray(perm, dtype=np.int64)
+        order = np.empty(n, dtype=np.int64)
+        order[perm] = np.arange(n, dtype=np.int64)
+        S = S[order][:, order]
+    S = S.tocsr()
+    S.sort_indices()
+    n_pad = max(1, -(-n // TILE)) * TILE
+    vdt = _storage_dtype(storage)
+    slice_ptr, cols, vals = sell_pack(
+        S.indptr, S.indices, S.data, n_pad,
+        value_dtype=np.float32 if vdt == torch.float32 else np.float64,
+    )
+    diag = np.zeros(n_pad, dtype=np.float32)
+    diag[:n] = S.diagonal().astype(np.float32)
+    return _upload(slice_ptr, cols, vals, diag, perm, n, n, n_pad, n_pad,
+                   device)
+
+
+def bsg_from_coo(
+    rows,
+    cols,
+    data,
+    n_rows: int,
+    x_len: int,
+    *,
+    storage: str = "auto",
+    device=None,
+) -> BSGMatrix:
+    """Pack an arbitrary (possibly rectangular) COO pattern.
+
+    ``rows`` index the output space ``[0, n_rows)`` and ``cols`` the input
+    space ``[0, x_len)``; both numberings are taken as given.  Duplicate
+    entries are kept as separate slots (their products are summed).  The
+    output space is padded to a multiple of 1024 rows; ``matvec`` takes
+    inputs of length <= ``x_len`` (shorter ones are zero-extended)."""
+    rows = np.ascontiguousarray(rows, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    data = np.ascontiguousarray(data, np.float64)
+    if cols.size and (cols.min() < 0 or cols.max() >= x_len):
+        raise ValueError("column index outside [0, x_len)")
+    if rows.size and (rows.min() < 0 or rows.max() >= n_rows):
+        raise ValueError("row index outside [0, n_rows)")
+    o = np.lexsort((cols, rows))
+    rows, cols, data = rows[o], cols[o], data[o]
+    n_pad = max(1, -(-int(n_rows) // TILE)) * TILE
+    indptr = np.zeros(int(n_rows) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=int(n_rows)), out=indptr[1:])
+    vdt = _storage_dtype(storage)
+    slice_ptr, cols_s, vals_s = sell_pack(
+        indptr, cols, data, n_pad,
+        value_dtype=np.float32 if vdt == torch.float32 else np.float64,
+    )
+    diag = np.zeros(n_pad, dtype=np.float32)
+    return _upload(slice_ptr, cols_s, vals_s, diag, None, n_rows, x_len, n_pad,
+                   x_len, device)

@@ -1,0 +1,686 @@
+"""Smoothed-aggregation algebraic multigrid (SA-AMG), unstructured chain.
+
+Counterpart of the JAX package's ``solvers/precond/amg.py`` for the path
+the flagship unstructured solve runs: a sliced-ELL fine operator
+(``fine_operator=``), greedy aggregation, Jacobi-smoothed prolongators in
+factored form, rectangular sliced-ELL tentative transfers ``G``/``GT``
+above ``bsg_transfer_min_rows``, host-RCM-relabelled sliced-ELL mid levels
+above ``bsg_level_min_rows``, explicit ELL ``P``/``R`` below, and a dense
+coarse inverse.
+
+- **Setup on host** (NumPy, scipy and the native library, run once): the
+  same functions as the JAX package, so both build the same hierarchy.
+- **Apply on device**: the V-cycle in PyTorch; every level operator, every
+  Chebyshev and residual matvec and the ``G``/``GT`` transfers run through
+  the sliced-ELL SpMV kernel.  The selection gather and segment sum of
+  :class:`FactoredProlongator` are ``index_select`` and ``index_add_``.
+
+Not in this slice (each raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item): the brick and pad-brick geometric transfers and the
+DIA / lattice-stencil level operators (structured path), and
+``level_info_out`` (the distributed hierarchy builders).  Every padded
+length is a multiple of 1024, the sliced-ELL operators' padding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ...ops.bsg import TILE, BSGMatrix, bsg_from_coo, bsg_from_csr
+from ...ops.csr import CSRMatrix
+from ...ops.dia import choose_operator
+from ...ops.ell import ell_from_csr
+from .cheby import chebyshev_smooth
+
+__all__ = [
+    "AMGLevel",
+    "AMGPreconditioner",
+    "BSGTransferProlongator",
+    "FactoredProlongator",
+    "FactoredRestriction",
+    "aggregate_greedy",
+    "infer_free_grid",
+    "smoothed_aggregation_setup",
+]
+
+_STRUCTURED = "the structured path (ROADMAP.md, Queue 1, item 7)"
+_DISTRIBUTED = "multi-device (ROADMAP.md, Queue 1, item 9)"
+
+
+# ---------------------------------------------------------------------------
+# Host-side setup (identical to the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _to_scipy(A: CSRMatrix):
+    """Zero-copy scipy view of a canonical CSRMatrix (READ-ONLY use).
+
+    The tuple constructor unifies index dtypes by copying data + indices
+    (~160 MB at 1M DOF).  Assembly already emits canonical sorted CSR, so
+    validation is skipped and the arrays are shared; only indptr is cast to
+    the index dtype (n_rows * 4 bytes).  Callers must not mutate the result
+    in place."""
+    import scipy.sparse as sp
+
+    nnz = int(A.indptr[-1])
+    if A.indices.dtype == np.int32 and nnz <= np.iinfo(np.int32).max:
+        idx_t = np.int32
+        indices = A.indices
+    else:
+        idx_t = np.int64
+        indices = (
+            A.indices
+            if A.indices.dtype == np.int64
+            else A.indices.astype(np.int64)
+        )
+    indptr = A.indptr if A.indptr.dtype == idx_t else A.indptr.astype(idx_t)
+    S = sp.csr_matrix(A.shape, dtype=A.data.dtype)
+    S.data, S.indices, S.indptr = A.data, indices, indptr
+    return S
+
+
+def _from_scipy(S) -> CSRMatrix:
+    S = S.tocsr()
+    S.sort_indices()
+    return CSRMatrix(
+        indptr=S.indptr.astype(np.int64),
+        indices=S.indices.astype(np.int64),
+        data=S.data.astype(np.float64),
+        shape=S.shape,
+    )
+
+
+def aggregate_greedy(A: CSRMatrix, theta: float = 0.0) -> np.ndarray:
+    """Standard greedy aggregation on the strength graph.
+
+    Returns ``agg[i]`` = aggregate id per node.  Three passes (Vanek et al.):
+    root aggregates over fully-free neighborhoods, attachment of leftovers to
+    adjacent aggregates, then singleton/new aggregates for stragglers.
+    ``theta`` filters weak couplings |a_ij| < theta*sqrt(a_ii a_jj).
+    """
+    n = A.n_rows
+    indptr, indices, data = A.indptr, A.indices, A.data
+    diag = A.diagonal()
+
+    # Native fast path: strength filter applied inline in C++ — no
+    # materialized filtered graph (the numpy repeat/mask/bincount/gather
+    # preamble alone cost ~5 s of the 6.35 s aggregation at 3.2M rows).
+    from ...utils.native import aggregate_greedy_filtered_native
+
+    res = aggregate_greedy_filtered_native(
+        indptr, indices, data, diag, theta, n
+    )
+    if res is not None:
+        return res[0]
+
+    agg = np.full(n, -1, dtype=np.int64)
+    # Strength filter mask per nonzero.
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    strong = (rows != indices) & (
+        np.abs(data) >= theta * np.sqrt(np.abs(diag[rows] * diag[indices]) + 1e-300)
+    )
+
+    # Pass 1: roots with entirely unaggregated strong neighborhoods.
+    next_agg = 0
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        lo, hi = indptr[i], indptr[i + 1]
+        nbrs = indices[lo:hi][strong[lo:hi]]
+        if (agg[nbrs] == -1).all():
+            agg[i] = next_agg
+            agg[nbrs] = next_agg
+            next_agg += 1
+    # Pass 2: attach leftovers to a neighboring aggregate.
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        lo, hi = indptr[i], indptr[i + 1]
+        nbrs = indices[lo:hi][strong[lo:hi]]
+        assigned = nbrs[agg[nbrs] != -1]
+        if assigned.size:
+            agg[i] = agg[assigned[0]]
+    # Pass 3: new aggregates for isolated stragglers.
+    for i in range(n):
+        if agg[i] == -1:
+            agg[i] = next_agg
+            next_agg += 1
+    return agg
+
+
+def _filter_weak_entries(S, tol: float):
+    """Drop off-diagonal |a_ij| < tol*sqrt(a_ii a_jj), lumping the dropped
+    values into the diagonal (row sums preserved)."""
+    import scipy.sparse as sp
+
+    S = S.tocoo()
+    d = np.abs(S.tocsr().diagonal())
+    d = np.where(d != 0, d, 1.0)
+    weak = (S.row != S.col) & (
+        np.abs(S.data) < tol * np.sqrt(d[S.row] * d[S.col])
+    )
+    lump = np.zeros(S.shape[0])
+    np.add.at(lump, S.row[weak], S.data[weak])
+    keep = ~weak
+    out = sp.csr_matrix(
+        (S.data[keep], (S.row[keep], S.col[keep])), shape=S.shape
+    )
+    out = out + sp.diags(lump)
+    out.sum_duplicates()
+    return out.tocsr()
+
+
+def _lmax_dinv_a_host(S) -> float:
+    """Power-method estimate of lambda_max(D^-1 A) on the host CSR.
+
+    D^-1 A is applied as matvec-then-divide (no ``Dinv @ S`` spgemm).
+    Above 1.5M rows the matrix is recast to f32 values + int32 indices
+    first (half the memory traffic of the 20 power matvecs), gated so small
+    hierarchies stay bit-identical.  The JAX package's own function, which
+    this one copies, records why the power estimate is kept over the
+    Gershgorin bound (2.0): the bound overshoots the top of the spectrum of
+    tet meshes, shrinking omega/lmax and lifting the Chebyshev interval off
+    the true spectrum, which costs CG+AMG iterations."""
+    if S.shape[0] > 1_500_000 and S.nnz < 2**31:
+        import scipy.sparse as sp
+
+        S = sp.csr_matrix(
+            (
+                S.data.astype(np.float32),
+                S.indices.astype(np.int32),
+                S.indptr.astype(np.int32),
+            ),
+            shape=S.shape,
+        )
+    d = S.diagonal()
+    d = np.where(d != 0, d, 1.0)
+    rng = np.random.default_rng(0)
+    q = rng.uniform(size=S.shape[0])
+    q /= np.linalg.norm(q)
+    q = q.astype(S.dtype, copy=False)  # f64 q would upcast the matvec
+    lam = 1.0
+    for _ in range(20):
+        z = (S @ q) / d  # one matvec per iteration: lam = q.z with unit q
+        nz = np.linalg.norm(z)  # is the same Rayleigh estimate the old
+        if nz == 0:  # two-matvec form computed, at half the cost
+            return 1.0
+        lam = q @ z
+        q = z / nz
+    # 5% safety factor: the power method underestimates lambda_max when the
+    # top eigenvalues cluster (measured 6-8% short at 20^3 boxes with few
+    # iterations); containment matters more than a slightly tighter
+    # Chebyshev interval.
+    return float(abs(lam)) * 1.05
+
+
+def _count_diagonals_capped(csr, cap: int) -> int:
+    """Number of distinct diagonals, early-exiting once > ``cap``.
+
+    Replaces ``np.unique(indices - rows)`` whose nnz-sized sort cost
+    seconds at 10M DOF; one chunked pass over a (2n+1)-slot bitmap."""
+    n = csr.n_rows
+    indptr = np.asarray(csr.indptr)
+    indices = np.asarray(csr.indices)
+    seen = np.zeros(2 * n + 1, dtype=bool)
+    step = max(1, n // 16)
+    count = 0
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        lo, hi = int(indptr[r0]), int(indptr[r1])
+        rows_c = np.repeat(
+            np.arange(r0, r1, dtype=np.int64), np.diff(indptr[r0 : r1 + 1])
+        )
+        seen[indices[lo:hi] - rows_c + n] = True
+        count = int(seen.sum())
+        if count > cap:
+            return count
+    return count
+
+
+def infer_free_grid(mesh, free_to_node) -> Optional[Tuple[int, int, int]]:
+    """Detect a lexicographic free-node grid: returns (mx, my, mz) with
+    free index == ix + mx*(iy + my*iz), or None for unstructured meshes.
+
+    Host-side check over coordinate ranks (generated box meshes number
+    nodes x-fastest and Dirichlet elimination preserves order, so free
+    nodes of a box form exactly such a grid)."""
+    c = np.asarray(mesh.coords)[np.asarray(free_to_node)]
+    if c.shape[1] != 3:
+        return None
+    n = c.shape[0]
+    ux, uy, uz = (np.unique(c[:, k]) for k in range(3))
+    if ux.size * uy.size * uz.size != n:
+        return None
+    ix = np.searchsorted(ux, c[:, 0])
+    iy = np.searchsorted(uy, c[:, 1])
+    iz = np.searchsorted(uz, c[:, 2])
+    mx, my = ux.size, uy.size
+    if not np.array_equal(ix + mx * (iy + my * iz), np.arange(n)):
+        return None
+    return (int(ux.size), int(uy.size), int(uz.size))
+
+
+def _tile_pad(n: int) -> int:
+    return max(1, -(-int(n) // TILE)) * TILE
+
+
+# ---------------------------------------------------------------------------
+# Device-side transfer operators and the V-cycle
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FactoredProlongator:
+    """Smoothed prolongator ``P = (I - (omega/lmax) D^-1 A) T`` applied in
+    factored form: one selection gather plus a fine-level matvec; ``R = P^T``
+    through symmetry: ``R r = T^T (r - omega D^-1 A r)``."""
+
+    agg: torch.Tensor  # (n_pad_f,) int64 aggregate per fine row (0 on padding)
+    tval: torch.Tensor  # (n_pad_f,) tentative weight (0 on padding)
+    scale: torch.Tensor  # (n_pad_f,) omega/lmax * 1/diag (0 on padding)
+    A: object  # fine-level operator with .matvec
+    n_pad_c: int
+
+    def matvec(self, x_c: torch.Tensor) -> torch.Tensor:
+        t = self.tval * x_c.index_select(0, self.agg)
+        return t - self.scale * self.A.matvec(t)
+
+    def rmatvec(self, r: torch.Tensor) -> torch.Tensor:
+        s = r - self.A.matvec(self.scale * r)
+        out = r.new_zeros(self.n_pad_c)
+        return out.index_add_(0, self.agg, self.tval * s)
+
+
+@dataclasses.dataclass
+class BSGTransferProlongator:
+    """Factored smoothed prolongator whose tentative transfers are
+    rectangular sliced-ELL operators: ``G`` holds T with tval folded in
+    (fine internal rows x coarse cols), ``GT`` its transpose."""
+
+    G: BSGMatrix
+    GT: BSGMatrix
+    scale: torch.Tensor
+    A: object
+    n_pad_c: int
+
+    def matvec(self, x_c: torch.Tensor) -> torch.Tensor:
+        t = self.G.matvec(x_c)
+        return t - self.scale * self.A.matvec(t)
+
+    def rmatvec(self, r: torch.Tensor) -> torch.Tensor:
+        s = r - self.A.matvec(self.scale * r)
+        return self.GT.matvec(s)[: self.n_pad_c]
+
+
+def _build_bsg_transfers(agg, counts, rows_int, n_c, n_pad_f, n_pad_c,
+                         device=None):
+    """Pack T (tval folded in) and T^T as rectangular sliced-ELL operators
+    with float32 values, as the JAX package packs them (``storage=
+    "float32"``).  ``rows_int``: internal row per original fine row;
+    ``agg``/``counts`` in the first-appearance coarse numbering."""
+    tval = (1.0 / np.sqrt(counts))[agg]
+    G = bsg_from_coo(rows_int, agg, tval, n_pad_f, n_pad_c,
+                     storage="float32", device=device)
+    GT = bsg_from_coo(agg, rows_int, tval, n_c, n_pad_f,
+                      storage="float32", device=device)
+    return G, GT
+
+
+@dataclasses.dataclass
+class FactoredRestriction:
+    """R = P^T for a factored prolongator (shares its arrays)."""
+
+    P: object
+
+    def matvec(self, r: torch.Tensor) -> torch.Tensor:
+        return self.P.rmatvec(r)
+
+
+@dataclasses.dataclass
+class AMGLevel:
+    A: object  # level operator (padded), .matvec
+    P: object  # prolongation: coarse -> this level
+    R: object  # restriction: this level -> coarse
+    inv_diag: torch.Tensor  # 1/diag(A), padded with 1
+    lmax: torch.Tensor  # 0-d CPU tensor: lambda_max(D^-1 A)
+    n_rows: int
+
+
+@dataclasses.dataclass
+class AMGPreconditioner:
+    """One V-cycle with Chebyshev smoothing per apply."""
+
+    levels: List[AMGLevel]
+    coarse_inv: torch.Tensor  # dense inverse of the coarsest operator (padded)
+    smooth_steps: int = 2
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels) + 1
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self._vcycle(0, r)
+
+    def _smooth(self, lvl: AMGLevel, x, b, x_zero: bool = False):
+        return chebyshev_smooth(
+            lvl.A.matvec, lvl.inv_diag, lvl.lmax, self.smooth_steps, x, b,
+            x_zero=x_zero,
+        )
+
+    def _vcycle(self, k: int, b: torch.Tensor) -> torch.Tensor:
+        if k == len(self.levels):
+            if self.coarse_inv.dim() == 1:  # diagonal fallback (stalled agg)
+                return self.coarse_inv * b
+            # TF32 is off here: this is a matrix-vector product (cuBLAS
+            # gemv, which has no TF32 path), and torch.mv keeps full
+            # float32 / float64 precision.
+            return torch.mv(self.coarse_inv, b)
+        lvl = self.levels[k]
+        x = self._smooth(lvl, torch.zeros_like(b), b, x_zero=True)
+        r_c = lvl.R.matvec(b - lvl.A.matvec(x))
+        x_c = self._vcycle(k + 1, r_c)
+        x = x + lvl.P.matvec(x_c)
+        return self._smooth(lvl, x, b)
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _inv_diag_padded(A: CSRMatrix, n_pad: int, dtype, device) -> torch.Tensor:
+    d = A.diagonal()
+    d = np.where(d != 0, d, 1.0)
+    out = np.ones(n_pad, dtype=_np_dtype(dtype))
+    out[: d.size] = (1.0 / d).astype(_np_dtype(dtype))
+    return _to_device(out, device)
+
+
+def _np_dtype(dtype) -> np.dtype:
+    return np.dtype(str(dtype).replace("torch.", ""))
+
+
+def smoothed_aggregation_setup(
+    A: CSRMatrix,
+    dtype=torch.float32,
+    theta: float = 0.0,
+    omega: float = 4.0 / 3.0,
+    max_levels: int = 10,
+    coarse_size: int = 64,
+    smooth_steps: int = 2,
+    filter_tol: Union[float, str] = "auto",
+    aggressive_levels: Union[int, str] = "auto",
+    grid_dims: Optional[Tuple[int, int, int]] = None,
+    fine_operator=None,
+    level_info_out: Optional[list] = None,
+    timings_out: Optional[dict] = None,
+    bsg_level_min_rows: int = 100_000,
+    bsg_transfer_min_rows: int = 200_000,
+    device=None,
+) -> AMGPreconditioner:
+    """Build the SA-AMG hierarchy from the host CSR operator.
+
+    The same hierarchy as the JAX function for the parameters kept here (its
+    structured-path options and its Jacobi smoother and multi-cycle apply
+    are not ported), plus ``device`` (default: the fine operator's device,
+    else the CPU).
+    ``fine_operator``: a prebuilt sliced-ELL level-0 operator, possibly
+    RCM-permuted; the fine level of the V-cycle then lives in its internal
+    space, and the caller's CG must use the same operator.  With it, coarse
+    levels above ``bsg_level_min_rows`` rows are sliced-ELL operators in a
+    host-RCM-relabelled identity space, transfers of levels with at least
+    ``bsg_transfer_min_rows`` rows are rectangular sliced-ELL ``G``/``GT``,
+    and ``filter_tol="auto"`` is 0.005 (0.01 without the chain)."""
+    import scipy.sparse as sp
+
+    if level_info_out is not None:
+        raise NotImplementedError(f"level_info_out: {_DISTRIBUTED}")
+    _tm = {} if timings_out is None else timings_out
+    _last = [time.perf_counter()]
+
+    def _mark(name):
+        now = time.perf_counter()
+        _tm[name] = _tm.get(name, 0.0) + (now - _last[0])
+        _last[0] = now
+
+    if fine_operator is not None and not isinstance(fine_operator, BSGMatrix):
+        raise NotImplementedError(
+            f"fine_operator of type {type(fine_operator).__name__}: "
+            f"{_STRUCTURED}"
+        )
+    if device is None:
+        device = (fine_operator.device if fine_operator is not None
+                  else torch.device("cpu"))
+    device = torch.device(device)
+    np_dt = _np_dtype(dtype)
+
+    levels: List[AMGLevel] = []
+    A_k = _to_scipy(A)
+    use_fine_op = fine_operator is not None
+    if use_fine_op and fine_operator.n_rows != A.n_rows:
+        raise ValueError("fine_operator does not match A")
+    n_pads = [fine_operator.n_pad if use_fine_op else _tile_pad(A.n_rows)]
+
+    if grid_dims is not None and int(np.prod(grid_dims)) == A.n_rows:
+        raise NotImplementedError(f"brick transfers (grid_dims): {_STRUCTURED}")
+    if aggressive_levels == "auto":
+        if use_fine_op:
+            aggressive_levels = 0
+        elif A.n_rows > 200_000:
+            ndiags = _count_diagonals_capped(A, 64)
+            aggressive_levels = 1 if ndiags <= 64 else 0
+        else:
+            aggressive_levels = 0
+    _mark("diag_probe")
+
+    if filter_tol == "auto":
+        filter_tol = 0.005 if use_fine_op else 0.01
+    mid_bsg = False  # this level is a chain level (host-RCM identity space)
+    while A_k.shape[0] > coarse_size and len(levels) < max_levels - 1:
+        csr_k = A if len(levels) == 0 else _from_scipy(A_k)
+        this_bsg = use_fine_op if len(levels) == 0 else mid_bsg
+        if len(levels) == 0 and grid_dims is not None:
+            import warnings
+
+            warnings.warn(
+                f"grid_dims {tuple(grid_dims)} does not match the operator "
+                f"size {A_k.shape[0]}; falling back to greedy aggregation "
+                f"(gathered transfers)",
+                stacklevel=2,
+            )
+        agg = aggregate_greedy(csr_k, theta=theta)
+        if len(levels) < aggressive_levels:
+            n_c1 = int(agg.max()) + 1 if agg.size else 0
+            if 0 < n_c1 < A_k.shape[0]:
+                # Second round on the (unsmoothed) aggregate graph; compose.
+                from ...utils.native import rap_galerkin_native
+
+                T1 = sp.csr_matrix(
+                    (np.ones(A_k.shape[0]), (np.arange(A_k.shape[0]), agg)),
+                    shape=(A_k.shape[0], n_c1),
+                )
+                T1.sort_indices()
+                g = rap_galerkin_native(
+                    A_k.indptr, A_k.indices, A_k.data,
+                    T1.indptr, T1.indices, T1.data,
+                    A_k.shape[0], n_c1,
+                )
+                if g is not None:
+                    G = sp.csr_matrix((g[2], g[1], g[0]), shape=(n_c1, n_c1))
+                else:
+                    G = (T1.T @ A_k @ T1).tocsr()
+                G.sum_duplicates()
+                agg2 = aggregate_greedy(_from_scipy(G), theta=theta)
+                agg = agg2[agg]
+        n_c = int(agg.max()) + 1 if agg.size else 0
+        _mark("aggregate")
+        if n_c >= A_k.shape[0] or n_c == 0:
+            break  # aggregation stalled
+        coarse_bsg = this_bsg and n_c > bsg_level_min_rows
+        bsg_tx_level = this_bsg and A_k.shape[0] >= bsg_transfer_min_rows
+        counts = np.bincount(agg, minlength=n_c).astype(np.float64)
+        d = A_k.diagonal()
+        d = np.where(d != 0, d, 1.0)
+        lmax = _lmax_dinv_a_host(A_k)
+        _mark("lmax")
+        from ...utils.native import rap_galerkin_native, sa_prolongator_native
+
+        tval = 1.0 / np.sqrt(counts)
+        ps = sa_prolongator_native(
+            A_k.indptr, A_k.indices, A_k.data, agg, tval,
+            (omega / lmax) / d, A_k.shape[0], n_c,
+        )
+        if ps is not None:
+            Pp, Pi, Px = ps
+            P = None
+        else:
+            T = sp.csr_matrix(
+                (tval[agg], (np.arange(A_k.shape[0]), agg)),
+                shape=(A_k.shape[0], n_c),
+            )
+            Dinv = sp.diags(1.0 / d)
+            P = (T - (omega / lmax) * (Dinv @ (A_k @ T))).tocsr()
+            P.sort_indices()
+            Pp, Pi, Px = P.indptr, P.indices, P.data
+        _mark("prolongator")
+        rap = rap_galerkin_native(
+            A_k.indptr, A_k.indices, A_k.data, Pp, Pi, Px, A_k.shape[0], n_c,
+        )
+        if rap is not None:
+            Cp, Ci, Cx = rap
+            A_c = sp.csr_matrix((Cx, Ci, Cp), shape=(n_c, n_c))
+        else:
+            if P is None:
+                P = sp.csr_matrix((Px, Pi, Pp), shape=(A_k.shape[0], n_c))
+            A_c = (P.T.tocsr() @ (A_k @ P)).tocsr()
+        A_c.sum_duplicates()
+        if filter_tol > 0:
+            A_c = _filter_weak_entries(A_c, filter_tol)
+        if coarse_bsg or bsg_tx_level:
+            # Relabel the coarse space (JAX amg.py:968-1006): by first
+            # appearance along the fine internal order when this level's
+            # transfers are sliced-ELL G/GT, else by coarse-graph RCM.
+            if bsg_tx_level:
+                if len(levels) == 0 and fine_operator.perm is not None:
+                    seq = agg[np.argsort(fine_operator.perm.cpu().numpy())]
+                else:
+                    seq = agg
+                u, first = np.unique(seq, return_index=True)
+                order_c = u[np.argsort(first)].astype(np.int64)
+            else:
+                from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+                order_c = np.asarray(
+                    reverse_cuthill_mckee(A_c, symmetric_mode=True)
+                ).astype(np.int64)
+            perm_c = np.empty(n_c, dtype=np.int64)
+            perm_c[order_c] = np.arange(n_c, dtype=np.int64)
+            A_c = A_c[order_c][:, order_c].tocsr()
+            A_c.sort_indices()
+            agg = perm_c[agg]
+            counts = counts[order_c]
+        _mark("rap")
+
+        n_pad_f = n_pads[-1]
+        n_pad_c = _tile_pad(n_c)
+        fine_bsg = use_fine_op and len(levels) == 0
+        if fine_bsg:
+            lvl_A = fine_operator
+        elif this_bsg:
+            # Chain level: csr_k is already in this level's (host-RCM)
+            # order, so the operator's internal space is the identity.
+            lvl_A = bsg_from_csr(csr_k, reorder=False, device=device)
+        else:
+            lvl_A = choose_operator(csr_k, dtype=dtype, device=device)
+        if lvl_A.n_pad != n_pad_f:
+            raise AssertionError((lvl_A.n_pad, n_pad_f))
+        _mark("level_op")
+
+        n_f = A_k.shape[0]
+        if fine_bsg or this_bsg:
+            # Factored transfers in the level operator's internal space:
+            # scatter the per-fine-row arrays through its perm (identity on
+            # chain mid levels); padding rows keep tval = 0.
+            if fine_bsg and fine_operator.perm is not None:
+                perm = fine_operator.perm.cpu().numpy()
+            else:
+                perm = np.arange(n_f, dtype=np.int64)
+            tval_pad = np.zeros(n_pad_f, dtype=np_dt)
+            tval_pad[perm] = 1.0 / np.sqrt(counts[agg])
+            scale_pad = np.zeros(n_pad_f, dtype=np_dt)
+            scale_pad[perm] = (omega / lmax) / d
+            scale_dev = _to_device(scale_pad, device)
+            if bsg_tx_level:
+                G, GT = _build_bsg_transfers(
+                    agg, counts, perm[:n_f], n_c, n_pad_f, n_pad_c, device
+                )
+                P_op = BSGTransferProlongator(
+                    G=G, GT=GT, scale=scale_dev, A=lvl_A, n_pad_c=n_pad_c
+                )
+            else:
+                agg_pad = np.zeros(n_pad_f, dtype=np.int64)
+                agg_pad[perm] = agg
+                P_op = FactoredProlongator(
+                    agg=_to_device(agg_pad, device),
+                    tval=_to_device(tval_pad, device),
+                    scale=scale_dev,
+                    A=lvl_A,
+                    n_pad_c=n_pad_c,
+                )
+            R_op = FactoredRestriction(P=P_op)
+            if fine_bsg:
+                inv_d = np.ones(n_pad_f, dtype=np_dt)
+                inv_d[perm] = (1.0 / d).astype(np_dt)
+                inv_diag = _to_device(inv_d, device)
+            else:
+                inv_diag = _inv_diag_padded(csr_k, n_pad_f, dtype, device)
+        else:
+            # Explicit ELL P and R (JAX amg.py:1198-1204).
+            if P is None:
+                P = sp.csr_matrix((Px, Pi, Pp), shape=(n_f, n_c))
+            R = P.T.tocsr()
+            P_op = ell_from_csr(_from_scipy(P), dtype=dtype,
+                                device=device).repad(n_pad_f)
+            R_op = ell_from_csr(_from_scipy(R), dtype=dtype,
+                                device=device).repad(n_pad_c)
+            inv_diag = _inv_diag_padded(csr_k, n_pad_f, dtype, device)
+        levels.append(
+            AMGLevel(
+                A=lvl_A,
+                P=P_op,
+                R=R_op,
+                inv_diag=inv_diag,
+                lmax=torch.tensor(lmax, dtype=dtype),
+                n_rows=n_f,
+            )
+        )
+        A_k = A_c
+        n_pads.append(n_pad_c)
+        mid_bsg = coarse_bsg
+        _mark("transfers")
+
+    # Dense coarse solve, padded with identity outside the logical block.
+    nc = A_k.shape[0]
+    n_pad_c = n_pads[-1]
+    if nc > max(4 * coarse_size, 512):
+        # Aggregation stalled before reaching the target size: Jacobi
+        # "coarse solve" as a 1-D inverse-diagonal vector.
+        d = A_k.diagonal()
+        d = np.where(d != 0, d, 1.0)
+        coarse_inv_diag = np.ones(n_pad_c)
+        coarse_inv_diag[:nc] = 1.0 / d
+        coarse_inv = _to_device(coarse_inv_diag.astype(np_dt), device)
+    else:
+        dense = np.eye(n_pad_c)
+        dense[:nc, :nc] = A_k.toarray()
+        coarse_inv = _to_device(np.linalg.inv(dense).astype(np_dt), device)
+    _mark("coarse")
+    return AMGPreconditioner(
+        levels=levels,
+        coarse_inv=coarse_inv,
+        smooth_steps=smooth_steps,
+    )

@@ -1,0 +1,67 @@
+"""Adopt objects of the JAX package, handed over as numpy arrays.
+
+With these a caller assembles once and feeds both packages the very same
+system and vector space: CSR fields, the right-hand side and the free-node
+map go in as arrays, and :func:`operator_from_csr` can adopt the JAX BSG
+operator's permutation (``np.asarray(A_jax.perm)``).  Nothing here imports
+the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..models.heat import HeatSystem
+from ..ops.bsg import BSGMatrix, bsg_from_csr
+from ..ops.csr import CSRMatrix
+
+__all__ = ["csr_from_numpy", "heat_system_from_numpy", "operator_from_csr"]
+
+
+def csr_from_numpy(indptr, indices, data, shape: Tuple[int, int]) -> CSRMatrix:
+    """A port CSR matrix from CSR arrays (copied, canonical dtypes)."""
+    return CSRMatrix(
+        indptr=np.array(indptr, dtype=np.int64),
+        indices=np.array(indices, dtype=np.int64),
+        data=np.array(data, dtype=np.float64),
+        shape=(int(shape[0]), int(shape[1])),
+    )
+
+
+def heat_system_from_numpy(
+    indptr,
+    indices,
+    data,
+    shape: Tuple[int, int],
+    b,
+    free_to_node,
+    num_nodes: Optional[int] = None,
+    bdry_rows=None,
+    bdry_cols=None,
+) -> HeatSystem:
+    """A port :class:`HeatSystem` from the JAX system's arrays."""
+    A = csr_from_numpy(indptr, indices, data, shape)
+    free_to_node = np.array(free_to_node, dtype=np.int64)
+    n_nodes = (
+        int(num_nodes) if num_nodes is not None
+        else int(free_to_node.max()) + 1 if free_to_node.size else 0
+    )
+    node_to_free = np.full(n_nodes, -1, dtype=np.int64)
+    node_to_free[free_to_node] = np.arange(free_to_node.size)
+    return HeatSystem(
+        A=A,
+        b=np.array(b, dtype=np.float64),
+        free_to_node=free_to_node,
+        node_to_free=node_to_free,
+        degree=A.diagonal(),
+        bdry_rows=None if bdry_rows is None else np.array(bdry_rows),
+        bdry_cols=None if bdry_cols is None else np.array(bdry_cols),
+    )
+
+
+def operator_from_csr(csr: CSRMatrix, perm=None, device=None) -> BSGMatrix:
+    """The port's unstructured operator for ``csr``; ``perm`` (original row
+    -> internal row) adopts a given numbering, e.g. the JAX operator's."""
+    return bsg_from_csr(csr, perm=perm, device=device)
