@@ -10,10 +10,16 @@ Subpackages mirror the JAX package's module paths:
 
 - ``io``: Exodus-II reader/writer, box meshes and uniform refinement.
 - ``models``: steady-state heat assembly.
-- ``ops``: host CSR, the sliced-ELL unstructured operator and its CUDA
-  SpMV kernel, ELL, operator choice.
-- ``solvers``: CG with Jacobi and smoothed-aggregation AMG preconditioning.
-- ``utils``: explicit device resolution, the native host library, adoption
+- ``ops``: host CSR, the sliced-ELL, DIA and lattice-stencil (padded 3-D)
+  operators and their CUDA kernels, ELL, operator choice.
+- ``solvers``: CG (with per-iteration snapshots), Jacobi and
+  smoothed-aggregation AMG preconditioning, mixed-precision iterative
+  refinement.
+- ``parallel``: the element partitioner and the block-per-partition mesh
+  writer.
+- ``cli``: the solve driver.
+- ``utils``: device resolution (the card unless the CPU is asked for), the
+  native host library, phase timers, configuration, debug dumps, adoption
   of the JAX package's arrays.
 """
 

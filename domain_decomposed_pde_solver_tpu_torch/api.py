@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``api.py``: the expensive artifacts (mesh,
 assembly, device operator, AMG hierarchy) are built once per mesh; repeated
 solves reuse them and warm-start from the previous solution.
 
-    solver = SteadyHeatSolver(mesh, dtype=torch.float32, device="cuda")
+    solver = SteadyHeatSolver(mesh, dtype=torch.float32)  # on the card
     u1, res1 = solver.solve()                           # reference BC values
     u2, res2 = solver.solve(bc={100: 80.0, 1000: 25.0})  # new values, warm
 
@@ -28,7 +28,8 @@ __all__ = ["SteadyHeatSolver"]
 
 
 class SteadyHeatSolver:
-    """Reusable steady-state heat solver bound to one mesh and one device."""
+    """Reusable steady-state heat solver bound to one mesh and one device
+    (``device`` defaults to the card; pass ``"cpu"`` for the CPU)."""
 
     def __init__(
         self,
@@ -46,13 +47,14 @@ class SteadyHeatSolver:
         self.mesh = mesh
         self.dtype = dtype if dtype is not None else torch.float64
         self.system: HeatSystem = assemble_heat_system(mesh)
-        # A lexicographic free-node grid (structured box) makes the AMG
-        # setup raise until the structured slice is ported.
+        # Fastest format for the mesh class, as JAX chooses: the lattice
+        # stencil (f32) or DIA (f64) on lexicographic grids, the sliced-ELL
+        # operator (RCM, the SpMV kernel) on unstructured meshes, which the
+        # AMG hierarchy then takes as its fine level.
         self._grid_dims = infer_free_grid(mesh, self.system.free_to_node)
-        # The unstructured route (RCM sliced ELL through the SpMV kernel)
-        # serves the AMG hierarchy as its fine level via fine_operator.
         self.operator = choose_operator(
-            self.system.A, dtype=self.dtype, bsg="auto", device=self.device
+            self.system.A, dtype=self.dtype, grid_dims=self._grid_dims,
+            bsg="auto", device=self.device,
         )
         self._precond_kind = precond
         self._precond = self._build_precond(precond)
@@ -72,13 +74,16 @@ class SteadyHeatSolver:
         if kind == "jacobi":
             return jacobi_preconditioner(self.operator)
         if kind == "amg":
+            from .ops.bsg import BSGMatrix
             from .solvers.precond.amg import smoothed_aggregation_setup
 
             return smoothed_aggregation_setup(
                 self.system.A,
                 dtype=self.dtype,
                 grid_dims=self._grid_dims,
-                fine_operator=self.operator,
+                fine_operator=(self.operator
+                               if isinstance(self.operator, BSGMatrix)
+                               else None),
                 device=self.device,
             )
         return None

@@ -1,10 +1,13 @@
-"""Sparse formats: host CSR, the sliced-ELL device operator and its CUDA
-SpMV kernel, padded ELL, and operator choice."""
+"""Sparse formats: host CSR, the sliced-ELL, DIA and lattice-stencil
+device operators with their CUDA kernels, padded ELL, and operator
+choice."""
 
 from .csr import CSRMatrix, coo_to_csr
 from .bsg import BSGMatrix, bsg_from_coo, bsg_from_csr, bsg_spmv, spmv_plain
 from .ell import ELLMatrix, ell_from_csr, pad_to, pad_vector, unpad_vector
-from .dia import choose_operator
+from .dia import DIAMatrix, choose_operator, dia_from_csr, operator_bytes
+from .stencil import StencilOperator, stencil_from_csr
+from .stencil_kernel import PadStencilOperator, pad_stencil_from_parts
 
 __all__ = [
     "CSRMatrix",
@@ -19,5 +22,12 @@ __all__ = [
     "pad_to",
     "pad_vector",
     "unpad_vector",
+    "DIAMatrix",
     "choose_operator",
+    "dia_from_csr",
+    "operator_bytes",
+    "StencilOperator",
+    "stencil_from_csr",
+    "PadStencilOperator",
+    "pad_stencil_from_parts",
 ]

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .csr import CSRMatrix
 
 __all__ = [
@@ -163,8 +164,10 @@ def spmv_plain(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
     xe = torch.cat([x_padded, x_padded.new_zeros(1)])
     idx = A.cols.to(torch.int64).clamp_(max=n_x)
     prod = A.vals.to(x_padded.dtype) * xe[idx]
-    y = x_padded.new_zeros(A.n_pad)
-    return y.index_add_(0, A.slot_row(), prod)
+    # The last slice may run past n_pad (a multiple of 8); its extra rows
+    # hold padding slots only.
+    y = x_padded.new_zeros((A.slice_ptr.numel() - 1) * SLICE)
+    return y.index_add_(0, A.slot_row(), prod)[: A.n_pad]
 
 
 def bsg_spmv(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
@@ -238,7 +241,7 @@ def _storage_dtype(storage: str) -> torch.dtype:
 
 def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
             device) -> BSGMatrix:
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     return BSGMatrix(
         slice_ptr=torch.from_numpy(slice_ptr).to(dev),
         cols=torch.from_numpy(cols).to(dev),
@@ -258,6 +261,7 @@ def bsg_from_csr(
     reorder: bool = True,
     perm: Optional[np.ndarray] = None,
     storage: str = "auto",
+    row_multiple: int = TILE,
     device=None,
 ) -> BSGMatrix:
     """Pack a square CSR matrix as a sliced-ELL operator.
@@ -267,7 +271,9 @@ def bsg_from_csr(
     adopts a given permutation instead (e.g. a JAX operator's ``perm``).
     ``storage="auto"`` stores float32 (the widest type the JAX BSG stores;
     exact for the graph Laplacian); ``"float64"`` keeps f64 coefficients.
-    The padded length is a multiple of 1024, as in the JAX BSG layout."""
+    The padded length is a multiple of ``row_multiple``: 1024 by default,
+    as in the JAX BSG layout; AMG levels outside the BSG chain pad to 8, as
+    the JAX package pads its ELL levels.  ``device`` defaults to the card."""
     if csr.shape[0] != csr.shape[1]:
         raise ValueError("bsg_from_csr requires a square operator")
     import scipy.sparse as sp
@@ -286,7 +292,7 @@ def bsg_from_csr(
         S = S[order][:, order]
     S = S.tocsr()
     S.sort_indices()
-    n_pad = max(1, -(-n // TILE)) * TILE
+    n_pad = max(1, -(-n // row_multiple)) * row_multiple
     vdt = _storage_dtype(storage)
     slice_ptr, cols, vals = sell_pack(
         S.indptr, S.indices, S.data, n_pad,

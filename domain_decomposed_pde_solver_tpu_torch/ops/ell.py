@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .csr import CSRMatrix
 
 __all__ = ["ELLMatrix", "ell_from_csr", "pad_to", "pad_vector", "unpad_vector"]
@@ -98,7 +99,8 @@ def ell_from_csr(
     width_multiple: int = 1,
     device=None,
 ) -> ELLMatrix:
-    """Convert host CSR to device ELL (host packing, one upload)."""
+    """Convert host CSR to device ELL (host packing, one upload to
+    ``device``, by default the card)."""
     n_rows, n_cols = csr.shape
     lens = csr.row_lengths()
     k = int(lens.max()) if n_rows else 0
@@ -110,7 +112,7 @@ def ell_from_csr(
     slot = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], lens)
     cols[rows, slot] = csr.indices
     vals64[rows, slot] = csr.data
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     return ELLMatrix(
         cols=torch.from_numpy(cols).to(dev),
         vals=torch.from_numpy(vals64).to(dtype).to(dev),
@@ -124,7 +126,7 @@ def pad_vector(x: np.ndarray, n_pad: int, dtype=None,
     x = torch.as_tensor(np.asarray(x))
     out = torch.zeros(n_pad, dtype=x.dtype if dtype is None else dtype)
     out[: x.numel()] = x
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     return out.to(dev)
 
 

@@ -1,6 +1,12 @@
 """Krylov solvers and preconditioners."""
 
-from .cg import CGResult, IdentityPrecond, cg_solve, cg_solve_with_state
+from .cg import (
+    CGResult,
+    IdentityPrecond,
+    cg_solve,
+    cg_solve_snapshots,
+    cg_solve_with_state,
+)
 from .precond import (
     AMGPreconditioner,
     DiagonalPreconditioner,
@@ -12,6 +18,7 @@ __all__ = [
     "CGResult",
     "IdentityPrecond",
     "cg_solve",
+    "cg_solve_snapshots",
     "cg_solve_with_state",
     "AMGPreconditioner",
     "DiagonalPreconditioner",

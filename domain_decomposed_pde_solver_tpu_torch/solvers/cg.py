@@ -12,11 +12,17 @@ Operators are objects with ``.matvec(x)``; preconditioners are callables.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Optional
 
 import torch
 
-__all__ = ["CGResult", "IdentityPrecond", "cg_solve", "cg_solve_with_state"]
+__all__ = [
+    "CGResult",
+    "IdentityPrecond",
+    "cg_solve",
+    "cg_solve_snapshots",
+    "cg_solve_with_state",
+]
 
 
 class IdentityPrecond:
@@ -97,4 +103,50 @@ def cg_solve_with_state(
             converged=bool(rnorm <= target),
         ),
         (r, p, rz),
+    )
+
+
+def cg_solve_snapshots(
+    A: Any,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    precond: Any = None,
+    tol: float = 1e-14,
+    maxiter: int = 300,
+    callback: Optional[Callable[[int, torch.Tensor, float], None]] = None,
+) -> CGResult:
+    """CG with a host callback after every iteration, ``callback(k, x,
+    relres)``: the reference's per-iteration solution snapshots
+    (``BelosMueLuSolver.cpp:112-133``) on one continuous Krylov
+    recurrence.  The stopping test is JAX's: ``||r|| / ||b|| > tol`` on
+    host floats."""
+    M = precond if precond is not None else IdentityPrecond()
+    bnorm = float(torch.sqrt(torch.dot(b, b)))
+    bnorm = bnorm if bnorm != 0 else 1.0
+    r = b - A.matvec(x0)
+    z = M(r)
+    p = z
+    rz = torch.dot(r, z)
+    x = x0
+    rnorm = float(torch.sqrt(torch.dot(r, r)))
+    k = 0
+    while rnorm / bnorm > tol and k < maxiter:
+        Ap = A.matvec(p)
+        alpha = rz / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        p = z + rz_new / rz * p
+        rz = rz_new
+        rnorm = float(torch.sqrt(torch.dot(r, r)))
+        k += 1
+        if callback is not None:
+            callback(k, x, rnorm / bnorm)
+    return CGResult(
+        x=x,
+        iterations=k,
+        relres=rnorm / bnorm,
+        converged=rnorm / bnorm <= tol,
     )

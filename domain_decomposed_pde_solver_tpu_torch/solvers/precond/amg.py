@@ -1,25 +1,29 @@
-"""Smoothed-aggregation algebraic multigrid (SA-AMG), unstructured chain.
+"""Smoothed-aggregation algebraic multigrid (SA-AMG).
 
-Counterpart of the JAX package's ``solvers/precond/amg.py`` for the path
-the flagship unstructured solve runs: a sliced-ELL fine operator
-(``fine_operator=``), greedy aggregation, Jacobi-smoothed prolongators in
-factored form, rectangular sliced-ELL tentative transfers ``G``/``GT``
-above ``bsg_transfer_min_rows``, host-RCM-relabelled sliced-ELL mid levels
-above ``bsg_level_min_rows``, explicit ELL ``P``/``R`` below, and a dense
-coarse inverse.
+Counterpart of the JAX package's ``solvers/precond/amg.py``:
+
+- the unstructured chain: a sliced-ELL fine operator (``fine_operator=``),
+  greedy aggregation, Jacobi-smoothed prolongators in factored form,
+  rectangular sliced-ELL tentative transfers ``G``/``GT`` above
+  ``bsg_transfer_min_rows``, host-RCM-relabelled sliced-ELL mid levels
+  above ``bsg_level_min_rows``;
+- the structured route: on a lexicographic grid (``grid_dims``), level 0
+  takes ``brick^3`` geometric aggregates with gather-free transfers
+  (:class:`BrickProlongator` in the identity space,
+  :class:`PadBrickProlongator` in a pad-stencil fine operator's padded 3-D
+  space), and coarse levels with stencil structure become DIA operators;
+- elsewhere explicit ELL ``P``/``R``, and a dense coarse inverse.
 
 - **Setup on host** (NumPy, scipy and the native library, run once): the
   same functions as the JAX package, so both build the same hierarchy.
-- **Apply on device**: the V-cycle in PyTorch; every level operator, every
-  Chebyshev and residual matvec and the ``G``/``GT`` transfers run through
-  the sliced-ELL SpMV kernel.  The selection gather and segment sum of
-  :class:`FactoredProlongator` are ``index_select`` and ``index_add_``.
+- **Apply on device**: the V-cycle in PyTorch; every level operator goes
+  through its own product (the sliced-ELL, DIA and pad-stencil kernels on
+  the card).  The selection gather and segment sum of
+  :class:`FactoredProlongator` are ``index_select`` and ``index_add_``; the
+  brick transfers are reshapes, repeats and block sums.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): the brick and pad-brick geometric transfers and the
-DIA / lattice-stencil level operators (structured path), and
-``level_info_out`` (the distributed hierarchy builders).  Every padded
-length is a multiple of 1024, the sliced-ELL operators' padding.
+Not ported: ``level_info_out`` (the distributed hierarchy builders) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -33,22 +37,27 @@ import torch
 
 from ...ops.bsg import TILE, BSGMatrix, bsg_from_coo, bsg_from_csr
 from ...ops.csr import CSRMatrix
-from ...ops.dia import choose_operator
-from ...ops.ell import ell_from_csr
+from ...ops.dia import DIAMatrix, choose_operator
+from ...ops.ell import ell_from_csr, pad_to
+from ...ops.stencil import StencilOperator
+from ...ops.stencil_kernel import PadStencilOperator
+from ...utils.device import resolve_device
 from .cheby import chebyshev_smooth
 
 __all__ = [
     "AMGLevel",
     "AMGPreconditioner",
     "BSGTransferProlongator",
+    "BrickProlongator",
     "FactoredProlongator",
     "FactoredRestriction",
+    "PadBrickProlongator",
     "aggregate_greedy",
+    "brick_aggregate",
     "infer_free_grid",
     "smoothed_aggregation_setup",
 ]
 
-_STRUCTURED = "the structured path (ROADMAP.md, Queue 1, item 7)"
 _DISTRIBUTED = "multi-device (ROADMAP.md, Queue 1, item 9)"
 
 
@@ -218,6 +227,42 @@ def _lmax_dinv_a_host(S) -> float:
     return float(abs(lam)) * 1.05
 
 
+def _pad_brick_level0_device(A_op, brick: int, omega: float, lmax: float,
+                             dtype):
+    """Level-0 transfer and smoother vectors computed on the device in a
+    pad-stencil operator's padded 3-D space, with no n-sized upload.
+
+    - ``tval[i] = 1/sqrt(|aggregate of i|)`` with clamped ``brick^3``
+      aggregates: the aggregate size is a product of per-axis clamped
+      extents, so it is an outer product of three small axis vectors;
+    - ``scale = (omega/lmax) / diag`` and ``inv_diag = 1/diag`` from the
+      operator's own ``diagonal_padded``.  Their pad-slot values are never
+      seen (they multiply vectors that are 0 there); ``tval`` must be 0 on
+      pads, and is."""
+    mx, my, mz = A_op.dims
+    dev = A_op.device
+
+    def axis_counts(m, n_pad, lead):
+        v = np.zeros(n_pad, np.float32)
+        a = np.arange(m) // brick
+        v[lead : lead + m] = np.minimum(brick, m - a * brick)
+        return torch.from_numpy(v).to(dev)
+
+    counts3 = (
+        axis_counts(mz, A_op.Z, 1)[:, None, None]
+        * axis_counts(my, A_op.myp, 1)[None, :, None]
+        * axis_counts(mx, A_op.mxp, 0)[None, None, :]
+    )
+    tval = torch.where(
+        counts3 > 0, 1.0 / torch.sqrt(counts3.clamp_min(1.0)),
+        torch.zeros_like(counts3),
+    ).reshape(-1).to(dtype)
+    dpad = A_op.diagonal_padded(fill=1.0).to(dtype)
+    scale = (omega / lmax) / dpad
+    inv_d = 1.0 / dpad
+    return tval, scale, inv_d
+
+
 def _count_diagonals_capped(csr, cap: int) -> int:
     """Number of distinct diagonals, early-exiting once > ``cap``.
 
@@ -265,8 +310,18 @@ def infer_free_grid(mesh, free_to_node) -> Optional[Tuple[int, int, int]]:
     return (int(ux.size), int(uy.size), int(uz.size))
 
 
-def _tile_pad(n: int) -> int:
-    return max(1, -(-int(n) // TILE)) * TILE
+def brick_aggregate(dims: Tuple[int, int, int], brick: int) -> np.ndarray:
+    """Aggregate id of every node of a lexicographic (mx, my, mz) grid for
+    ``brick^3`` bricks (clamped at the far edges)."""
+    mx, my, mz = dims
+    b = brick
+    ncx, ncy = -(-mx // b), -(-my // b)
+    ax = np.arange(mx, dtype=np.int64) // b
+    ay = ncx * (np.arange(my, dtype=np.int64) // b)
+    az = (ncx * ncy) * (np.arange(mz, dtype=np.int64) // b)
+    return (
+        az[:, None, None] + ay[None, :, None] + ax[None, None, :]
+    ).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +394,99 @@ class FactoredRestriction:
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
         return self.P.rmatvec(r)
+
+
+def _brick_expand(x_c, dims, brick):
+    """T's selection for bricks: coarse (ncz, ncy, ncx) values repeated
+    ``brick`` times along each axis, cut to the (mz, my, mx) grid."""
+    mx, my, mz = dims
+    b = brick
+    ncx, ncy, ncz = -(-mx // b), -(-my // b), -(-mz // b)
+    z = x_c[: ncx * ncy * ncz].reshape(ncz, ncy, ncx)
+    z = z.repeat_interleave(b, dim=0)[:mz]
+    z = z.repeat_interleave(b, dim=1)[:, :my]
+    return z.repeat_interleave(b, dim=2)[:, :, :mx]
+
+
+def _brick_sum(tw, dims, brick, n_pad_c):
+    """T^T's segment sum for bricks: block sums of a (mz, my, mx) field,
+    flattened and zero-padded to ``n_pad_c``."""
+    mx, my, mz = dims
+    b = brick
+    ncx, ncy, ncz = -(-mx // b), -(-my // b), -(-mz // b)
+    tw = torch.nn.functional.pad(
+        tw, (0, ncx * b - mx, 0, ncy * b - my, 0, ncz * b - mz)
+    )
+    c = tw.reshape(ncz, b, ncy, b, ncx, b).sum(dim=(1, 3, 5)).reshape(-1)
+    return torch.nn.functional.pad(c, (0, n_pad_c - ncx * ncy * ncz))
+
+
+@dataclasses.dataclass
+class BrickProlongator:
+    """Gather-free factored prolongator for lexicographic grids: the
+    aggregate of a node is its ``brick^3`` brick, so ``T x_c`` is a repeat
+    and ``T^T w`` a block sum.  ``dims = (mx, my, mz)`` with fine index
+    ``ix + mx*(iy + my*iz)``; vectors in the identity padded space."""
+
+    tval: torch.Tensor  # (n_pad_f,) tentative weight (0 on padding)
+    scale: torch.Tensor  # (n_pad_f,) omega/lmax * 1/diag (0 on padding)
+    A: object  # fine-level operator
+    dims: Tuple[int, int, int]
+    brick: int
+    n_pad_c: int
+    n_pad_f: int
+
+    def _t_apply(self, x_c: torch.Tensor) -> torch.Tensor:
+        mx, my, mz = self.dims
+        flat = _brick_expand(x_c, self.dims, self.brick).reshape(-1)
+        flat = torch.nn.functional.pad(flat, (0, self.n_pad_f - mx * my * mz))
+        return self.tval * flat
+
+    def _t_transpose(self, w: torch.Tensor) -> torch.Tensor:
+        mx, my, mz = self.dims
+        tw = (self.tval * w)[: mx * my * mz].reshape(mz, my, mx)
+        return _brick_sum(tw, self.dims, self.brick, self.n_pad_c)
+
+    def matvec(self, x_c: torch.Tensor) -> torch.Tensor:
+        t = self._t_apply(x_c)
+        return t - self.scale * self.A.matvec(t)
+
+    def rmatvec(self, r: torch.Tensor) -> torch.Tensor:
+        s = r - self.A.matvec(self.scale * r)
+        return self._t_transpose(s)
+
+
+@dataclasses.dataclass
+class PadBrickProlongator:
+    """:class:`BrickProlongator`'s algebra in a pad-stencil operator's
+    padded 3-D space ``(Z, myp, mxp)`` (grid interior at
+    ``[1:mz+1, 1:my+1, :mx]``): ``tval``/``scale`` live in that space, and
+    the tentative transfer embeds and extracts the interior with static
+    pads and slices."""
+
+    tval: torch.Tensor  # (n_space,) tentative weight, 0 on pad slots
+    scale: torch.Tensor  # (n_space,) omega/lmax * 1/diag
+    A: PadStencilOperator  # fine-level operator
+    dims: Tuple[int, int, int]
+    brick: int
+    n_pad_c: int
+
+    def _t_apply(self, x_c: torch.Tensor) -> torch.Tensor:
+        z = _brick_expand(x_c, self.dims, self.brick)
+        return self.tval * self.A.embed_device(z.reshape(-1))
+
+    def _t_transpose(self, w: torch.Tensor) -> torch.Tensor:
+        mx, my, mz = self.dims
+        tw = self.A.extract_device(self.tval * w).reshape(mz, my, mx)
+        return _brick_sum(tw, self.dims, self.brick, self.n_pad_c)
+
+    def matvec(self, x_c: torch.Tensor) -> torch.Tensor:
+        t = self._t_apply(x_c)
+        return t - self.scale * self.A.matvec(t)
+
+    def rmatvec(self, r: torch.Tensor) -> torch.Tensor:
+        s = r - self.A.matvec(self.scale * r)
+        return self._t_transpose(s)
 
 
 @dataclasses.dataclass
@@ -415,6 +563,7 @@ def smoothed_aggregation_setup(
     filter_tol: Union[float, str] = "auto",
     aggressive_levels: Union[int, str] = "auto",
     grid_dims: Optional[Tuple[int, int, int]] = None,
+    brick: int = 6,
     fine_operator=None,
     level_info_out: Optional[list] = None,
     timings_out: Optional[dict] = None,
@@ -425,16 +574,25 @@ def smoothed_aggregation_setup(
     """Build the SA-AMG hierarchy from the host CSR operator.
 
     The same hierarchy as the JAX function for the parameters kept here (its
-    structured-path options and its Jacobi smoother and multi-cycle apply
-    are not ported), plus ``device`` (default: the fine operator's device,
-    else the CPU).
-    ``fine_operator``: a prebuilt sliced-ELL level-0 operator, possibly
-    RCM-permuted; the fine level of the V-cycle then lives in its internal
-    space, and the caller's CG must use the same operator.  With it, coarse
-    levels above ``bsg_level_min_rows`` rows are sliced-ELL operators in a
-    host-RCM-relabelled identity space, transfers of levels with at least
-    ``bsg_transfer_min_rows`` rows are rectangular sliced-ELL ``G``/``GT``,
-    and ``filter_tol="auto"`` is 0.005 (0.01 without the chain)."""
+    Jacobi smoother, multi-cycle apply, ``operator_format="ell"`` and the
+    opt-outs of the BSG chain are not ported), plus ``device`` (default:
+    the fine operator's device, else the card).
+
+    - ``fine_operator``: a prebuilt level-0 operator that owns its vector
+      space — a sliced-ELL :class:`BSGMatrix` (possibly RCM-permuted) or a
+      :class:`PadStencilOperator` (padded 3-D space).  The fine level of
+      the V-cycle then lives in that space, and the caller's CG must use
+      the same operator.  Other operator types are ignored, as in JAX.
+    - With a sliced-ELL fine operator (the BSG chain), coarse levels above
+      ``bsg_level_min_rows`` rows are sliced-ELL operators in a
+      host-RCM-relabelled identity space, and transfers of levels with at
+      least ``bsg_transfer_min_rows`` rows are rectangular sliced-ELL
+      ``G``/``GT``.
+    - ``grid_dims``: a lexicographic free-node grid matching ``A``; level 0
+      then takes ``brick^3`` aggregates and gather-free brick transfers.
+    - ``filter_tol="auto"`` is 0.005 on the BSG chain, 0.01 otherwise;
+      ``aggressive_levels="auto"`` follows JAX's rule.
+    """
     import scipy.sparse as sp
 
     if level_info_out is not None:
@@ -447,28 +605,27 @@ def smoothed_aggregation_setup(
         _tm[name] = _tm.get(name, 0.0) + (now - _last[0])
         _last[0] = now
 
-    if fine_operator is not None and not isinstance(fine_operator, BSGMatrix):
-        raise NotImplementedError(
-            f"fine_operator of type {type(fine_operator).__name__}: "
-            f"{_STRUCTURED}"
-        )
-    if device is None:
-        device = (fine_operator.device if fine_operator is not None
-                  else torch.device("cpu"))
-    device = torch.device(device)
+    use_fine_op = isinstance(fine_operator, (BSGMatrix, PadStencilOperator))
+    if device is None and use_fine_op:
+        device = fine_operator.device
+    device = resolve_device(device)
     np_dt = _np_dtype(dtype)
 
     levels: List[AMGLevel] = []
     A_k = _to_scipy(A)
-    use_fine_op = fine_operator is not None
     if use_fine_op and fine_operator.n_rows != A.n_rows:
         raise ValueError("fine_operator does not match A")
-    n_pads = [fine_operator.n_pad if use_fine_op else _tile_pad(A.n_rows)]
+    n_pads = [fine_operator.n_pad if use_fine_op else pad_to(max(A.n_rows, 1))]
+    # The BSG chain starts at a sliced-ELL fine operator.
+    bsg_chain = use_fine_op and isinstance(fine_operator, BSGMatrix)
+    grid_match = grid_dims is not None and int(np.prod(grid_dims)) == A.n_rows
 
-    if grid_dims is not None and int(np.prod(grid_dims)) == A.n_rows:
-        raise NotImplementedError(f"brick transfers (grid_dims): {_STRUCTURED}")
     if aggressive_levels == "auto":
-        if use_fine_op:
+        if grid_match:
+            # Brick transfers replace level-0 greedy aggregation, and the
+            # aggressive compose only ever applies at level 0.
+            aggressive_levels = 0
+        elif bsg_chain and A.n_rows > 200_000:
             aggressive_levels = 0
         elif A.n_rows > 200_000:
             ndiags = _count_diagonals_capped(A, 64)
@@ -478,12 +635,12 @@ def smoothed_aggregation_setup(
     _mark("diag_probe")
 
     if filter_tol == "auto":
-        filter_tol = 0.005 if use_fine_op else 0.01
+        filter_tol = 0.005 if bsg_chain else 0.01
     mid_bsg = False  # this level is a chain level (host-RCM identity space)
     while A_k.shape[0] > coarse_size and len(levels) < max_levels - 1:
         csr_k = A if len(levels) == 0 else _from_scipy(A_k)
-        this_bsg = use_fine_op if len(levels) == 0 else mid_bsg
-        if len(levels) == 0 and grid_dims is not None:
+        this_bsg = bsg_chain if len(levels) == 0 else mid_bsg
+        if len(levels) == 0 and grid_dims is not None and not grid_match:
             import warnings
 
             warnings.warn(
@@ -492,30 +649,37 @@ def smoothed_aggregation_setup(
                 f"(gathered transfers)",
                 stacklevel=2,
             )
-        agg = aggregate_greedy(csr_k, theta=theta)
-        if len(levels) < aggressive_levels:
-            n_c1 = int(agg.max()) + 1 if agg.size else 0
-            if 0 < n_c1 < A_k.shape[0]:
-                # Second round on the (unsmoothed) aggregate graph; compose.
-                from ...utils.native import rap_galerkin_native
+        use_brick = len(levels) == 0 and grid_match
+        if use_brick:
+            agg = brick_aggregate(grid_dims, brick)
+        else:
+            agg = aggregate_greedy(csr_k, theta=theta)
+            if len(levels) < aggressive_levels:
+                n_c1 = int(agg.max()) + 1 if agg.size else 0
+                if 0 < n_c1 < A_k.shape[0]:
+                    # Second round on the (unsmoothed) aggregate graph;
+                    # compose.
+                    from ...utils.native import rap_galerkin_native
 
-                T1 = sp.csr_matrix(
-                    (np.ones(A_k.shape[0]), (np.arange(A_k.shape[0]), agg)),
-                    shape=(A_k.shape[0], n_c1),
-                )
-                T1.sort_indices()
-                g = rap_galerkin_native(
-                    A_k.indptr, A_k.indices, A_k.data,
-                    T1.indptr, T1.indices, T1.data,
-                    A_k.shape[0], n_c1,
-                )
-                if g is not None:
-                    G = sp.csr_matrix((g[2], g[1], g[0]), shape=(n_c1, n_c1))
-                else:
-                    G = (T1.T @ A_k @ T1).tocsr()
-                G.sum_duplicates()
-                agg2 = aggregate_greedy(_from_scipy(G), theta=theta)
-                agg = agg2[agg]
+                    T1 = sp.csr_matrix(
+                        (np.ones(A_k.shape[0]),
+                         (np.arange(A_k.shape[0]), agg)),
+                        shape=(A_k.shape[0], n_c1),
+                    )
+                    T1.sort_indices()
+                    g = rap_galerkin_native(
+                        A_k.indptr, A_k.indices, A_k.data,
+                        T1.indptr, T1.indices, T1.data,
+                        A_k.shape[0], n_c1,
+                    )
+                    if g is not None:
+                        G = sp.csr_matrix((g[2], g[1], g[0]),
+                                          shape=(n_c1, n_c1))
+                    else:
+                        G = (T1.T @ A_k @ T1).tocsr()
+                    G.sum_duplicates()
+                    agg2 = aggregate_greedy(_from_scipy(G), theta=theta)
+                    agg = agg2[agg]
         n_c = int(agg.max()) + 1 if agg.size else 0
         _mark("aggregate")
         if n_c >= A_k.shape[0] or n_c == 0:
@@ -586,35 +750,58 @@ def smoothed_aggregation_setup(
         _mark("rap")
 
         n_pad_f = n_pads[-1]
-        n_pad_c = _tile_pad(n_c)
-        fine_bsg = use_fine_op and len(levels) == 0
-        if fine_bsg:
+        n_pad_c = (-(-max(n_c, 1) // TILE) * TILE if coarse_bsg
+                   else pad_to(max(n_c, 1)))
+        fine_op = use_fine_op and len(levels) == 0
+        if fine_op:
             lvl_A = fine_operator
         elif this_bsg:
             # Chain level: csr_k is already in this level's (host-RCM)
             # order, so the operator's internal space is the identity.
             lvl_A = bsg_from_csr(csr_k, reorder=False, device=device)
         else:
-            lvl_A = choose_operator(csr_k, dtype=dtype, device=device)
+            lvl_A = choose_operator(
+                csr_k, dtype=dtype,
+                grid_dims=grid_dims if len(levels) == 0 else None,
+                device=device,
+            )
         if lvl_A.n_pad != n_pad_f:
             raise AssertionError((lvl_A.n_pad, n_pad_f))
         _mark("level_op")
 
         n_f = A_k.shape[0]
-        if fine_bsg or this_bsg:
-            # Factored transfers in the level operator's internal space:
-            # scatter the per-fine-row arrays through its perm (identity on
-            # chain mid levels); padding rows keep tval = 0.
-            if fine_bsg and fine_operator.perm is not None:
-                perm = fine_operator.perm.cpu().numpy()
+        if fine_op:
+            # The fine level lives in the operator's own (permuted or
+            # embedded) space: scatter the per-row arrays through its
+            # space map; pad slots keep tval = 0.
+            pad_brick = isinstance(fine_operator, PadStencilOperator) and use_brick
+            if pad_brick and n_f > 4_000_000:
+                tval_dev, scale_dev, inv_diag = _pad_brick_level0_device(
+                    fine_operator, brick, omega, lmax, dtype
+                )
             else:
-                perm = np.arange(n_f, dtype=np.int64)
-            tval_pad = np.zeros(n_pad_f, dtype=np_dt)
-            tval_pad[perm] = 1.0 / np.sqrt(counts[agg])
-            scale_pad = np.zeros(n_pad_f, dtype=np_dt)
-            scale_pad[perm] = (omega / lmax) / d
-            scale_dev = _to_device(scale_pad, device)
-            if bsg_tx_level:
+                if isinstance(fine_operator, PadStencilOperator):
+                    perm = fine_operator.space_map()
+                elif fine_operator.perm is not None:
+                    perm = fine_operator.perm.cpu().numpy()
+                else:
+                    perm = np.arange(n_f, dtype=np.int64)
+                tval_pad = np.zeros(n_pad_f, dtype=np_dt)
+                tval_pad[perm] = 1.0 / np.sqrt(counts[agg])
+                scale_pad = np.zeros(n_pad_f, dtype=np_dt)
+                scale_pad[perm] = (omega / lmax) / d
+                inv_d = np.ones(n_pad_f, dtype=np_dt)
+                inv_d[perm] = (1.0 / d).astype(np_dt)
+                tval_dev = _to_device(tval_pad, device)
+                scale_dev = _to_device(scale_pad, device)
+                inv_diag = _to_device(inv_d, device)
+            if pad_brick:
+                P_op = PadBrickProlongator(
+                    tval=tval_dev, scale=scale_dev, A=lvl_A,
+                    dims=tuple(int(v) for v in grid_dims), brick=brick,
+                    n_pad_c=n_pad_c,
+                )
+            elif bsg_tx_level:
                 G, GT = _build_bsg_transfers(
                     agg, counts, perm[:n_f], n_c, n_pad_f, n_pad_c, device
                 )
@@ -625,19 +812,42 @@ def smoothed_aggregation_setup(
                 agg_pad = np.zeros(n_pad_f, dtype=np.int64)
                 agg_pad[perm] = agg
                 P_op = FactoredProlongator(
-                    agg=_to_device(agg_pad, device),
-                    tval=_to_device(tval_pad, device),
-                    scale=scale_dev,
-                    A=lvl_A,
-                    n_pad_c=n_pad_c,
+                    agg=_to_device(agg_pad, device), tval=tval_dev,
+                    scale=scale_dev, A=lvl_A, n_pad_c=n_pad_c,
                 )
             R_op = FactoredRestriction(P=P_op)
-            if fine_bsg:
-                inv_d = np.ones(n_pad_f, dtype=np_dt)
-                inv_d[perm] = (1.0 / d).astype(np_dt)
-                inv_diag = _to_device(inv_d, device)
+        elif isinstance(lvl_A, (DIAMatrix, StencilOperator)) or this_bsg:
+            # Factored transfers in the identity space: one selection (or a
+            # brick repeat) plus a fine-level matvec.
+            tval_pad = np.zeros(n_pad_f, dtype=np_dt)
+            tval_pad[:n_f] = 1.0 / np.sqrt(counts[agg])
+            scale_pad = np.zeros(n_pad_f, dtype=np_dt)
+            scale_pad[:n_f] = (omega / lmax) / d
+            scale_dev = _to_device(scale_pad, device)
+            if use_brick:
+                P_op = BrickProlongator(
+                    tval=_to_device(tval_pad, device), scale=scale_dev,
+                    A=lvl_A, dims=tuple(int(v) for v in grid_dims),
+                    brick=brick, n_pad_c=n_pad_c, n_pad_f=n_pad_f,
+                )
+            elif bsg_tx_level and isinstance(lvl_A, BSGMatrix):
+                G, GT = _build_bsg_transfers(
+                    agg, counts, np.arange(n_f, dtype=np.int64), n_c,
+                    n_pad_f, n_pad_c, device,
+                )
+                P_op = BSGTransferProlongator(
+                    G=G, GT=GT, scale=scale_dev, A=lvl_A, n_pad_c=n_pad_c
+                )
             else:
-                inv_diag = _inv_diag_padded(csr_k, n_pad_f, dtype, device)
+                agg_pad = np.zeros(n_pad_f, dtype=np.int64)
+                agg_pad[:n_f] = agg
+                P_op = FactoredProlongator(
+                    agg=_to_device(agg_pad, device),
+                    tval=_to_device(tval_pad, device),
+                    scale=scale_dev, A=lvl_A, n_pad_c=n_pad_c,
+                )
+            R_op = FactoredRestriction(P=P_op)
+            inv_diag = _inv_diag_padded(csr_k, n_pad_f, dtype, device)
         else:
             # Explicit ELL P and R (JAX amg.py:1198-1204).
             if P is None:

@@ -2,9 +2,12 @@
 
 With these a caller assembles once and feeds both packages the very same
 system and vector space: CSR fields, the right-hand side and the free-node
-map go in as arrays, and :func:`operator_from_csr` can adopt the JAX BSG
-operator's permutation (``np.asarray(A_jax.perm)``).  Nothing here imports
-the JAX package.
+map go in as arrays; :func:`operator_from_csr` can adopt the JAX BSG
+operator's permutation (``np.asarray(A_jax.perm)``); :func:`dia_from_numpy`
+takes a JAX ``DIAMatrix``'s offsets and diagonals; and
+:func:`pad_stencil_from_parts` takes the JAX package's host stencil
+decomposition (``stencil_parts_from_packed``) as it is.  Nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -13,11 +16,22 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+import torch
+
 from ..models.heat import HeatSystem
 from ..ops.bsg import BSGMatrix, bsg_from_csr
 from ..ops.csr import CSRMatrix
+from ..ops.dia import DIAMatrix
+from ..ops.stencil_kernel import pad_stencil_from_parts
+from .device import resolve_device
 
-__all__ = ["csr_from_numpy", "heat_system_from_numpy", "operator_from_csr"]
+__all__ = [
+    "csr_from_numpy",
+    "dia_from_numpy",
+    "heat_system_from_numpy",
+    "operator_from_csr",
+    "pad_stencil_from_parts",
+]
 
 
 def csr_from_numpy(indptr, indices, data, shape: Tuple[int, int]) -> CSRMatrix:
@@ -65,3 +79,23 @@ def operator_from_csr(csr: CSRMatrix, perm=None, device=None) -> BSGMatrix:
     """The port's unstructured operator for ``csr``; ``perm`` (original row
     -> internal row) adopts a given numbering, e.g. the JAX operator's."""
     return bsg_from_csr(csr, perm=perm, device=device)
+
+
+def dia_from_numpy(offsets, data, n_rows: int, compute_dtype: str = "",
+                   device=None) -> DIAMatrix:
+    """A port :class:`DIAMatrix` from DIA arrays: ``offsets`` (ndiags,),
+    ``data`` (ndiags, n_pad) in float32/float64 — or the raw uint16 bits of
+    bfloat16 storage, which numpy has no type for (``compute_dtype`` then
+    names the compute type).  ``device`` defaults to the card."""
+    arr = np.ascontiguousarray(data)
+    if arr.dtype == np.uint16:
+        t = torch.from_numpy(arr.astype(np.int32) << 16).view(torch.float32)
+        t = t.to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return DIAMatrix(
+        data=t.to(resolve_device(device)),
+        offsets=tuple(int(o) for o in np.asarray(offsets).reshape(-1)),
+        n_rows=int(n_rows),
+        compute_dtype=compute_dtype,
+    )

@@ -12,11 +12,10 @@ __all__ = ["resolve_device"]
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """Return the ``torch.device`` the caller asked for.
 
-    ``None`` means the CPU.  A CUDA device that is not present raises: the
-    port never falls back to the CPU on its own."""
-    if device is None:
-        return torch.device("cpu")
-    dev = torch.device(device)
+    ``None`` means the card, ``cuda:0``: the port runs on the GPU unless the
+    caller asks for the CPU (``"cpu"``).  A CUDA device that is not present
+    raises: the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not available")

@@ -134,13 +134,15 @@ def test_native_library_builds_into_the_port_build_dir():
 
 
 def test_resolve_device_is_explicit():
-    assert resolve_device(None) == torch.device("cpu")
+    """The card unless the caller asks for the CPU; no silent fallback."""
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
         assert resolve_device("cuda").type == "cuda"
+        assert resolve_device(None) == torch.device("cuda", 0)
     else:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            resolve_device("cuda")
+        for dev in ("cuda", None):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                resolve_device(dev)
     with pytest.raises(ValueError):
         resolve_device("meta")
 
@@ -157,6 +159,11 @@ def test_port_import_leaves_jax_out():
         "import domain_decomposed_pde_solver_tpu_torch.solvers\n"
         "import domain_decomposed_pde_solver_tpu_torch.utils.convert\n"
         "import domain_decomposed_pde_solver_tpu_torch.utils.native\n"
+        "import domain_decomposed_pde_solver_tpu_torch.cli.solve\n"
+        "import domain_decomposed_pde_solver_tpu_torch.parallel\n"
+        "import domain_decomposed_pde_solver_tpu_torch.solvers.mixed\n"
+        "import domain_decomposed_pde_solver_tpu_torch.utils.timers\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'domain_decomposed_pde_solver_tpu.')) or m == "
         "'domain_decomposed_pde_solver_tpu')\n"

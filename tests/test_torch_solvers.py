@@ -81,7 +81,7 @@ def _dense_of(matvec, n, n_in, dtype_np, backend):
 def test_cg_jacobi_f64_matches_jax(dims, precond):
     sy, csr = _systems(dims)
     Aj = j_bsg_from_csr(sy.A)
-    Ap = bsg_from_csr(csr)
+    Ap = bsg_from_csr(csr, device="cpu")
     bj = Aj.put_vector(sy.b, dtype=jnp.float64)
     bp = Ap.put_vector(sy.b, dtype=torch.float64)
     Mj = j_jacobi(Aj) if precond == "jacobi" else None
@@ -98,7 +98,7 @@ def test_cg_jacobi_f64_matches_jax(dims, precond):
 
 def test_cg_resumes_exactly_from_state():
     sy, csr = _systems(MESH_DIMS[1])
-    A = bsg_from_csr(csr)
+    A = bsg_from_csr(csr, device="cpu")
     b = A.put_vector(sy.b, dtype=torch.float64)
     M = jacobi_preconditioner(A)
     full, _ = cg_solve_with_state(A, b, torch.zeros_like(b), precond=M,
@@ -114,7 +114,7 @@ def test_cg_resumes_exactly_from_state():
 
 def test_cg_zero_rhs_returns_immediately():
     sy, csr = _systems(MESH_DIMS[1])
-    A = bsg_from_csr(csr)
+    A = bsg_from_csr(csr, device="cpu")
     b = torch.zeros(A.n_pad, dtype=torch.float64)
     res = cg_solve(A, b, torch.zeros_like(b), tol=1e-10)
     assert res.iterations == 0 and res.converged and res.relres == 0.0
@@ -124,7 +124,7 @@ def test_cg_zero_rhs_returns_immediately():
 def test_chebyshev_smooth_matches_jax(x_zero):
     sy, csr = _systems(MESH_DIMS[0])
     Aj = j_bsg_from_csr(sy.A)
-    Ap = bsg_from_csr(csr)
+    Ap = bsg_from_csr(csr, device="cpu")
     n = sy.A.n_rows
     b, x = rand(n, seed=21), rand(n, seed=22)
     lmax = 1.7
@@ -158,7 +158,7 @@ def _hierarchies(dims, dtype_name, case):
     kw = AMG_CASES[case]
     jdt, tdt = getattr(jnp, dtype_name), getattr(torch, dtype_name)
     Aj = j_bsg_from_csr(sy.A)
-    Ap = bsg_from_csr(csr)
+    Ap = bsg_from_csr(csr, device="cpu")
     Mj = j_amg.smoothed_aggregation_setup(sy.A, dtype=jdt, fine_operator=Aj,
                                           **kw)
     Mp = p_amg.smoothed_aggregation_setup(csr, dtype=tdt, fine_operator=Ap,
@@ -251,9 +251,10 @@ def test_cg_amg_iterations_match_jax(dims, case, dtype_name, slack):
 
 
 def test_unported_branches_raise():
+    """The distributed hierarchy builders' hook is still to be ported (the
+    structured branches, which raised here before, are ported and held to
+    JAX in ``test_torch_structured.py``)."""
     sy, csr = _systems(MESH_DIMS[1])
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        p_amg.smoothed_aggregation_setup(csr, level_info_out=[])
-    n = sy.A.n_rows
-    with pytest.raises(NotImplementedError, match="structured path"):
-        p_amg.smoothed_aggregation_setup(csr, grid_dims=(n, 1, 1))
+        p_amg.smoothed_aggregation_setup(csr, level_info_out=[],
+                                         device="cpu")

@@ -60,7 +60,7 @@ DTYPES = [("float32", torch.float32, jnp.float32),
 def test_rcm_perm_padding_and_diag_match_jax(dims):
     _mesh, sy = jax_problem(dims)
     Aj = j_bsg_from_csr(sy.A)
-    Ap = bsg_from_csr(port_csr(sy))
+    Ap = bsg_from_csr(port_csr(sy), device="cpu")
     np.testing.assert_array_equal(Ap.perm.numpy(), np.asarray(Aj.perm))
     assert Ap.n_pad == Aj.n_pad and Ap.n_pad % TILE == 0
     assert Ap.n_rows == Aj.n_rows == sy.A.n_rows
@@ -75,7 +75,7 @@ def test_rcm_perm_padding_and_diag_match_jax(dims):
 def test_square_plain_matches_jax_reference(dims, name, tdt, jdt):
     _mesh, sy = jax_problem(dims)
     Aj = j_bsg_from_csr(sy.A)
-    Ap = bsg_from_csr(port_csr(sy))
+    Ap = bsg_from_csr(port_csr(sy), device="cpu")
     x = rand(sy.A.n_rows, seed=1)
     yj = Aj.get_vector(Aj.matvec_reference(Aj.put_vector(x, dtype=jdt)))
     yp = Ap.get_vector(spmv_plain(Ap, Ap.put_vector(x, dtype=tdt)))
@@ -92,7 +92,7 @@ def test_square_plain_matches_jax_reference(dims, name, tdt, jdt):
 def test_square_plain_matches_jax_pallas_interpret_f32(dims):
     _mesh, sy = jax_problem(dims)
     Aj = j_bsg_from_csr(sy.A)
-    Ap = bsg_from_csr(port_csr(sy))
+    Ap = bsg_from_csr(port_csr(sy), device="cpu")
     x = rand(sy.A.n_rows, seed=2, dtype=np.float32)
     yj = Aj.get_vector(j_bsg_spmv(Aj, Aj.put_vector(x), interpret=True))
     yp = Ap.get_vector(Ap.matvec(Ap.put_vector(x)))
@@ -131,7 +131,7 @@ def test_rectangular_plain_matches_jax_reference(dims, which, name, tdt, jdt):
         args = (agg, perm, tval, n_c, n_pad_f)
         win = 8 if n_pad_f < 64 * TILE else 64
     Aj = j_bsg_from_coo(*args, win=win, storage="float32")
-    Ap = bsg_from_coo(*args, storage="float32")
+    Ap = bsg_from_coo(*args, storage="float32", device="cpu")
     assert Ap.shape == (args[3], args[4])  # the true, rectangular shape
     assert Ap.x_len == args[4] and Ap.n_pad == Aj.n_pad
     x = rand(args[4], seed=3)
@@ -153,7 +153,7 @@ def test_shorter_input_is_zero_extended():
     rows = rng.integers(0, n_rows, 6000)
     cols = rng.integers(0, x_len, 6000)
     vals = rng.normal(size=6000)
-    Ap = bsg_from_coo(rows, cols, vals, n_rows, x_len)
+    Ap = bsg_from_coo(rows, cols, vals, n_rows, x_len, device="cpu")
     Aj = j_bsg_from_coo(rows, cols, vals, n_rows, x_len, storage="float32")
     x = rand(1000, seed=5)
     x_full = np.concatenate([x, np.zeros(x_len - 1000)])
@@ -181,7 +181,8 @@ def test_sell_pack_against_dense(seed):
     D = np.zeros((n_rows, x_len))
     np.add.at(D, (rows, cols), vals)
     for storage, dt in (("float64", torch.float64), ("float32", torch.float32)):
-        Ap = bsg_from_coo(rows, cols, vals, n_rows, x_len, storage=storage)
+        Ap = bsg_from_coo(rows, cols, vals, n_rows, x_len, storage=storage,
+                          device="cpu")
         widths = np.diff(Ap.slice_ptr.numpy()) // SLICE
         assert Ap.n_slots == int(widths.sum()) * SLICE
         x = rand(x_len, seed=seed + 10)
@@ -208,7 +209,7 @@ def test_sell_pack_layout_is_column_major_per_slice():
 def test_wrapper_dispatch_by_device():
     """On a CPU tensor the wrapper takes the plain version; the launch
     function refuses anything but CUDA tensors, before building."""
-    Ap = bsg_from_coo([0, 1], [1, 0], [2.0, 3.0], 2, 2)
+    Ap = bsg_from_coo([0, 1], [1, 0], [2.0, 3.0], 2, 2, device="cpu")
     x = torch.tensor([1.0, 10.0])
     np.testing.assert_array_equal(bsg_spmv(Ap, x)[:2].numpy(), [20.0, 3.0])
     before = _kernels.SELL_SPMV.launches
@@ -217,7 +218,8 @@ def test_wrapper_dispatch_by_device():
     assert _kernels.SELL_SPMV.launches == before
     with pytest.raises(TypeError):
         bsg_spmv(Ap, x.to(torch.float16))
-    Af = bsg_from_coo([0, 1], [1, 0], [2.0, 3.0], 2, 2, storage="float64")
+    Af = bsg_from_coo([0, 1], [1, 0], [2.0, 3.0], 2, 2, storage="float64",
+                      device="cpu")
     with pytest.raises(TypeError, match="float64"):
         bsg_spmv(Af, x)
 
@@ -225,8 +227,9 @@ def test_wrapper_dispatch_by_device():
 def test_choose_operator_routes_every_matrix_to_sliced_ell():
     _mesh, sy = jax_problem(MESH_DIMS[1])
     csr = port_csr(sy)
-    A_rcm = choose_operator(csr, dtype=torch.float32, bsg="auto")
-    A_id = choose_operator(csr, dtype=torch.float64)
+    A_rcm = choose_operator(csr, dtype=torch.float32, bsg="auto",
+                            device="cpu")
+    A_id = choose_operator(csr, dtype=torch.float64, device="cpu")
     assert A_rcm.perm is not None and A_rcm.storage == "float32"
     assert A_id.perm is None and A_id.storage == "float64"
     x = rand(sy.A.n_rows, seed=6)
@@ -238,7 +241,7 @@ def test_choose_operator_routes_every_matrix_to_sliced_ell():
 def test_operator_from_csr_adopts_a_given_perm():
     _mesh, sy = jax_problem(MESH_DIMS[1])
     perm = np.random.default_rng(7).permutation(sy.A.n_rows)
-    A = operator_from_csr(port_csr(sy), perm=perm)
+    A = operator_from_csr(port_csr(sy), perm=perm, device="cpu")
     np.testing.assert_array_equal(A.perm.numpy(), perm)
     x = rand(sy.A.n_rows, seed=8)
     y = A.get_vector(A.matvec(A.put_vector(x, dtype=torch.float64)))
@@ -249,7 +252,8 @@ def test_operator_from_csr_adopts_a_given_perm():
 def test_ell_matches_jax(name, tdt, jdt):
     _mesh, sy = jax_problem(MESH_DIMS[1])
     Ej = j_ell_from_csr(sy.A, dtype=jdt)
-    Ep = ell_from_csr(port_csr(sy), dtype=tdt).repad(Ej.n_pad + 16)
+    Ep = ell_from_csr(port_csr(sy), dtype=tdt, device="cpu").repad(
+        Ej.n_pad + 16)
     x = rand(sy.A.n_rows, seed=9)
     yj = Ej.get_vector(Ej.matvec(Ej.put_vector(x.astype(name))))
     yp = Ep.get_vector(Ep.matvec(Ep.put_vector(x.astype(name))))
