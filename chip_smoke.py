@@ -556,20 +556,26 @@ def profile_device(fn, reps: int = 20) -> dict:
     """torch.profiler (CUPTI) over ``reps`` calls after a warm-up: device
     time per call (the sum of its kernels, copies and fills), the union of
     its device intervals per call, the wall per call under the profiler,
-    and device time by kernel name."""
+    and device time by kernel name.  A trace with no device events at all
+    (CUPTI now and then hands back an empty one) is taken again, up to
+    three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = _device_events(prof)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = _device_events(prof)
+        if ev:
+            break
+        log(f"profiler: trace {attempt + 1} recorded no device time")
     check(bool(ev), "the profiler recorded no device time")
     by_name = {}
     for name, s, t in ev:
@@ -655,8 +661,12 @@ def timing_phase(device, card, run_a, run_b, run_c) -> dict:
             "plain": lambda: A.matvec_reference(x),
             "library": lambda: Acsr @ xi,
         })
+        # Compulsory bytes: x and corr on the real nodes only (pad slots of
+        # x hold 0 and corr is not needed there), y on every slot (pads are
+        # written 0).
         vb = x.element_size()
-        nbytes = A.n_pad * (2 * vb + A.corr.element_size())
+        nbytes = (A.n_rows * (vb + A.corr.element_size())
+                  + A.n_pad * vb)
         flops = A.n_rows * (len(A.taps) + 2 * len(A.groups) + 2)
         b_ms, b_by = bound(nbytes, flops)
         scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=device)

@@ -20,11 +20,12 @@
 // The TPU kernel's roll factoring and DMA ring exist because of VMEM and
 // lane rolls; they are not carried over.
 //
-// Bound.  On this card the product is bound by bytes: per slot it must read
-// x (4 or 8 B) and corr (2 B in bfloat16, 4 B in float) and write y, against
-// about 2 flops per tap (19 taps on TETRA4, 27 on HEX8): under 4 flops per
-// byte, far below the H100's ridge point.  At the 1M-DOF box the compulsory
-// bytes are 10 B x 1,384,448 slots = 13.8 MB in f32 (4.1 us at 3.35 TB/s).
+// Bound.  On this card the product is bound by bytes: per real node it must
+// read x (4 or 8 B) and corr (2 B in bfloat16, 4 B in float), and per slot
+// write y (pads included), against about 2 flops per tap (19 taps on TETRA4,
+// 27 on HEX8): under 4 flops per byte, far below the H100's ridge point.  At
+// the 1M-DOF box the compulsory bytes in f32 are 6 B x 1,009,899 nodes +
+// 4 B x 1,384,448 slots = 11.6 MB (3.46 us at 3.35 TB/s).
 // The design's answer is to read x from device memory about once: a block
 // owns a (kTY x kTX) tile of rows and lanes and marches through kZC layers of
 // z, keeping the three x-planes it needs (with a one-row, one-lane halo) in a

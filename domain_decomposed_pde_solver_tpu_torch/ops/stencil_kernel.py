@@ -55,9 +55,7 @@ class PadStencilOperator:
     ``pats``/``taps``/``groups``/``group_const``/``period`` have
     :class:`.stencil.StencilOperator` semantics (the reference evaluation).
     ``quads`` holds the per-group pattern scalars ``[g, zp*4 + yp*2 + xp]``
-    the kernel reads (period-1 patterns replicated across the parity axes);
-    ``group_kind`` is JAX's classification of each group's in-plane parity
-    dependence (kept for parity; the CUDA kernel reads ``quads`` directly).
+    the kernel reads (period-1 patterns replicated across the parity axes).
     ``corr`` is the diagonal correction embedded in the padded space,
     bfloat16 when bit-exact, else float32.
     """
@@ -69,7 +67,6 @@ class PadStencilOperator:
     taps: Tuple[Tuple[int, int, int], ...]
     groups: Tuple[Tuple[int, ...], ...]
     group_const: Tuple[bool, ...]
-    group_kind: Tuple[str, ...]  # "c" | "y" | "x" | "d" | "f"
     dims: Tuple[int, int, int]
     period: int
     myp: int
@@ -224,37 +221,21 @@ def pad_stencil_spmv(A: PadStencilOperator,
     return pad_stencil_launch(A, x_padded.contiguous())
 
 
-def _build_group_quads(period: int, pats_in, groups, group_const):
-    """Per-group pattern scalars ``[g, zp*4 + yp*2 + xp]`` and JAX's parity
-    kind per group: ``"c"`` constant per z-parity, ``"y"``/``"x"`` one
-    axis, ``"d"`` depends on ``yp ^ xp`` only (TETRA4), ``"f"`` full."""
+def _build_group_quads(period: int, pats_in, groups) -> np.ndarray:
+    """Per-group pattern scalars ``[g, zp*4 + yp*2 + xp]``, a period-1
+    pattern replicated across the parity axes."""
     p = period
     if p not in (1, 2):
         raise ValueError(f"lattice period must be 1 or 2, got {p}")
     pats = np.asarray(pats_in, dtype=np.float32)
     nq = np.zeros((len(groups), 8), dtype=np.float32)
-    kinds = []
     for g, tap_idx in enumerate(groups):
         pat = pats[tap_idx[0]]  # (p, p, p) [iz%p, iy%p, ix%p]
         for zp in range(2):
             for yp in range(2):
                 for xp in range(2):
                     nq[g, zp * 4 + yp * 2 + xp] = pat[zp % p, yp % p, xp % p]
-        q = nq[g].reshape(2, 2, 2)
-        depy = not np.array_equal(q[:, 0, :], q[:, 1, :])
-        depx = not np.array_equal(q[:, :, 0], q[:, :, 1])
-        if group_const[g] or not (depy or depx):
-            kinds.append("c")
-        elif depy and depx:
-            xor = np.array_equal(q[:, 0, 0], q[:, 1, 1]) and np.array_equal(
-                q[:, 0, 1], q[:, 1, 0]
-            )
-            kinds.append("d" if xor else "f")
-        elif depy:
-            kinds.append("y")
-        else:
-            kinds.append("x")
-    return nq, tuple(kinds)
+    return nq
 
 
 def pad_stencil_from_stencil(st: StencilOperator, bz: int = 8,
@@ -329,10 +310,8 @@ def pad_stencil_from_parts(parts: dict, bz: int = 8,
     if corr_storage == "bfloat16":
         corr = corr.to(torch.bfloat16)
 
-    quads, group_kind = _build_group_quads(
-        int(parts["period"]), parts["pats"], parts["groups"],
-        parts["group_const"],
-    )
+    quads = _build_group_quads(int(parts["period"]), parts["pats"],
+                               parts["groups"])
     return PadStencilOperator(
         pats=torch.as_tensor(np.asarray(parts["pats"], np.float32)).to(dev),
         const_vals=torch.as_tensor(
@@ -342,7 +321,6 @@ def pad_stencil_from_parts(parts: dict, bz: int = 8,
         taps=tuple(tuple(int(v) for v in t) for t in parts["taps"]),
         groups=tuple(tuple(int(v) for v in g) for g in parts["groups"]),
         group_const=tuple(bool(c) for c in parts["group_const"]),
-        group_kind=group_kind,
         dims=(mx, my, mz),
         period=int(parts["period"]),
         myp=myp,

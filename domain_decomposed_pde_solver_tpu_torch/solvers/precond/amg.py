@@ -236,9 +236,11 @@ def _pad_brick_level0_device(A_op, brick: int, omega: float, lmax: float,
       aggregates: the aggregate size is a product of per-axis clamped
       extents, so it is an outer product of three small axis vectors;
     - ``scale = (omega/lmax) / diag`` and ``inv_diag = 1/diag`` from the
-      operator's own ``diagonal_padded``.  Their pad-slot values are never
-      seen (they multiply vectors that are 0 there); ``tval`` must be 0 on
-      pads, and is."""
+      operator's own ``diagonal_padded``.
+
+    ``tval`` must be 0 on pads, and is; ``scale`` is 0 and ``inv_diag`` 1
+    there, as in the levels built from host arrays (they multiply vectors
+    that are 0 there)."""
     mx, my, mz = A_op.dims
     dev = A_op.device
 
@@ -258,7 +260,8 @@ def _pad_brick_level0_device(A_op, brick: int, omega: float, lmax: float,
         torch.zeros_like(counts3),
     ).reshape(-1).to(dtype)
     dpad = A_op.diagonal_padded(fill=1.0).to(dtype)
-    scale = (omega / lmax) / dpad
+    scale = torch.where(tval > 0, (omega / lmax) / dpad,
+                        torch.zeros_like(dpad))
     inv_d = 1.0 / dpad
     return tval, scale, inv_d
 
@@ -772,10 +775,11 @@ def smoothed_aggregation_setup(
         n_f = A_k.shape[0]
         if fine_op:
             # The fine level lives in the operator's own (permuted or
-            # embedded) space: scatter the per-row arrays through its
-            # space map; pad slots keep tval = 0.
+            # embedded) space.  Brick vectors of a pad-stencil level are
+            # built there on the device; other levels scatter the per-row
+            # arrays through the space map.  Pad slots keep tval = 0.
             pad_brick = isinstance(fine_operator, PadStencilOperator) and use_brick
-            if pad_brick and n_f > 4_000_000:
+            if pad_brick:
                 tval_dev, scale_dev, inv_diag = _pad_brick_level0_device(
                     fine_operator, brick, omega, lmax, dtype
                 )

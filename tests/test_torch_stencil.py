@@ -89,7 +89,7 @@ def test_parts_equal_jax(key):
 def test_pad_geometry_space_map_and_vectors_equal_jax(key):
     sy, Aj, Ap = _pads(key)
     for attr in ("myp", "mxp", "bz", "Z", "n_pad", "n_rows",
-                 "group_kind", "taps", "groups", "period", "dims"):
+                 "taps", "groups", "period", "dims"):
         assert getattr(Ap, attr) == getattr(Aj, attr), attr
     np.testing.assert_array_equal(Ap.space_map(), Aj.space_map())
     np.testing.assert_array_equal(Ap.quads.numpy(), np.asarray(Aj.quads))
@@ -184,12 +184,10 @@ def test_pad_stencil_from_jax_parts_and_from_stencil():
 def test_group_quads_match_jax():
     for key in BOXES:
         _sy, _csr, _dims, pj, _pp = _parts(key)
-        qj, kj = j_sk._build_group_quads(pj["period"], pj["pats"],
-                                         pj["groups"], pj["group_const"])
-        qp, kp = p_sk._build_group_quads(pj["period"], pj["pats"],
-                                         pj["groups"], pj["group_const"])
+        qj, _kinds = j_sk._build_group_quads(pj["period"], pj["pats"],
+                                             pj["groups"], pj["group_const"])
+        qp = p_sk._build_group_quads(pj["period"], pj["pats"], pj["groups"])
         np.testing.assert_array_equal(qp, qj)
-        assert kp == kj
 
 
 def test_kernel_tables_follow_the_groups():

@@ -210,8 +210,10 @@ def test_brick_aggregate_matches_jax():
 
 
 def test_pad_brick_level0_device_matches_jax_and_host():
-    """The level-0 vectors JAX builds on the device above 4M rows, in the
-    pad-stencil space: equal to JAX's, and to the host scatter."""
+    """The level-0 vectors in the pad-stencil space, built on the device
+    (by the port at every size, by JAX above 4M rows): equal to JAX's on
+    the real slots, and to the host scatter JAX uses below 4M rows on all
+    slots (tval and scale 0 on pads)."""
     sy, _csr, dims = _box()
     Aj, Ap, _name = _ops("pad")
     lmax, omega, brick = 1.7, 4.0 / 3.0, 6
@@ -224,11 +226,16 @@ def test_pad_brick_level0_device_matches_jax_and_host():
         np.testing.assert_allclose(a.numpy()[mask], np.asarray(b)[mask],
                                    rtol=1e-6)
     assert not np.any(tp[0].numpy()[~mask])
+    assert not np.any(tp[1].numpy()[~mask])
     agg = p_amg.brick_aggregate(dims, brick)
     counts = np.bincount(agg).astype(np.float64)
     tval_h = np.zeros(Ap.n_pad)
     tval_h[Ap.space_map()] = 1.0 / np.sqrt(counts[agg])
     np.testing.assert_allclose(tp[0].numpy(), tval_h, rtol=1e-6)
+    d = sy.A.diagonal()
+    scale_h = np.zeros(Ap.n_pad)
+    scale_h[Ap.space_map()] = (omega / lmax) / np.where(d != 0, d, 1.0)
+    np.testing.assert_allclose(tp[1].numpy(), scale_h, rtol=1e-6)
 
 
 def test_mismatched_grid_dims_fall_back_to_greedy_aggregation():
