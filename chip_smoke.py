@@ -29,16 +29,41 @@ C. Slice 1's unstructured path as it was: the 833,048-DOF refined tet box
    (``refine_uniform(box_mesh(49, 49, 49, "TETRA4"), 1)``) through
    ``SteadyHeatSolver(..., dtype=float32, precond="amg")``, two solves, on
    the sliced-ELL kernel; answers checked as before.
+D1. Jacobi-PCG in one launch (the fused CG kernel) against the unfused
+   ``cg_solve`` with the Jacobi preconditioner on the sliced-ELL kernel, on
+   path C's 833,048-DOF operator and on the 16,028-DOF
+   ``refine_uniform(box_mesh(13, 13, 13, "TETRA4"), 1)`` (the size of the
+   reference's tet-cube-heat, L2-resident), f32 to 1e-6: both converge,
+   iterations within max(2, 2 %), host f64 relres <= 5e-6 plus the f32
+   rounding floor eps/2 * || |A| |x| || / ||b|| (hundreds of f32 updates
+   at the answer's scale), exactly one fused launch and no sliced-ELL
+   launch inside a fused solve.
+D2. The same 833k system packed ``layout="ragged", chunk=16`` (the chunked
+   kernel): Jacobi-PCG, and CG+AMG with the ragged operator as the AMG's
+   fine level, each within one iteration of the dense layout's; the
+   chunked kernel launched, the sliced-ELL kernel only by the coarser
+   levels and the transfers.
+D3. The CLI's reference routes on an unstructured mesh written to Exodus,
+   in f64 to 1e-8: ``--solver bicgstab --precond jacobi`` and
+   ``--solver cg --precond chebyshev`` on
+   ``refine_uniform(box_mesh(25, 25, 25, "TETRA4"), 1)`` (111,824 DOF),
+   ``--solver gmres --precond ilut`` (the reference's configuration) on
+   the 16,028-DOF mesh: the host ILUT factorization grows about as n^2.1
+   on this numbering (its working row fills to the bandwidth), some 30 min
+   at 111,824 DOF.  Each exits 0 with a host relres from the file <= 1.5e-8
+   and values in [100, 1000].
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
-   fused multiply-adds).  These launches do not count.
-E. Times with CUDA events: each kernel on its path's shape, its plain
-   version and, as a yardstick the port never calls, one PyTorch call
-   computing the same product (cuSPARSE through ``torch.sparse_csr_tensor
-   @ x``); the 1M pad-stencil product also with L2 flushed between calls.
-   Print the kernel record, the card line and the device record as the
-   last line.
+   fused multiply-adds; the fused CG solve within 2 iterations and 1e-4 of
+   its plain recurrence).  These launches do not count.
+E. Times with CUDA events and the profiler: each kernel on its path's
+   shape, its plain version and, as a yardstick the port never calls, one
+   PyTorch call computing the same product (cuSPARSE through
+   ``torch.sparse_csr_tensor @ x``); the 1M pad-stencil product also with
+   L2 flushed between calls; the fused CG solve against the unfused loop
+   (no single PyTorch call solves CG).  Print the kernel record, the card
+   line and the device record as the last line.
 """
 
 from __future__ import annotations
@@ -55,6 +80,10 @@ BOX = 100  # box_mesh(100, 100, 100, "TETRA4") -> 1,009,899 free DOF
 BOX_DOF = 1_009_899
 SMALL_BOX = 20
 MESH_CELLS = 49  # refine_uniform(box_mesh(49, 49, 49)) -> 833,048 free DOF
+SMALL_CELLS = 13  # refine_uniform(box_mesh(13, 13, 13)) -> 16,028 free DOF
+CLI_CELLS = 25  # refine_uniform(box_mesh(25, 25, 25)) -> 111,824 free DOF
+PCG_TOL, PCG_MAXITER = 1e-6, 5000
+VECTOR_PASSES = 9  # fused CG: write Ap; read+write x, r, p; read D^-1, Ap
 TOL_F32 = 1e-5
 TOL_F64 = 1e-12
 BC2 = {100: 80.0, 1000: 25.0}
@@ -64,6 +93,8 @@ REPLACES = {
     "sell_spmv": "domain_decomposed_pde_solver_tpu/ops/bsg.py:822",
     "pad_stencil": "domain_decomposed_pde_solver_tpu/ops/pallas/stencil_kernel.py:421",
     "dia_spmv": "domain_decomposed_pde_solver_tpu/ops/pallas/dia_kernel.py:45",
+    "sell_chunked_spmv": "domain_decomposed_pde_solver_tpu/ops/bsg.py:857",
+    "fused_cg": "domain_decomposed_pde_solver_tpu/solvers/fused_cg.py:34",
 }
 
 
@@ -108,11 +139,35 @@ def read_counts(kernels) -> dict:
             for k in kernels}
 
 
+def launch_delta(kernels, fn):
+    """Run ``fn`` (then synchronise); returns its result and the launches
+    of every kernel during it."""
+    import torch
+
+    before = {k.name: k.launches for k in kernels}
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {k.name: k.launches - before[k.name] for k in kernels}
+
+
 def host_relres(A, u, b) -> float:
     import numpy as np
 
     r = b - A.matvec(np.asarray(u, dtype=np.float64))
     return float(np.linalg.norm(r) / np.linalg.norm(b))
+
+
+def f32_floor(A, u, b) -> float:
+    """The f32 rounding floor of a host relative residual:
+    eps/2 * || |A| |u| || / ||b||, what one rounding of every product of
+    an f32 update at the answer's scale leaves, which the recursive
+    residual of an f32 Krylov solve never sees."""
+    import numpy as np
+
+    absA = abs(A.to_scipy())
+    return float(np.finfo(np.float32).eps / 2 * np.linalg.norm(
+        absA @ np.abs(np.asarray(u, dtype=np.float64))) / np.linalg.norm(b))
 
 
 def bound(bytes_moved: float, flops: float) -> tuple:
@@ -316,9 +371,7 @@ def check_answers_c(run: dict) -> tuple:
     # updates round at that scale, and the recursive residual never sees
     # it, so its true residual cannot fall below the f32 rounding floor
     # eps * || |A| |u1| || / ||b2||.
-    absA = abs(sys_.A.to_scipy())
-    floor = float(np.finfo(np.float32).eps / 2 * np.linalg.norm(
-        absA @ np.abs(u1.astype(np.float64))) / np.linalg.norm(b2))
+    floor = f32_floor(sys_.A, u1, b2)
     limits = (2e-6, 2e-6 + floor)
     log(f"[C] host f64 relres: solve 1 {rr[0]:.3e} (limit {limits[0]:.1e}), "
         f"solve 2 {rr[1]:.3e} (limit {limits[1]:.3e}: 2e-6 + f32 "
@@ -351,6 +404,204 @@ def check_answers_c(run: dict) -> tuple:
           "[C] boundary values changed in the solution step")
     log(f"[C] solution file: {path.name}, {len(times)} timesteps, read back OK")
     return rr, floor
+
+
+# ---------------------------------------------------------------------------
+# D1-D3. Kernels 5 and 2 on their paths; the CLI's reference routes
+# ---------------------------------------------------------------------------
+
+
+def _refined_system(cells: int, device):
+    from domain_decomposed_pde_solver_tpu_torch.io import box_mesh, refine_uniform
+    from domain_decomposed_pde_solver_tpu_torch.models.heat import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_from_csr
+
+    sy = assemble_heat_system(refine_uniform(box_mesh(cells, cells, cells,
+                                                      "TETRA4"), 1))
+    return sy, bsg_from_csr(sy.A, device=device)
+
+
+def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
+    """Fused Jacobi-PCG against the unfused loop at 833k and 16k DOF."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        cg_solve,
+        fused_cg_solve,
+        jacobi_preconditioner,
+    )
+
+    solver = run_c["solver"]
+    sy_s, A_s = _refined_system(small_cells, device)
+    cases = {"833k": (solver.system, solver.operator), "16k": (sy_s, A_s)}
+    reset_counts(kernels)
+    out = {}
+    for label, (sy, A) in cases.items():
+        b = A.put_vector(sy.b, dtype=torch.float32)
+        M = jacobi_preconditioner(A)
+        t0 = time.perf_counter()
+        ru, du = launch_delta(kernels, lambda: cg_solve(
+            A, b, torch.zeros_like(b), precond=M, tol=PCG_TOL,
+            maxiter=PCG_MAXITER))
+        wall_u = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rf, df = launch_delta(kernels, lambda: fused_cg_solve(
+            A, b, tol=PCG_TOL, maxiter=PCG_MAXITER))
+        wall_f = (time.perf_counter() - t0) * 1e3
+        rr = [host_relres(sy.A, A.get_vector(r.x), sy.b) for r in (ru, rf)]
+        # Hundreds of f32 updates at the answer's scale: the true residual
+        # may sit above the recursive one by a few rounding floors.
+        limit = 5e-6 + f32_floor(sy.A, A.get_vector(ru.x), sy.b)
+        slack = max(2, int(0.02 * ru.iterations))
+        log(f"[D1] {label} ({sy.n_free} DOF, {A.n_slots} slots): unfused "
+            f"{ru.iterations} iterations in {wall_u:.1f} ms (launches "
+            f"{json.dumps(du)}), fused {rf.iterations} in {wall_f:.1f} ms "
+            f"(launches {json.dumps(df)}); host f64 relres {rr[0]:.3e} / "
+            f"{rr[1]:.3e} (limit {limit:.3e}: 5e-6 + the f32 floor)")
+        check(ru.converged and rf.converged, f"[D1] {label}: not converged")
+        check(abs(rf.iterations - ru.iterations) <= slack,
+              f"[D1] {label}: iterations {rf.iterations} vs {ru.iterations}")
+        check(max(rr) <= limit, f"[D1] {label}: host relres {rr}")
+        if device.type == "cuda":
+            check(df["fused_cg"] == 1 and df["sell_spmv"] == 0,
+                  f"[D1] {label}: launches in the fused solve {df}")
+            check(du["sell_spmv"] > 0 and du["fused_cg"] == 0,
+                  f"[D1] {label}: launches in the unfused solve {du}")
+        out[label] = dict(system=sy, A=A, b=b, M=M, unfused=ru, fused=rf,
+                          wall_ms=(wall_u, wall_f), host_relres=rr,
+                          limit=limit)
+    out["counts"] = read_counts(kernels)
+    log(f"[D1] launches during the path: {json.dumps(out['counts'])}")
+    return out
+
+
+def phase_d2(device, kernels, run_c, run_d1) -> dict:
+    """The 833k operator in the ragged layout: Jacobi-PCG and CG+AMG on
+    the chunked kernel against the dense layout."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_from_csr
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        cg_solve,
+        jacobi_preconditioner,
+        smoothed_aggregation_setup,
+    )
+
+    solver = run_c["solver"]
+    sy, A = solver.system, solver.operator
+    t0 = time.perf_counter()
+    R = bsg_from_csr(sy.A, layout="ragged", chunk=16, device=device)
+    t_pack = time.perf_counter() - t0
+    check(R.layout == "ragged" and torch.equal(R.perm, A.perm),
+          "[D2] the ragged operator has another numbering")
+    b = R.put_vector(sy.b, dtype=torch.float32)
+    zero = torch.zeros_like(b)
+    reset_counts(kernels)
+    rj, dj = launch_delta(kernels, lambda: cg_solve(
+        R, b, zero, precond=jacobi_preconditioner(R), tol=PCG_TOL,
+        maxiter=PCG_MAXITER))
+    t0 = time.perf_counter()
+    M_r = smoothed_aggregation_setup(sy.A, dtype=torch.float32,
+                                     fine_operator=R, device=device)
+    t_amg = time.perf_counter() - t0
+    ra, da = launch_delta(kernels, lambda: cg_solve(
+        R, b, zero, precond=M_r, tol=PCG_TOL, maxiter=200))
+    rd, dd = launch_delta(kernels, lambda: cg_solve(
+        A, b, zero, precond=solver._precond, tol=PCG_TOL, maxiter=200))
+    counts = read_counts(kernels)
+    ref_jacobi = run_d1["833k"]["unfused"]
+    rr = [host_relres(sy.A, R.get_vector(r.x), sy.b) for r in (rj, ra)]
+    log(f"[D2] ragged chunk 16: {R.n_chunks} chunks, {R.n_slots} slots "
+        f"(dense {A.n_slots}), packed in {t_pack:.2f} s, AMG set-up "
+        f"{t_amg:.2f} s")
+    log(f"[D2] Jacobi-PCG {rj.iterations} iterations (dense "
+        f"{ref_jacobi.iterations}), launches {json.dumps(dj)}; CG+AMG "
+        f"{ra.iterations} (dense {rd.iterations}), launches ragged "
+        f"{json.dumps(da)}, dense {json.dumps(dd)}; host f64 relres "
+        f"{rr[0]:.3e} / {rr[1]:.3e}")
+    check(rj.converged and ra.converged, "[D2] a ragged solve did not converge")
+    check(abs(rj.iterations - ref_jacobi.iterations) <= 1,
+          "[D2] Jacobi-PCG iterations differ by more than 1")
+    check(abs(ra.iterations - rd.iterations) <= 1,
+          "[D2] CG+AMG iterations differ by more than 1")
+    check(rr[0] <= run_d1["833k"]["limit"] and rr[1] <= 2e-6,
+          f"[D2] host relres {rr}")
+    if device.type == "cuda":
+        check(dj["sell_chunked_spmv"] > 0 and dj["sell_spmv"] == 0,
+              f"[D2] Jacobi-PCG launches {dj}")
+        check(da["sell_chunked_spmv"] > 0, "[D2] chunked kernel not launched")
+        # Only level 0 moved to the chunked kernel: at equal iterations the
+        # launches add up to the dense run's.
+        if ra.iterations == rd.iterations:
+            check(da["sell_spmv"] + da["sell_chunked_spmv"] == dd["sell_spmv"],
+                  f"[D2] launches ragged {da} vs dense {dd}")
+        else:
+            check(da["sell_spmv"] < dd["sell_spmv"], f"[D2] {da} vs {dd}")
+    return dict(R=R, counts=counts, jacobi=rj, amg=ra, amg_dense=rd,
+                host_relres=rr, t_pack=t_pack, t_amg=t_amg,
+                launches=dict(jacobi=dj, amg=da, amg_dense=dd))
+
+
+D3_ROUTES = (
+    ("gmres-ilut", SMALL_CELLS, ["--solver", "gmres", "--precond", "ilut",
+                                 "--iterations", "1000"]),
+    ("bicgstab-jacobi", CLI_CELLS, ["--solver", "bicgstab", "--precond",
+                                    "jacobi", "--iterations", "5000"]),
+    ("cg-chebyshev", CLI_CELLS, ["--solver", "cg", "--precond", "chebyshev",
+                                 "--iterations", "5000", "--no-snapshots"]),
+)
+
+
+def phase_d3(device, kernels, routes=D3_ROUTES, extra_args=()) -> dict:
+    """The CLI's reference routes on unstructured meshes, f64 to 1e-8."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        read_nodal_vars,
+        refine_uniform,
+        write_exodus,
+    )
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for cells in sorted({c for _n, c, _a in routes}):
+        paths[cells] = OUT / f"refined{cells}.exo"
+        write_exodus(str(paths[cells]),
+                     refine_uniform(box_mesh(cells, cells, cells, "TETRA4"), 1))
+    out = {}
+    for name, cells, args in routes:
+        sol = OUT / f"refined{cells}_{name}.exo"
+        rep = {}
+        rc, wall, counts = run_cli(
+            ["--input", paths[cells], "--solution", sol, "--dtype", "float64",
+             "--tolerance", "1e-8", *args, *extra_args], rep, kernels)
+        check(rc == 0, f"[D3] {name}: the CLI exited with {rc}")
+        sy, res, M = rep["system"], rep["result"], rep["precond"]
+        _n, times, vals = read_nodal_vars(str(sol))
+        rr = host_relres(sy.A, vals[-1, 0, sy.free_to_node], sy.b)
+        levels = ((M.l_nlev, M.u_nlev) if hasattr(M, "l_nlev") else None)
+        phases = rep["timer"].as_dict()
+        log(f"[D3] {name} on refined box_mesh({cells}^3), {sy.n_free} DOF, "
+            f"operator {type(rep['operator']).__name__}: {res.iterations} "
+            f"iterations, {len(times)} timesteps, host relres {rr:.3e} (limit "
+            f"1.5e-8), CLI wall {wall:.2f} s, phases {json.dumps(phases)}, "
+            f"ILU levels (L, U) {levels}, launches {json.dumps(counts)}")
+        check(rr <= 1.5e-8, f"[D3] {name}: host relres {rr:.3e} > 1.5e-8")
+        check(bool(np.isfinite(vals).all()), f"[D3] {name}: non-finite values")
+        check(100.0 <= float(vals[-1, 0].min())
+              and float(vals[-1, 0].max()) <= 1000.0,
+              f"[D3] {name}: values outside [100, 1000]")
+        if device.type == "cuda":
+            check(counts["sell_spmv"]["launches"] > 0,
+                  f"[D3] {name}: the sliced-ELL kernel was not launched")
+        out[name] = dict(dof=sy.n_free, iterations=res.iterations,
+                         host_relres=rr, wall_s=wall, phases_s=phases,
+                         ilu_levels=levels, timesteps=len(times),
+                         launches=counts)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +671,31 @@ def _wide_dia(device, n=200_000, mx=97, my=89, seed=5):
             for name in ("float32", "float64")}
 
 
-def compare_phase(device, run_a, run_b, run_c) -> dict:
+def _skewed_csr(n_slices: int, seed: int):
+    """Square CSR whose 32-row slices have widths 1, 200, 0 (empty) and
+    random 1..30 side by side: the chunked kernel's hard shapes."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.csr import CSRMatrix
+
+    rng = np.random.default_rng(seed)
+    n = n_slices * 32
+    kinds = np.arange(n) // 32 % 4
+    lens = np.where(kinds == 0, 1, 0)
+    lens = np.where(kinds == 1, rng.integers(150, 201, n), lens)
+    lens = np.where(kinds == 3, rng.integers(1, 31, n), lens)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    rows = np.repeat(np.arange(n), lens)
+    pos = np.arange(rows.size) - indptr[rows]
+    # Distinct columns per row (stride n // 256 > the widest row), sorted.
+    cols = (rows * 37 + pos * (n // 256)) % n
+    order = np.lexsort((cols, rows))
+    return CSRMatrix(indptr=indptr, indices=cols[order].astype(np.int64),
+                     data=rng.normal(size=rows.size), shape=(n, n))
+
+
+def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     import numpy as np
     import torch
 
@@ -482,7 +757,61 @@ def compare_phase(device, run_a, run_b, run_c) -> dict:
     ):
         _compare(f"sliced ELL {label} ({op.n_pad} rows, {op.n_slots} slots)",
                  bsg_spmv(op, x), spmv_plain(op, x), tol, errs, "sell_spmv")
+    compare_path_d(device, run_d1, run_d2, errs, vec)
     return errs
+
+
+def compare_path_d(device, run_d1, run_d2, errs, vec) -> None:
+    """Kernels 2 and 5 against their plain versions (adds to ``errs``)."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
+        bsg_from_csr,
+        bsg_spmv,
+        spmv_plain,
+    )
+
+    # Kernel 2: path D2's ragged operator, then skewed slices.
+    R = run_d2["R"]
+    x32 = vec(R.n_pad)
+    for name, x, tol in (("float32", x32, TOL_F32),
+                         ("float64", x32.double(), TOL_F64)):
+        _compare(f"chunked ELL path D2 ({R.n_chunks} chunks of 16, {name} "
+                 f"vectors)", bsg_spmv(R, x), spmv_plain(R, x), tol, errs,
+                 "sell_chunked_spmv")
+    skew = _skewed_csr(4096, seed=7)
+    for chunk in (1, 4, 16):
+        for storage, name, tol in (("float32", "float32", TOL_F32),
+                                   ("float64", "float64", TOL_F64)):
+            S = bsg_from_csr(skew, reorder=False, storage=storage,
+                             layout="ragged", chunk=chunk, device=device)
+            x = vec(S.n_pad, getattr(np, name))
+            _compare(f"chunked ELL skewed widths 1/200/0 (chunk {chunk}, "
+                     f"{storage})", bsg_spmv(S, x), spmv_plain(S, x), tol,
+                     errs, "sell_chunked_spmv")
+
+    # Kernel 5: the fused solve against its plain recurrence, both sizes.
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        _inverse_diagonal,
+        fused_cg_plain,
+        fused_cg_solve,
+    )
+
+    for label in ("833k", "16k"):
+        A, b = run_d1[label]["A"], run_d1[label]["b"]
+        rf = fused_cg_solve(A, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
+        rp = fused_cg_plain(A, b, torch.zeros_like(b), _inverse_diagonal(A),
+                            tol=PCG_TOL, maxiter=PCG_MAXITER)
+        sync(device)
+        diff = (rf.x.double() - rp.x.double()).abs().max().item()
+        rel = diff / rp.x.double().abs().max().item()
+        log(f"[D] fused CG {label}: kernel {rf.iterations} iterations, plain "
+            f"{rp.iterations}; max rel diff of x {rel:.3e} (limit 1e-4)")
+        check(abs(rf.iterations - rp.iterations) <= 2,
+              f"[D] fused CG {label}: iterations differ by more than 2")
+        check(rel <= 1e-4, f"[D] fused CG {label}: x differs by {rel:.3e}")
+        errs["fused_cg"] = max(errs.get("fused_cg", 0.0), diff)
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +963,7 @@ def _dia_csr(A):
     return S.indptr, S.indices, S.data
 
 
-def timing_phase(device, card, run_a, run_b, run_c) -> dict:
+def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     import numpy as np
     import torch
 
@@ -747,6 +1076,122 @@ def timing_phase(device, card, run_a, run_b, run_c) -> dict:
         library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
         events_ms={k: v["events_ms"] for k, v in t.items()})
     rec["solve_a_warm"] = warm_solve_breakdown(card, run_a)
+    rec.update(time_chunked(device, card, run_c, run_d2, rec["sell_spmv"]))
+    rec.update(time_fused(card, run_d1))
+    return rec
+
+
+def time_chunked(device, card, run_c, run_d2, k1) -> dict:
+    """Kernel 2 on path D2's operator (chunk 16), beside kernel 1."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_spmv, spmv_plain
+
+    R = run_d2["R"]
+    csr = run_c["solver"].system.A
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=R.n_pad).astype(np.float32)).to(device)
+    xo = x[R.perm].contiguous()
+    Acsr = _csr_tensor(csr.indptr, csr.indices, csr.data, csr.n_cols,
+                       torch.float32, device)
+    t = _measure({
+        "kernel": lambda: bsg_spmv(R, x),
+        "plain": lambda: spmv_plain(R, x),
+        "library": lambda: Acsr @ xo,
+    })
+    nbytes = (R.n_slots * 8 + R.chunk_ptr.numel() * 4 + R.x_len * 4
+              + R.n_pad * 4)
+    b_ms, b_by = bound(nbytes, 2 * R.n_slots)
+    log(f"[E] chunked ELL fine ({R.n_pad} rows, {R.n_chunks} chunks of 16, "
+        f"{R.n_slots} slots, f32), device ms per call: kernel "
+        f"{t['kernel']['device_ms']} (kernel 1 on the dense layout "
+        f"{k1['ms']}), plain {t['plain']['device_ms']}, cuSPARSE CSR "
+        f"{t['library']['device_ms']}; events back to back: "
+        f"{json.dumps({k: v['events_ms'] for k, v in t.items()})}; bound "
+        f"{b_ms} ms by {b_by} ({nbytes / 1e6:.2f} MB) [{card}]")
+    return {"sell_chunked_spmv": dict(
+        ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
+        library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
+        events_ms={k: v["events_ms"] for k, v in t.items()})}
+
+
+def _wall_ms(fn, reps: int) -> list:
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def time_fused(card, run_d1) -> dict:
+    """Kernel 5 per solve at both sizes: wall (host clock around the solve
+    and a synchronise) and device time (profiler), beside its plain
+    recurrence and, as the yardstick, the unfused loop on kernel 1."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        cg_solve,
+        fused_cg_solve,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        _inverse_diagonal,
+        fused_cg_plain,
+    )
+
+    rec = {}
+    for label in ("833k", "16k"):
+        d = run_d1[label]
+        A, b, M = d["A"], d["b"], d["M"]
+        zero = torch.zeros_like(b)
+        invd = _inverse_diagonal(A)
+        fns = {
+            "fused": lambda: fused_cg_solve(A, b, tol=PCG_TOL,
+                                            maxiter=PCG_MAXITER),
+            "unfused": lambda: cg_solve(A, b, zero, precond=M, tol=PCG_TOL,
+                                        maxiter=PCG_MAXITER),
+            "plain": lambda: fused_cg_plain(A, b, zero, invd, tol=PCG_TOL,
+                                            maxiter=PCG_MAXITER),
+        }
+        walls = {k: [] for k in fns}
+        for k in ("unfused", "fused", "plain", "plain", "fused", "unfused"):
+            walls[k] += _wall_ms(fns[k], 2 if k == "fused" else 1)
+        prof = {k: profile_device(fns[k], reps=3 if k == "fused" else 1)
+                for k in fns}
+        iters = d["fused"].iterations
+        per_iter = (A.n_slots * 8 + A.slice_ptr.numel() * 8
+                    + (A.x_len + VECTOR_PASSES * A.n_pad) * 4)
+        setup = (A.n_slots * 8 + 5 * A.n_pad * 4)  # A x0, b, x0, D^-1, r, p
+        nbytes = iters * per_iter + setup
+        b_ms, b_by = bound(nbytes, iters * (2 * A.n_slots + 12 * A.n_pad))
+        dev = prof["fused"]["device_ms"]
+        unf = prof["unfused"]
+        idle = 1.0 - unf["busy_ms"] / unf["wall_ms"]
+        log(f"[E] fused CG {label} ({A.n_pad} rows, {iters} iterations; "
+            f"unfused {d['unfused'].iterations}): wall ms per solve fused "
+            f"{walls['fused']}, unfused {walls['unfused']}, plain "
+            f"{walls['plain']}; device ms per solve fused {dev} "
+            f"({dev * 1e3 / iters:.2f} us per iteration), unfused "
+            f"{unf['device_ms']} (busy {unf['busy_ms']} of "
+            f"{unf['wall_ms']} ms under the profiler, idle share {idle}), "
+            f"plain {prof['plain']['device_ms']}; bound {b_ms} ms by {b_by} "
+            f"({b_ms * 1e3 / iters:.2f} us per iteration, "
+            f"{nbytes / 1e6:.1f} MB) [{card}]")
+        rec[f"fused_cg/{label}"] = dict(
+            ms=dev, plain_ms=prof["plain"]["device_ms"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, iterations=iters,
+            us_per_iteration=dev * 1e3 / iters,
+            wall_ms=walls["fused"], plain_wall_ms=walls["plain"],
+            yardstick="unfused cg_solve + Jacobi on the sliced-ELL kernel",
+            yardstick_ms=min(walls["unfused"]),
+            yardstick_wall_ms=walls["unfused"],
+            yardstick_device_ms=unf["device_ms"],
+            yardstick_idle_share=idle,
+            unfused_iterations=d["unfused"].iterations)
     return rec
 
 
@@ -828,12 +1273,17 @@ def main() -> int:
     run_b = phase_b(kernels)
     run_c = phase_c(device, kernels)
     log(f"[C] done at {time.perf_counter() - t_start:.1f} s")
+    run_d1 = phase_d1(device, kernels, run_c)
+    run_d2 = phase_d2(device, kernels, run_c, run_d1)
+    log(f"[D2] done at {time.perf_counter() - t_start:.1f} s")
+    run_d3 = phase_d3(device, kernels)
+    log(f"[D3] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
-    errs = compare_phase(device, run_a, run_b, run_c)
+    errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
 
     # ---- E. timing and records --------------------------------------------
-    rec = timing_phase(device, card, run_a, run_b, run_c)
+    rec = timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2)
     res1, res2 = run_c["res"]
     mr = run_a["report"]["mixed"]
     log("smoke: " + json.dumps({
@@ -858,16 +1308,40 @@ def main() -> int:
             "host_relres": list(run_c["host_relres"]),
             "launches": run_c["counts"],
         },
+        "jacobi_pcg": {
+            label: {
+                "dof": run_d1[label]["system"].n_free,
+                "iterations": [run_d1[label]["unfused"].iterations,
+                               run_d1[label]["fused"].iterations],
+                "first_wall_ms": list(run_d1[label]["wall_ms"]),
+                "host_relres": run_d1[label]["host_relres"],
+            } for label in ("833k", "16k")
+        } | {"launches": run_d1["counts"]},
+        "ragged": {
+            "chunks": run_d2["R"].n_chunks,
+            "slots": run_d2["R"].n_slots,
+            "iterations": {"jacobi": run_d2["jacobi"].iterations,
+                           "amg": run_d2["amg"].iterations,
+                           "amg_dense": run_d2["amg_dense"].iterations},
+            "host_relres": run_d2["host_relres"],
+            "pack_s": run_d2["t_pack"],
+            "amg_setup_s": run_d2["t_amg"],
+            "launches": run_d2["launches"],
+        },
+        "cli_routes": run_d3,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
     main_shape = {"sell_spmv": ("sell_spmv", run_c["counts"]),
                   "pad_stencil": ("pad_stencil/float32", run_a["counts"]),
-                  "dia_spmv": ("dia_spmv/level 1", run_a["counts"])}
+                  "dia_spmv": ("dia_spmv/level 1", run_a["counts"]),
+                  "sell_chunked_spmv": ("sell_chunked_spmv", run_d2["counts"]),
+                  "fused_cg": ("fused_cg/833k", run_d1["counts"])}
     records = []
     for k in kernels:
         key, counts = main_shape[k.name]
         r = rec[key]
+        extra = {f: r[f] for f in ("yardstick", "yardstick_ms") if f in r}
         records.append({
             "name": k.name,
             "route": "cuda",
@@ -880,6 +1354,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **extra,
         })
     print(json.dumps({"kernels": records}))
     print(card)

@@ -3,16 +3,23 @@
 Counterpart of the JAX package's ``cli/solve.py``, single-device routes:
 open -> assemble -> dump A and B (``--outputPrefix``) -> decompose the mesh
 into ``max(2, nparts)`` partition blocks for the solution file -> solve ->
-dump X.  Two solve routes, chosen as JAX chooses them:
+dump X.  The solve routes, chosen as JAX chooses them:
 
 - ``--dtype float64 --precond amg --no-snapshots`` (CG, f32-exact
   operator): mixed-precision iterative refinement — f32 CG+AMG sweeps with
   the f64 residual on the device; on a structured box the operator is the
   pad-stencil one and AMG takes it as its fine level;
-- otherwise CG with per-iteration snapshots and none/jacobi/amg.
+- otherwise a Krylov solve: ``--solver cg`` (a snapshot per iteration),
+  ``gmres`` (a snapshot per restart cycle, or with
+  ``--snapshot-every-iteration`` the reference's one-step
+  solve/write/reset loop) or ``bicgstab``, preconditioned by
+  none/jacobi/chebyshev/amg on the operator's own vector space, or by
+  ilu0/ilut (the reference's GMRES+ILUT, ``BelosMueLuSolver.cpp:92-106``)
+  on an identity-layout operator.
 
 The solve runs on the card; ``--cpu`` runs it on the CPU.  Routes not
-ported raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+ported (``--partitions > 1``, ``--checkpoint``) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Usage::
 
@@ -31,11 +38,6 @@ import numpy as np
 
 _NOT_PORTED = {
     "partitions": "multi-device solves (ROADMAP.md, Queue 1, item 9)",
-    "gmres": "GMRES (ROADMAP.md, Queue 1, item 8)",
-    "bicgstab": "BiCGSTAB (ROADMAP.md, Queue 1, item 8)",
-    "ilu0": "ILU(0) (ROADMAP.md, Queue 1, item 8)",
-    "ilut": "ILUT (ROADMAP.md, Queue 1, item 8)",
-    "chebyshev": "the Chebyshev preconditioner (ROADMAP.md, Queue 1, item 8)",
     "checkpoint": "resumable CG checkpoints (ROADMAP.md, Queue 1, item 8)",
 }
 
@@ -44,12 +46,6 @@ def _check_ported(cfg) -> None:
     if cfg.partitions > 1:
         raise NotImplementedError(f"--partitions {cfg.partitions}: "
                                   f"{_NOT_PORTED['partitions']}")
-    if cfg.solver != "cg":
-        raise NotImplementedError(f"--solver {cfg.solver}: "
-                                  f"{_NOT_PORTED[cfg.solver]}")
-    if cfg.precond in ("ilu0", "ilut", "chebyshev"):
-        raise NotImplementedError(f"--precond {cfg.precond}: "
-                                  f"{_NOT_PORTED[cfg.precond]}")
     if cfg.checkpoint:
         raise NotImplementedError(f"--checkpoint: {_NOT_PORTED['checkpoint']}")
 
@@ -143,6 +139,7 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         if (
             cfg.dtype == "float64"
             and cfg.precond == "amg"
+            and cfg.solver == "cg"
             and not cfg.snapshots
             and np.all(
                 system.A.data.astype(np.float32).astype(np.float64)
@@ -187,8 +184,9 @@ def main(argv=None, report: Optional[dict] = None) -> int:
                     x_host, system.free_to_node, int(mr.inner_iterations)
                 )
         else:
-            result, x_host = _solve_cg(cfg, system, x0_host, dtype, op_dims,
-                                       device, out_mesh, timer, out)
+            result, x_host = _solve_krylov(cfg, system, x0_host, dtype,
+                                           op_dims, device, out_mesh, timer,
+                                           out)
     out["result"] = result
 
     conv = bool(result.converged)
@@ -205,20 +203,23 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     return 0 if conv else 1
 
 
-def _solve_cg(cfg, system, x0_host, dtype, op_dims, device, out_mesh, timer,
-              out):
-    """The CG route: per-iteration snapshots, none/jacobi/amg."""
+def _solve_krylov(cfg, system, x0_host, dtype, op_dims, device, out_mesh,
+                  timer, out):
+    """The Krylov routes: cg, gmres or bicgstab with any preconditioner."""
     from ..io import ExodusSolutionWriter
     from ..ops.dia import choose_operator
-    from ..solvers.cg import cg_solve_snapshots
 
+    # Preconditioners built from the operator itself (Jacobi, Chebyshev,
+    # AMG's fine level) work in its vector space, so the permuted
+    # sliced-ELL and padded pad-stencil operators are allowed; the ILU
+    # factors are in the original numbering, so they take identity-layout
+    # operators (JAX's gate, ``cli/solve.py:195-213`` there).
+    own_space = cfg.precond in ("none", "jacobi", "chebyshev", "amg")
+    gate = "auto" if own_space else "never"
     with timer.phase("solve.operator"):
-        A = choose_operator(
-            system.A, dtype=dtype, bsg="auto", grid_dims=op_dims,
-            # The padded-3-D stencil owns its vector space, as the
-            # sliced-ELL operator does, so it shares the gate.
-            pad_stencil="auto", device=device,
-        )
+        A = choose_operator(system.A, dtype=dtype, bsg=gate,
+                            grid_dims=op_dims, pad_stencil=gate,
+                            device=device)
     if cfg.verbose:
         print(f"operator format: {type(A).__name__}")
     b = (
@@ -233,34 +234,98 @@ def _solve_cg(cfg, system, x0_host, dtype, op_dims, device, out_mesh, timer,
     with ExodusSolutionWriter(cfg.solution, out_mesh) as writer:
         writer.write_boundary_timestep()
 
-        def snapshot(k, x, relres):
-            if cfg.snapshots:
-                writer.write_solution(A.get_vector(x), system.free_to_node, k)
-            if cfg.verbose and k % cfg.report_after_iterations == 0:
-                print(f"iter {k}: relres {relres:.3e}")
+        def write(x, step):
+            writer.write_solution(A.get_vector(x), system.free_to_node, step)
 
         with timer.phase("solve.iterate"):
-            result = cg_solve_snapshots(
-                A, b, x0, precond=precond, tol=cfg.tolerance,
-                maxiter=cfg.iterations, callback=snapshot,
-            )
+            if cfg.solver == "gmres":
+                result = _gmres_route(cfg, A, b, x0, precond, write)
+            elif cfg.solver == "bicgstab":
+                from ..solvers.bicgstab import bicgstab_solve
+
+                result = bicgstab_solve(A, b, x0, precond=precond,
+                                        tol=cfg.tolerance,
+                                        maxiter=cfg.iterations)
+                write(result.x, result.iterations)
+            else:
+                from ..solvers.cg import cg_solve_snapshots
+
+                def snapshot(k, x, relres):
+                    if cfg.snapshots:
+                        write(x, k)
+                    if cfg.verbose and k % cfg.report_after_iterations == 0:
+                        print(f"iter {k}: relres {relres:.3e}")
+
+                result = cg_solve_snapshots(
+                    A, b, x0, precond=precond, tol=cfg.tolerance,
+                    maxiter=cfg.iterations, callback=snapshot,
+                )
+                if not cfg.snapshots:
+                    write(result.x, result.iterations)
         x_host = A.get_vector(result.x)
-        if not cfg.snapshots:
-            writer.write_solution(x_host, system.free_to_node,
-                                  int(result.iterations))
     return result, x_host
+
+
+def _gmres_route(cfg, A, b, x0, precond, write):
+    """GMRES(restart).  With snapshots: one per restart cycle, warm-started
+    (the reference's convergence animation, ``BelosMueLuSolver.cpp:
+    112-133``, without its per-iteration reset); with
+    ``--snapshot-every-iteration`` the reset itself, one Arnoldi step per
+    solve call, then write X and restart from it."""
+    import dataclasses
+
+    from ..solvers.gmres import gmres_solve
+
+    if not cfg.snapshots:
+        result = gmres_solve(A, b, x0, precond=precond, restart=cfg.restart,
+                             tol=cfg.tolerance, maxiter=cfg.iterations)
+        write(result.x, result.iterations)
+        return result
+    per_iter = cfg.snapshot_every_iteration
+    x_cur, total, result = x0, 0, None
+    while total < cfg.iterations:
+        step = 1 if per_iter else min(cfg.restart, cfg.iterations - total)
+        result = gmres_solve(A, b, x_cur, precond=precond,
+                             restart=1 if per_iter else cfg.restart,
+                             tol=cfg.tolerance, maxiter=step)
+        x_cur = result.x
+        total += max(result.iterations, 1)
+        write(x_cur, total)
+        if cfg.verbose:
+            print(f"iter {total}: relres {result.relres:.3e}")
+        if result.converged:
+            break
+    return dataclasses.replace(result, iterations=total)
 
 
 def _make_precond(cfg, A, system, dtype, op_dims, device):
     from ..ops.bsg import BSGMatrix
     from ..ops.stencil_kernel import PadStencilOperator
-    from ..solvers.precond.amg import smoothed_aggregation_setup
-    from ..solvers.precond.jacobi import jacobi_preconditioner
+    from ..solvers.precond import (
+        chebyshev_preconditioner,
+        estimate_lmax_dinv_a,
+        ilu0_preconditioner,
+        ilut_preconditioner,
+        jacobi_preconditioner,
+        smoothed_aggregation_setup,
+    )
 
     if cfg.precond == "none":
         return None
     if cfg.precond == "jacobi":
         return jacobi_preconditioner(A)
+    if cfg.precond == "chebyshev":
+        lmax = estimate_lmax_dinv_a(A, dtype=dtype)
+        return chebyshev_preconditioner(A, lmax, dtype=dtype)
+    if cfg.precond == "ilu0":
+        # Host factorization, level-scheduled sweeps on the device.
+        return ilu0_preconditioner(system.A, n_pad=A.n_pad, dtype=dtype,
+                                   device=device)
+    if cfg.precond == "ilut":
+        # Ifpack2 ILUT at its defaults (level-of-fill 1.0, drop tolerance
+        # 0, ``BelosMueLuSolver.cpp:92-97``).
+        return ilut_preconditioner(system.A, n_pad=A.n_pad, dtype=dtype,
+                                   device=device)
     # amg: structured meshes get brick transfers; operators that own their
     # vector space (sliced ELL, pad-stencil) are the fine level.
     return smoothed_aggregation_setup(

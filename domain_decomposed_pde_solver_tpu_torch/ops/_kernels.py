@@ -33,13 +33,17 @@ import torch
 
 __all__ = [
     "DIA_SPMV",
+    "FUSED_CG",
     "Kernel",
     "PAD_STENCIL",
+    "SELL_CHUNKED_SPMV",
     "SELL_SPMV",
     "build_kernels",
     "dia_spmv_launch",
+    "fused_cg_launch",
     "kernel_build_dir",
     "pad_stencil_launch",
+    "sell_chunked_spmv",
     "sell_spmv",
 ]
 
@@ -48,6 +52,7 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 
 
 def kernel_build_dir() -> pathlib.Path:
@@ -68,14 +73,18 @@ def _nvcc() -> str:
 class Kernel:
     """One CUDA source compiled to one shared library, loaded on demand.
 
-    ``entries`` maps each C entry point to its ctypes argument types; every
-    entry returns an ``int`` (a ``cudaError_t``)."""
+    ``entries`` maps each C entry point that launches the kernel to its
+    ctypes argument types, ``queries`` the entry points that only ask the
+    runtime (no launch, not counted); every one returns an ``int`` (a
+    ``cudaError_t``)."""
 
     def __init__(self, name: str, src: pathlib.Path,
-                 entries: Dict[str, Sequence]):
+                 entries: Dict[str, Sequence],
+                 queries: Optional[Dict[str, Sequence]] = None):
         self.name = name
         self.src = src
         self.entries = dict(entries)
+        self.queries = dict(queries or {})
         self.launches = 0
         self.by_entry: Dict[str, int] = {e: 0 for e in self.entries}
         self.build_log = ""
@@ -117,18 +126,25 @@ class Kernel:
         lib = ctypes.CDLL(str(so))
         lib.ddps_error_string.restype = ctypes.c_char_p
         lib.ddps_error_string.argtypes = [ctypes.c_int]
-        for fn, argtypes in self.entries.items():
+        for fn, argtypes in {**self.entries, **self.queries}.items():
             f = getattr(lib, fn)
             f.restype = ctypes.c_int
             f.argtypes = list(argtypes)
         return lib
 
-    def launch(self, entry: str, *args) -> None:
-        """Call ``entry``, raise on a failed launch, count it."""
+    def _call(self, entry: str, what: str, *args) -> None:
         code = getattr(self.library(), entry)(*args)
         if code != 0:
             msg = self.library().ddps_error_string(code).decode()
-            raise RuntimeError(f"{self.name} launch failed: {msg} ({code})")
+            raise RuntimeError(f"{self.name} {what} failed: {msg} ({code})")
+
+    def query(self, entry: str, *args) -> None:
+        """Call the query ``entry``, raise on an error; not counted."""
+        self._call(entry, "query", *args)
+
+    def launch(self, entry: str, *args) -> None:
+        """Call ``entry``, raise on a failed launch, count it."""
+        self._call(entry, "launch", *args)
         self.launches += 1
         self.by_entry[entry] += 1
 
@@ -160,7 +176,24 @@ PAD_STENCIL = Kernel("pad_stencil", _PKG / "csrc" / "pad_stencil.cu", {
     "ddps_pad_stencil_f64_f32": _PAD_ARGS,
 })
 
-KERNELS = (SELL_SPMV, PAD_STENCIL, DIA_SPMV)
+# cols, vals, chunk_ptr, partial, x, y, n_chunks, chunk, n_out, n_x, stream
+_CHUNKED_ARGS = [_P] * 6 + [_I64, _INT, _I64, _I64, _P]
+SELL_CHUNKED_SPMV = Kernel(
+    "sell_chunked_spmv", _PKG / "csrc" / "sell_chunked_spmv.cu", {
+        "ddps_sell_chunked_spmv_f32_f32": _CHUNKED_ARGS,
+        "ddps_sell_chunked_spmv_f32_f64": _CHUNKED_ARGS,
+        "ddps_sell_chunked_spmv_f64_f64": _CHUNKED_ARGS,
+    })
+
+# slice_ptr, cols, vals, b, invd, x, r, p, ap, part, stats, n, maxiter,
+# tol2, grid, stream
+FUSED_CG = Kernel(
+    "fused_cg", _PKG / "csrc" / "fused_cg.cu",
+    {"ddps_fused_cg_f32": [_P] * 11 + [_I64, _INT, _F32, _INT, _P]},
+    queries={"ddps_fused_cg_grid": [_I64, _P]},
+)
+
+KERNELS = (SELL_SPMV, PAD_STENCIL, DIA_SPMV, SELL_CHUNKED_SPMV, FUSED_CG)
 
 _NAME = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
 
@@ -219,6 +252,95 @@ def sell_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
             x.data_ptr(), y.data_ptr(), n_out, x.numel(), _stream(dev),
         )
     return y
+
+
+def sell_chunked_spmv(cols: torch.Tensor, vals: torch.Tensor,
+                      chunk_ptr: torch.Tensor, chunk: int, x: torch.Tensor,
+                      n_out: int) -> torch.Tensor:
+    """Launch the chunked sliced-ELL SpMV on CUDA tensors; returns y
+    (n_out,).
+
+    ``cols`` (int32) and ``vals`` hold ``n_chunks * 32 * chunk`` slots,
+    chunk after chunk; ``chunk_ptr`` (int32, ``ceil(n_out / 32) + 1``) is
+    the first chunk of every slice.  ``x`` may be shorter than the
+    operator's input space (zero-extended by the kernel)."""
+    dev = _require_cuda(x, "sell_chunked_spmv")
+    for name, t in (("cols", cols), ("vals", vals), ("chunk_ptr", chunk_ptr)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    if cols.dtype != torch.int32 or chunk_ptr.dtype != torch.int32:
+        raise TypeError("cols and chunk_ptr must be int32")
+    entry = (f"ddps_sell_chunked_spmv_{_NAME.get(vals.dtype)}_"
+             f"{_NAME.get(x.dtype)}")
+    if entry not in SELL_CHUNKED_SPMV.entries:
+        raise TypeError(
+            f"no kernel for {vals.dtype} storage with {x.dtype} vectors"
+        )
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    per_chunk = 32 * chunk
+    n_chunks = cols.numel() // per_chunk
+    if (cols.numel() != vals.numel() or cols.numel() % per_chunk
+            or chunk_ptr.numel() != -(-n_out // 32) + 1):
+        raise ValueError(
+            f"inconsistent chunked arrays: {cols.numel()} cols, "
+            f"{vals.numel()} vals, chunks of {per_chunk} slots, "
+            f"{chunk_ptr.numel()} chunk pointers for {n_out} rows"
+        )
+    partial = torch.empty(n_chunks * 32, dtype=x.dtype, device=dev)
+    y = torch.empty(n_out, dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        SELL_CHUNKED_SPMV.launch(
+            entry, cols.data_ptr(), vals.data_ptr(), chunk_ptr.data_ptr(),
+            partial.data_ptr(), x.data_ptr(), y.data_ptr(), n_chunks, chunk,
+            n_out, x.numel(), _stream(dev),
+        )
+    return y
+
+
+def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, b: torch.Tensor, invd: torch.Tensor,
+                    x0: torch.Tensor, tol: float, maxiter: int):
+    """Launch the whole Jacobi-PCG solve on CUDA tensors, once.
+
+    A square float32 sliced-ELL operator of ``n = b.numel()`` rows
+    (``slice_ptr`` int64 of ``ceil(n / 32) + 1``, ``cols`` int32), float32
+    ``b``, ``invd`` and ``x0`` of ``n`` entries.  Returns ``(x, stats)``:
+    ``stats`` a float64 device tensor ``[iterations, relres, converged,
+    rnorm2]``, for the caller to read once."""
+    dev = _require_cuda(b, "fused_cg")
+    n = b.numel()
+    for name, t in (("slice_ptr", slice_ptr), ("cols", cols), ("vals", vals),
+                    ("invd", invd), ("x0", x0)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, b on {dev}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    if slice_ptr.dtype != torch.int64 or cols.dtype != torch.int32:
+        raise TypeError("slice_ptr must be int64 and cols int32")
+    if any(t.dtype != torch.float32 for t in (vals, b, invd, x0)):
+        raise TypeError("the fused CG kernel takes float32 storage and vectors")
+    if (invd.numel() != n or x0.numel() != n
+            or slice_ptr.numel() != -(-n // 32) + 1
+            or cols.numel() != vals.numel()):
+        raise ValueError(f"inconsistent operator or vectors for {n} rows")
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        FUSED_CG.query("ddps_fused_cg_grid", n, ctypes.addressof(grid))
+        x = x0.clone()
+        r, p, ap = (torch.empty_like(b) for _ in range(3))
+        part = torch.empty(6 * grid.value, dtype=torch.float64, device=dev)
+        stats = torch.empty(4, dtype=torch.float64, device=dev)
+        FUSED_CG.launch(
+            "ddps_fused_cg_f32", slice_ptr.data_ptr(), cols.data_ptr(),
+            vals.data_ptr(), b.data_ptr(), invd.data_ptr(), x.data_ptr(),
+            r.data_ptr(), p.data_ptr(), ap.data_ptr(), part.data_ptr(),
+            stats.data_ptr(), n, int(maxiter), float(np.float32(tol * tol)),
+            grid.value, _stream(dev),
+        )
+    return x, stats
 
 
 _DIA_MAX_DIAGS = 128  # the kernel's parameter block holds this many offsets

@@ -22,10 +22,17 @@ internal row of original row ``i``.  RCM is scipy's
 ``reverse_cuthill_mckee(symmetric_mode=True)``, exactly as the JAX packer
 runs it, so both packages share one internal numbering.
 
+Two layouts, as in JAX (``layout=`` of :func:`bsg_from_csr`): the dense
+one above, and the ragged one, whose slices are rounded up to a multiple of
+``chunk`` slot columns and stored as flat chunks of ``32 * chunk`` slots
+with a chunk -> slice map (JAX's ``_bsg_spmv_ragged``, ``bsg.py:857-924``
+there).
+
 On a CUDA tensor :meth:`BSGMatrix.matvec` launches the hand-written kernel
-(``csrc/spmv.cu`` through :mod:`._kernels`) or raises; on a CPU tensor it
-evaluates :func:`spmv_plain`, the plain PyTorch version of the same
-function over the same arrays.
+of its layout (dense: ``csrc/spmv.cu``; ragged: ``csrc/sell_chunked_spmv.cu``,
+both through :mod:`._kernels`) or raises; on a CPU tensor it evaluates
+:func:`spmv_plain`, the plain PyTorch version of the same function over the
+same arrays.
 """
 
 from __future__ import annotations
@@ -61,6 +68,11 @@ class BSGMatrix:
     ``slice_ptr[s]`` is the first slot of slice ``s`` (int64, length
     ``n_slices + 1``); slot ``j`` of row ``32*s + i`` is at
     ``slice_ptr[s] + 32*j + i`` in ``cols`` (int32) and ``vals``.
+    The ragged layout (``chunk > 0``) rounds every slice width up to a
+    multiple of ``chunk``, so chunk ``k`` is slots ``[32*chunk*k,
+    32*chunk*(k+1))``; ``tmap[k]`` is its slice (int32, non-decreasing) and
+    ``chunk_ptr[s]`` the first chunk of slice ``s`` (int32, length
+    ``n_slices + 1``; a slice of width 0 owns no chunk).
     ``x_len`` is the length of the input space a matvec accepts: ``n_pad``
     for square operators, the given input length for :func:`bsg_from_coo`.
     ``shape`` is the true logical shape ``(n_rows, n_cols)``, rectangular
@@ -76,6 +88,9 @@ class BSGMatrix:
     n_cols: int  # logical input columns
     n_pad: int  # padded output length (rows computed by a matvec)
     x_len: int  # input-space length
+    chunk: int = 0  # slot columns per chunk; 0 is the dense layout
+    tmap: Optional[torch.Tensor] = None  # (n_chunks,) int32 chunk -> slice
+    chunk_ptr: Optional[torch.Tensor] = None  # (n_slices + 1,) int32
     _slot_row: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False
     )
@@ -95,6 +110,14 @@ class BSGMatrix:
     @property
     def n_slots(self) -> int:
         return int(self.cols.numel())
+
+    @property
+    def layout(self) -> str:
+        return "ragged" if self.chunk else "dense"
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.tmap.numel()) if self.chunk else 0
 
     def put_vector(self, x, dtype=torch.float32) -> torch.Tensor:
         """Original-order (n,) host vector -> internal padded device vector."""
@@ -157,8 +180,10 @@ def spmv_plain(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch sliced-ELL SpMV: a gather, a multiply and a row sum
     over the kernel's own arrays, in the kernel's slot order per row.
 
-    Same contract as the kernel: columns past ``len(x)`` read 0 (a shorter
-    input is zero-extended), empty and padding rows give 0."""
+    The ragged layout is summed as its kernel sums it: one partial per row
+    of every chunk, then the partials of a slice's chunks added in chunk
+    order.  Same contract as the kernels: columns past ``len(x)`` read 0 (a
+    shorter input is zero-extended), empty and padding rows give 0."""
     _check_input(A, x_padded)
     n_x = x_padded.numel()
     xe = torch.cat([x_padded, x_padded.new_zeros(1)])
@@ -166,22 +191,32 @@ def spmv_plain(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
     prod = A.vals.to(x_padded.dtype) * xe[idx]
     # The last slice may run past n_pad (a multiple of 8); its extra rows
     # hold padding slots only.
-    y = x_padded.new_zeros((A.slice_ptr.numel() - 1) * SLICE)
+    n_slices = A.slice_ptr.numel() - 1
+    if A.chunk:
+        partial = prod.view(-1, A.chunk, SLICE).sum(dim=1)
+        y = x_padded.new_zeros((n_slices, SLICE))
+        y.index_add_(0, A.tmap.to(torch.int64), partial)
+        return y.view(-1)[: A.n_pad]
+    y = x_padded.new_zeros(n_slices * SLICE)
     return y.index_add_(0, A.slot_row(), prod)[: A.n_pad]
 
 
 def bsg_spmv(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
     """y = A @ x in the internal padded space.
 
-    A CUDA tensor goes to the hand-written kernel (which raises on failure);
-    a CPU tensor to :func:`spmv_plain`.  Nothing moves between devices."""
+    A CUDA tensor goes to the hand-written kernel of the operator's layout
+    (which raises on failure); a CPU tensor to :func:`spmv_plain`.  Nothing
+    moves between devices."""
     if x_padded.device.type == "cpu":
         return spmv_plain(A, x_padded)
     _check_input(A, x_padded)
     if x_padded.device.type != "cuda":
         raise ValueError(f"no SpMV for device {x_padded.device}")
-    from ._kernels import sell_spmv
+    from ._kernels import sell_chunked_spmv, sell_spmv
 
+    if A.chunk:
+        return sell_chunked_spmv(A.cols, A.vals, A.chunk_ptr, A.chunk,
+                                 x_padded.contiguous(), A.n_pad)
     return sell_spmv(A.slice_ptr, A.cols, A.vals, x_padded.contiguous(),
                      A.n_pad)
 
@@ -191,21 +226,31 @@ def bsg_spmv(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _slice_widths(indptr: np.ndarray, n_pad: int) -> np.ndarray:
+    """Widest row of every 32-row slice of ``n_pad`` rows."""
+    n = indptr.size - 1
+    lens = np.zeros(-(-n_pad // SLICE) * SLICE, dtype=np.int64)
+    lens[:n] = np.diff(indptr)
+    return lens.reshape(-1, SLICE).max(axis=1)
+
+
 def sell_pack(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
-              n_pad: int, value_dtype=np.float32):
+              n_pad: int, value_dtype=np.float32, chunk: int = 0):
     """Pack row-sorted CSR arrays (``len(indptr) - 1 <= n_pad`` rows) into
-    sliced-ELL host arrays ``(slice_ptr, cols, vals)``."""
+    sliced-ELL host arrays ``(slice_ptr, cols, vals)``; ``chunk > 0``
+    rounds every slice width up to a multiple of ``chunk``."""
     indptr = np.asarray(indptr, dtype=np.int64)
     n = indptr.size - 1
-    n_slices = -(-n_pad // SLICE)
-    lens = np.zeros(n_slices * SLICE, dtype=np.int64)
-    lens[:n] = np.diff(indptr)
-    widths = lens.reshape(n_slices, SLICE).max(axis=1)
+    widths = _slice_widths(indptr, n_pad)
+    if chunk:
+        widths = -(-widths // chunk) * chunk
+    n_slices = widths.size
+    lens = np.diff(indptr)
     slice_ptr = np.zeros(n_slices + 1, dtype=np.int64)
     np.cumsum(widths * SLICE, out=slice_ptr[1:])
     n_slots = int(slice_ptr[-1])
     nnz = int(indptr[-1])
-    rows = np.repeat(np.arange(n, dtype=np.int64), lens[:n])
+    rows = np.repeat(np.arange(n, dtype=np.int64), lens)
     pos = np.arange(nnz, dtype=np.int64) - indptr[rows]
     dst = slice_ptr[rows // SLICE] + pos * SLICE + rows % SLICE
     cols = np.zeros(n_slots, dtype=np.int32)
@@ -239,9 +284,24 @@ def _storage_dtype(storage: str) -> torch.dtype:
     return _STORAGE[storage]
 
 
+def _chunk_maps(slice_ptr: np.ndarray, chunk: int):
+    """``(tmap, chunk_ptr)`` of a ragged pack: chunks per slice are
+    ``width / chunk``, numbered slice after slice."""
+    per_slice = np.diff(slice_ptr) // (SLICE * chunk)
+    tmap = np.repeat(np.arange(per_slice.size, dtype=np.int32), per_slice)
+    chunk_ptr = np.zeros(per_slice.size + 1, dtype=np.int32)
+    np.cumsum(per_slice, out=chunk_ptr[1:])
+    return tmap, chunk_ptr
+
+
 def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
-            device) -> BSGMatrix:
+            device, chunk: int = 0) -> BSGMatrix:
     dev = resolve_device(device)
+    maps = {}
+    if chunk:
+        tmap, chunk_ptr = _chunk_maps(slice_ptr, chunk)
+        maps = dict(chunk=int(chunk), tmap=torch.from_numpy(tmap).to(dev),
+                    chunk_ptr=torch.from_numpy(chunk_ptr).to(dev))
     return BSGMatrix(
         slice_ptr=torch.from_numpy(slice_ptr).to(dev),
         cols=torch.from_numpy(cols).to(dev),
@@ -252,7 +312,25 @@ def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
         n_cols=int(n_cols),
         n_pad=int(n_pad),
         x_len=int(x_len),
+        **maps,
     )
+
+
+_RAGGED_MIN_BYTES = 4e9  # JAX's gate: dense slot arrays above ~4 GB
+
+
+def _pick_layout(layout: str, widths: np.ndarray, chunk: int,
+                 slot_bytes: int) -> str:
+    """JAX's ``layout="auto"`` rule (``bsg.py:359-385`` there): ragged only
+    when the dense slot arrays exceed 4 GB and the chunked form stores at
+    most 0.9x their bytes."""
+    if layout != "auto":
+        return layout
+    dense = int(widths.sum()) * SLICE * slot_bytes
+    ragged = int((-(-widths // chunk) * chunk).sum()) * SLICE * slot_bytes
+    if dense > _RAGGED_MIN_BYTES and ragged <= 0.9 * dense:
+        return "ragged"
+    return "dense"
 
 
 def bsg_from_csr(
@@ -262,6 +340,8 @@ def bsg_from_csr(
     perm: Optional[np.ndarray] = None,
     storage: str = "auto",
     row_multiple: int = TILE,
+    layout: str = "auto",
+    chunk: int = 16,
     device=None,
 ) -> BSGMatrix:
     """Pack a square CSR matrix as a sliced-ELL operator.
@@ -273,9 +353,28 @@ def bsg_from_csr(
     exact for the graph Laplacian); ``"float64"`` keeps f64 coefficients.
     The padded length is a multiple of ``row_multiple``: 1024 by default,
     as in the JAX BSG layout; AMG levels outside the BSG chain pad to 8, as
-    the JAX package pads its ELL levels.  ``device`` defaults to the card."""
+    the JAX package pads its ELL levels.  ``device`` defaults to the card.
+
+    ``layout="ragged"`` rounds every slice up to a multiple of ``chunk``
+    slot columns (default 16, as in JAX) and stores the chunks flat with a
+    chunk -> slice map; its CUDA product gives each chunk one warp, so a
+    wide slice no longer holds one warp for its whole width.  JAX caps the
+    number of chunks (``_TMAP_CAP``, widening ``chunk``) because its map
+    must fit the TPU's 1 MB scalar memory; the GPU reads the map from
+    device memory, so the port has no cap.  ``layout="auto"`` is JAX's rule:
+    ragged only when the dense slot arrays exceed 4 GB and the chunked
+    form stores at most 0.9x their bytes.  JAX's dense layout pads every
+    tile to the widest tile, so its chunked form can be smaller; the port's
+    dense layout already pads each slice only to its own width, so the
+    chunked form is never smaller and ``"auto"`` keeps the dense layout.
+    JAX measured ragged as "a memory-footprint lever, not a speed lever"
+    (``bsg.py:275-283`` there)."""
     if csr.shape[0] != csr.shape[1]:
         raise ValueError("bsg_from_csr requires a square operator")
+    if layout not in ("auto", "dense", "ragged"):
+        raise ValueError(f"layout must be auto|dense|ragged, got {layout!r}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     import scipy.sparse as sp
 
     n = csr.n_rows
@@ -294,14 +393,18 @@ def bsg_from_csr(
     S.sort_indices()
     n_pad = max(1, -(-n // row_multiple)) * row_multiple
     vdt = _storage_dtype(storage)
+    layout = _pick_layout(layout, _slice_widths(S.indptr, n_pad), chunk,
+                          4 + vdt.itemsize)
+    chunk = chunk if layout == "ragged" else 0
     slice_ptr, cols, vals = sell_pack(
         S.indptr, S.indices, S.data, n_pad,
         value_dtype=np.float32 if vdt == torch.float32 else np.float64,
+        chunk=chunk,
     )
     diag = np.zeros(n_pad, dtype=np.float32)
     diag[:n] = S.diagonal().astype(np.float32)
     return _upload(slice_ptr, cols, vals, diag, perm, n, n, n_pad, n_pad,
-                   device)
+                   device, chunk=chunk)
 
 
 def bsg_from_coo(

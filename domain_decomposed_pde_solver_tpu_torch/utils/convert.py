@@ -6,7 +6,9 @@ map go in as arrays; :func:`operator_from_csr` can adopt the JAX BSG
 operator's permutation (``np.asarray(A_jax.perm)``); :func:`dia_from_numpy`
 takes a JAX ``DIAMatrix``'s offsets and diagonals; and
 :func:`pad_stencil_from_parts` takes the JAX package's host stencil
-decomposition (``stencil_parts_from_packed``) as it is.  Nothing here
+decomposition (``stencil_parts_from_packed``) as it is; and
+:func:`ilu_from_numpy` takes a JAX ``ILU0Preconditioner``'s solve-ordered
+factor arrays, so both packages apply identical factors.  Nothing here
 imports the JAX package.
 """
 
@@ -23,12 +25,14 @@ from ..ops.bsg import BSGMatrix, bsg_from_csr
 from ..ops.csr import CSRMatrix
 from ..ops.dia import DIAMatrix
 from ..ops.stencil_kernel import pad_stencil_from_parts
+from ..solvers.precond.ilu import ilu_from_arrays as ilu_from_numpy
 from .device import resolve_device
 
 __all__ = [
     "csr_from_numpy",
     "dia_from_numpy",
     "heat_system_from_numpy",
+    "ilu_from_numpy",
     "operator_from_csr",
     "pad_stencil_from_parts",
 ]

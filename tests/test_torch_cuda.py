@@ -1,6 +1,7 @@
 """The port on the card: the hand-written kernels (sliced-ELL SpMV,
-pad-stencil, DIA) against their plain PyTorch versions, and the solves
-through them against the same solves on the CPU.
+pad-stencil, DIA, chunked sliced-ELL SpMV, fused Jacobi-PCG) against their
+plain PyTorch versions, and the solves through them against the same
+solves on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -11,7 +12,10 @@ machine without JAX (``tests/conftest.py`` imports JAX; skip it there):
 Kernel tolerances: each kernel and its plain version add the same
 products, in the same or another order, the kernel with fused
 multiply-adds, so they differ by rounding only: 1e-5 relative in f32,
-1e-12 in f64.
+1e-12 in f64.  The fused CG kernel and its plain version run the same
+recurrence with dots summed in another order (the kernel per block in
+double, then across blocks), so they stop within 2 iterations of each
+other and their answers agree to 1e-4 relative (f32 CG to 1e-6).
 """
 
 import numpy as np
@@ -265,3 +269,141 @@ def test_structured_api_on_the_card_matches_the_cpu(cuda_device):
     c, q = cpu.solve(tol=1e-10)
     assert r.converged and q.converged and r.iterations == q.iterations
     assert np.abs(u - c).max() <= 1e-10 * np.abs(c).max()
+
+
+def _skewed_csr(n_slices, seed):
+    """Square CSR whose 32-row slices have widths 1, 200, 0 (empty) and
+    random 1..30, side by side."""
+    rng = np.random.default_rng(seed)
+    n = n_slices * 32
+    lens = np.zeros(n, dtype=np.int64)
+    for s in range(n_slices):
+        kind = s % 4
+        rows = slice(32 * s, 32 * s + 32)
+        if kind == 0:
+            lens[rows] = 1
+        elif kind == 1:
+            lens[rows] = rng.integers(150, 201, 32)
+            lens[32 * s] = 200
+        elif kind == 3:
+            lens[rows] = rng.integers(1, 31, 32)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    indices = np.concatenate(
+        [np.sort(rng.choice(n, size=k, replace=False)) for k in lens if k]
+    )
+    return CSRMatrix(indptr=indptr, indices=indices.astype(np.int64),
+                     data=rng.normal(size=indices.size), shape=(n, n))
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 16])
+@pytest.mark.parametrize("storage,name", [("float32", "float32"),
+                                          ("float32", "float64"),
+                                          ("float64", "float64")])
+def test_chunked_kernel_matches_plain_on_skewed_slices(cuda_device, chunk,
+                                                       storage, name):
+    csr = _skewed_csr(96, seed=31)
+    A = bsg_from_csr(csr, reorder=False, storage=storage, layout="ragged",
+                     chunk=chunk, device=cuda_device)
+    D = bsg_from_csr(csr, reorder=False, storage=storage, device=cuda_device)
+    assert A.layout == "ragged" and A.chunk == chunk
+    x = torch.as_tensor(np.random.default_rng(32).normal(size=A.n_pad),
+                        dtype=getattr(torch, name), device=cuda_device)
+    before = (_kernels.SELL_CHUNKED_SPMV.launches, _kernels.SELL_SPMV.launches)
+    y = bsg_spmv(A, x)
+    assert (_kernels.SELL_CHUNKED_SPMV.launches,
+            _kernels.SELL_SPMV.launches) == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == (A.n_pad,)
+    assert _relerr(y, spmv_plain(A, x)) <= TOL[name]
+    assert _relerr(y, bsg_spmv(D, x)) <= TOL[name]
+    empty = np.flatnonzero(np.diff(csr.indptr) == 0)
+    assert not torch.any(y[torch.as_tensor(empty, device=cuda_device)])
+    assert torch.equal(y, bsg_spmv(A, x))  # deterministic
+
+
+def test_chunked_kernel_on_the_heat_operator(cuda_device):
+    sy = assemble_heat_system(_mesh())
+    A = bsg_from_csr(sy.A, layout="ragged", chunk=16, device=cuda_device)
+    x = A.put_vector(np.random.default_rng(33).normal(size=sy.A.n_rows))
+    y = bsg_spmv(A, x)
+    torch.cuda.synchronize()
+    ref = sy.A.matvec(A.get_vector(x).astype(np.float64))
+    assert np.abs(A.get_vector(y) - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def _laplacian(n, deg, seed, shift=0.5):
+    """Random graph Laplacian plus ``shift`` on the diagonal (SPD)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    m = n * deg // 2
+    u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    M = sp.coo_matrix((np.ones(2 * u.size), (np.r_[u, v], np.r_[v, u])),
+                      shape=(n, n)).tocsr()
+    M.data[:] = -1.0
+    M.setdiag(0)
+    M.eliminate_zeros()
+    M.setdiag(-np.asarray(M.sum(axis=1)).ravel() + shift)
+    M = M.tocsr()
+    M.sort_indices()
+    return M
+
+
+def _fused_case(n, deg, seed, device, shift=0.5):
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        _inverse_diagonal,
+    )
+
+    S = _laplacian(n, deg, seed, shift)
+    csr = CSRMatrix(indptr=S.indptr.astype(np.int64),
+                    indices=S.indices.astype(np.int64), data=S.data,
+                    shape=S.shape)
+    A = bsg_from_csr(csr, reorder=n < 100_000, device=device)
+    x_true = np.random.default_rng(seed + 7).standard_normal(n)
+    b_host = (S @ x_true).astype(np.float32)
+    return S, A, b_host, A.put_vector(b_host), _inverse_diagonal(A)
+
+
+@pytest.mark.parametrize("n,deg,seed", [(700, 8, 0), (2500, 14, 1),
+                                        (600_000, 6, 2)],
+                         ids=["n700", "n2500", "beyond-one-wave"])
+def test_fused_cg_kernel_matches_plain(cuda_device, n, deg, seed):
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plain,
+        fused_cg_solve,
+    )
+
+    S, A, b_host, b, invd = _fused_case(n, deg, seed, cuda_device)
+    before = (_kernels.FUSED_CG.launches, _kernels.SELL_SPMV.launches)
+    res = fused_cg_solve(A, b, tol=1e-6, maxiter=500)
+    assert (_kernels.FUSED_CG.launches,
+            _kernels.SELL_SPMV.launches) == (before[0] + 1, before[1])
+    ref = fused_cg_plain(A, b, torch.zeros_like(b), invd, tol=1e-6,
+                         maxiter=500)
+    assert res.converged and ref.converged
+    assert abs(res.iterations - ref.iterations) <= 2
+    assert _relerr(res.x, ref.x) <= 1e-4
+    x = A.get_vector(res.x).astype(np.float64)
+    assert np.linalg.norm(S @ x - b_host) / np.linalg.norm(b_host) < 5e-6
+    again = fused_cg_solve(A, b, tol=1e-6, maxiter=500)
+    assert again.iterations == res.iterations
+    assert torch.equal(again.x, res.x)  # bit-identical
+
+
+def test_fused_cg_kernel_maxiter_warm_start_and_zero_rhs(cuda_device):
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_solve,
+    )
+
+    _S, A, _b_host, b, _invd = _fused_case(500, 8, 3, cuda_device, shift=1e-3)
+    capped = fused_cg_solve(A, b, tol=1e-12, maxiter=7)
+    assert capped.iterations == 7 and not capped.converged
+    done = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
+    warm = fused_cg_solve(A, b, x0=done.x, tol=1e-6, maxiter=2000)
+    assert done.converged and warm.iterations == 0 and warm.converged
+    zero = fused_cg_solve(A, torch.zeros_like(b), tol=1e-6)
+    assert zero.iterations == 0 and zero.converged and zero.relres == 0.0
+    assert not torch.any(zero.x)

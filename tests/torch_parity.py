@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import scipy.sparse as sp
 
 from domain_decomposed_pde_solver_tpu.io import box_mesh, refine_uniform
 from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
@@ -46,3 +47,23 @@ def relerr(a, b) -> float:
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def random_laplacian(n: int, deg: int, seed: int, shift: float = 0.0):
+    """Random graph Laplacian (off-diagonal -1, diagonal the degree) plus
+    ``shift`` on the diagonal, as scipy CSR with sorted indices: the graphs
+    of the JAX package's BSG and fused-CG tests."""
+    rng = np.random.default_rng(seed)
+    m = n * deg // 2
+    u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    M = sp.coo_matrix((np.ones(2 * u.size), (np.r_[u, v], np.r_[v, u])),
+                      shape=(n, n)).tocsr()
+    M.data[:] = -1.0
+    M.setdiag(0)
+    M.eliminate_zeros()
+    M.setdiag(-np.asarray(M.sum(axis=1)).ravel() + shift)
+    M = M.tocsr()
+    M.sort_indices()
+    return M
