@@ -35,9 +35,10 @@ D1. Jacobi-PCG in one launch (the fused CG kernel) against the unfused
    ``refine_uniform(box_mesh(13, 13, 13, "TETRA4"), 1)`` (the size of the
    reference's tet-cube-heat, L2-resident), f32 to 1e-6: both converge,
    iterations within max(2, 2 %), host f64 relres <= 5e-6 plus the f32
-   rounding floor eps/2 * || |A| |x| || / ||b|| (hundreds of f32 updates
-   at the answer's scale), exactly one fused launch and no sliced-ELL
-   launch inside a fused solve.
+   rounding floor eps/2 * || |A| |u| || / ||b|| (hundreds of f32 updates
+   at the answer's scale), with u a host f64 Jacobi-PCG answer to 1e-10
+   computed before either solve, exactly one fused launch and no
+   sliced-ELL launch inside a fused solve.
 D2. The same 833k system packed ``layout="ragged", chunk=16`` (the chunked
    kernel): Jacobi-PCG, and CG+AMG with the ragged operator as the AMG's
    fine level, each within one iteration of the dense layout's; the
@@ -168,6 +169,35 @@ def f32_floor(A, u, b) -> float:
     absA = abs(A.to_scipy())
     return float(np.finfo(np.float32).eps / 2 * np.linalg.norm(
         absA @ np.abs(np.asarray(u, dtype=np.float64))) / np.linalg.norm(b))
+
+
+def host_cg_f64(A, b, tol: float = 1e-10, maxiter: int = 20000):
+    """Jacobi-PCG in float64 on the host (SciPy's CSR product): an answer
+    independent of the solvers under test."""
+    import numpy as np
+
+    S = A.to_scipy().tocsr()
+    d = S.diagonal()
+    invd = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 0.0)
+    b = np.asarray(b, dtype=np.float64)
+    x = np.zeros_like(b)
+    r = b.copy()
+    p = invd * r
+    rz = r @ p
+    target = tol * np.linalg.norm(b)
+    k = 0
+    while np.linalg.norm(r) > target and k < maxiter:
+        ap = S @ p
+        alpha = rz / (p @ ap)
+        x += alpha * p
+        r -= alpha * ap
+        z = invd * r
+        rz_new = r @ z
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        k += 1
+    check(np.linalg.norm(r) <= target, "host f64 reference did not converge")
+    return x, k
 
 
 def bound(bytes_moved: float, flops: float) -> tuple:
@@ -439,6 +469,14 @@ def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
     reset_counts(kernels)
     out = {}
     for label, (sy, A) in cases.items():
+        # Hundreds of f32 updates at the answer's scale: the true residual
+        # may sit above the recursive one by a few rounding floors.  The
+        # floor is taken from an independent f64 answer.
+        t0 = time.perf_counter()
+        u_ref, k_ref = host_cg_f64(sy.A, sy.b)
+        t_ref = time.perf_counter() - t0
+        floor = f32_floor(sy.A, u_ref, sy.b)
+        limit = 5e-6 + floor
         b = A.put_vector(sy.b, dtype=torch.float32)
         M = jacobi_preconditioner(A)
         t0 = time.perf_counter()
@@ -451,15 +489,14 @@ def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
             A, b, tol=PCG_TOL, maxiter=PCG_MAXITER))
         wall_f = (time.perf_counter() - t0) * 1e3
         rr = [host_relres(sy.A, A.get_vector(r.x), sy.b) for r in (ru, rf)]
-        # Hundreds of f32 updates at the answer's scale: the true residual
-        # may sit above the recursive one by a few rounding floors.
-        limit = 5e-6 + f32_floor(sy.A, A.get_vector(ru.x), sy.b)
         slack = max(2, int(0.02 * ru.iterations))
         log(f"[D1] {label} ({sy.n_free} DOF, {A.n_slots} slots): unfused "
             f"{ru.iterations} iterations in {wall_u:.1f} ms (launches "
             f"{json.dumps(du)}), fused {rf.iterations} in {wall_f:.1f} ms "
             f"(launches {json.dumps(df)}); host f64 relres {rr[0]:.3e} / "
-            f"{rr[1]:.3e} (limit {limit:.3e}: 5e-6 + the f32 floor)")
+            f"{rr[1]:.3e} (limit {limit:.3e}: 5e-6 + the f32 floor "
+            f"{floor:.3e} of the host f64 answer, {k_ref} iterations to "
+            f"1e-10 in {t_ref:.1f} s)")
         check(ru.converged and rf.converged, f"[D1] {label}: not converged")
         check(abs(rf.iterations - ru.iterations) <= slack,
               f"[D1] {label}: iterations {rf.iterations} vs {ru.iterations}")
@@ -471,7 +508,7 @@ def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
                   f"[D1] {label}: launches in the unfused solve {du}")
         out[label] = dict(system=sy, A=A, b=b, M=M, unfused=ru, fused=rf,
                           wall_ms=(wall_u, wall_f), host_relres=rr,
-                          limit=limit)
+                          floor=floor, limit=limit)
     out["counts"] = read_counts(kernels)
     log(f"[D1] launches during the path: {json.dumps(out['counts'])}")
     return out
@@ -1076,13 +1113,20 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
         library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
         events_ms={k: v["events_ms"] for k, v in t.items()})
     rec["solve_a_warm"] = warm_solve_breakdown(card, run_a)
-    rec.update(time_chunked(device, card, run_c, run_d2, rec["sell_spmv"]))
+    rec.update(time_chunked(device, card, run_c, run_d2, rec["sell_spmv"],
+                            nbytes))
     rec.update(time_fused(card, run_d1))
     return rec
 
 
-def time_chunked(device, card, run_c, run_d2, k1) -> dict:
-    """Kernel 2 on path D2's operator (chunk 16), beside kernel 1."""
+def time_chunked(device, card, run_c, run_d2, k1, k1_bytes) -> dict:
+    """Kernel 2 on path D2's operator (chunk 16), beside kernel 1.
+
+    Its bound is kernel 1's: the same product of the same operator, whose
+    compulsory bytes are the dense layout's slots, x and y.  The chunked
+    layout's rounding of every slice to a multiple of 16 columns is the
+    kernel's own overhead, reported beside it as the slot ratio and the
+    time its own slots would take at the memory rate."""
     import numpy as np
     import torch
 
@@ -1100,19 +1144,25 @@ def time_chunked(device, card, run_c, run_d2, k1) -> dict:
         "plain": lambda: spmv_plain(R, x),
         "library": lambda: Acsr @ xo,
     })
-    nbytes = (R.n_slots * 8 + R.chunk_ptr.numel() * 4 + R.x_len * 4
-              + R.n_pad * 4)
-    b_ms, b_by = bound(nbytes, 2 * R.n_slots)
+    b_ms, b_by = k1["bound_ms"], k1["bound_by"]
+    own_bytes = (R.n_slots * 8 + R.chunk_ptr.numel() * 4 + R.x_len * 4
+                 + R.n_pad * 4)
+    own_ms = own_bytes / HBM_BYTES_PER_S * 1e3
+    ratio = R.n_slots / run_c["solver"].operator.n_slots
     log(f"[E] chunked ELL fine ({R.n_pad} rows, {R.n_chunks} chunks of 16, "
         f"{R.n_slots} slots, f32), device ms per call: kernel "
         f"{t['kernel']['device_ms']} (kernel 1 on the dense layout "
         f"{k1['ms']}), plain {t['plain']['device_ms']}, cuSPARSE CSR "
         f"{t['library']['device_ms']}; events back to back: "
         f"{json.dumps({k: v['events_ms'] for k, v in t.items()})}; bound "
-        f"{b_ms} ms by {b_by} ({nbytes / 1e6:.2f} MB) [{card}]")
+        f"{b_ms} ms by {b_by} (kernel 1's, {k1_bytes / 1e6:.2f} MB); the "
+        f"layout's slots are {ratio:.4f}x the dense layout's, "
+        f"{own_bytes / 1e6:.2f} MB, {own_ms} ms at the memory rate "
+        f"[{card}]")
     return {"sell_chunked_spmv": dict(
         ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
         library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
+        slot_ratio=ratio, own_slots_ms=own_ms,
         events_ms={k: v["events_ms"] for k, v in t.items()})}
 
 
@@ -1341,7 +1391,8 @@ def main() -> int:
     for k in kernels:
         key, counts = main_shape[k.name]
         r = rec[key]
-        extra = {f: r[f] for f in ("yardstick", "yardstick_ms") if f in r}
+        extra = {f: r[f] for f in ("yardstick", "yardstick_ms", "slot_ratio")
+                 if f in r}
         records.append({
             "name": k.name,
             "route": "cuda",

@@ -44,11 +44,12 @@
 //
 // Contract.  float storage, float vectors (the JAX kernel's f32 contract),
 // square operator with every column < n.  The caller passes x holding x0
-// (updated in place), r, p and Ap of n floats, the partials (6 * grid
-// doubles, grid from ddps_fused_cg_grid) and a stats buffer of 4 doubles:
-// iterations, relres = sqrt(rnorm2 / bnorm2), converged (1 or 0), rnorm2.
-// The launch allocates nothing, runs on the caller's stream, does not
-// synchronise, and returns the launch's error code.
+// (updated in place), r, p and Ap of n floats, the partials (6 doubles for
+// each of up to max_blocks blocks; SMs x 2048 / kBlock always suffices) and
+// a stats buffer of 4 doubles: iterations, relres = sqrt(rnorm2 / bnorm2),
+// converged (1 or 0), rnorm2.  The launch sizes the grid itself, allocates
+// nothing, runs on the caller's stream, does not synchronise, and returns the
+// launch's error code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -223,10 +224,15 @@ fused_cg_kernel(const int64_t* __restrict__ slice_ptr,
 
 extern "C" {
 
-// The cooperative grid for n rows on the current device: blocks resident at
-// once (occupancy x SMs), no more than the rows need, at least 1.  Returns
-// cudaErrorNotSupported where the device has no cooperative launch.
-int ddps_fused_cg_grid(int64_t n, void* grid_out) {
+// The grid is every block that can be resident at once (occupancy x SMs), no
+// more than the rows need, at least 1.  Returns cudaErrorNotSupported where
+// the device has no cooperative launch, cudaErrorInvalidValue where the
+// partials hold fewer than the grid's blocks.
+int ddps_fused_cg_f32(const void* slice_ptr, const void* cols,
+                      const void* vals, const void* b, const void* invd,
+                      void* x, void* r, void* p, void* ap, void* part,
+                      int64_t max_blocks, void* stats, int64_t n, int maxiter,
+                      float tol2, void* stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -246,15 +252,8 @@ int ddps_fused_cg_grid(int64_t n, void* grid_out) {
   const int64_t need = (n + kBlock - 1) / kBlock;
   if (need < grid) grid = need;
   if (grid < 1) grid = 1;
-  *static_cast<int*>(grid_out) = static_cast<int>(grid);
-  return static_cast<int>(cudaSuccess);
-}
+  if (grid > max_blocks) return static_cast<int>(cudaErrorInvalidValue);
 
-int ddps_fused_cg_f32(const void* slice_ptr, const void* cols,
-                      const void* vals, const void* b, const void* invd,
-                      void* x, void* r, void* p, void* ap, void* part,
-                      void* stats, int64_t n, int maxiter, float tol2,
-                      int grid, void* stream) {
   const int64_t* a_slice_ptr = static_cast<const int64_t*>(slice_ptr);
   const int32_t* a_cols = static_cast<const int32_t*>(cols);
   const float* a_vals = static_cast<const float*>(vals);
@@ -268,9 +267,10 @@ int ddps_fused_cg_f32(const void* slice_ptr, const void* cols,
   double* a_stats = static_cast<double*>(stats);
   void* args[] = {&a_slice_ptr, &a_cols, &a_vals, &a_b, &a_invd, &a_x,
                   &a_r, &a_p, &a_ap, &a_part, &a_stats, &n, &maxiter, &tol2};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_cg_kernel), dim3(grid),
-      dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_cg_kernel),
+      dim3(static_cast<unsigned>(grid)), dim3(kBlock), args, 0,
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -74,17 +74,14 @@ class Kernel:
     """One CUDA source compiled to one shared library, loaded on demand.
 
     ``entries`` maps each C entry point that launches the kernel to its
-    ctypes argument types, ``queries`` the entry points that only ask the
-    runtime (no launch, not counted); every one returns an ``int`` (a
+    ctypes argument types; every one returns an ``int`` (a
     ``cudaError_t``)."""
 
     def __init__(self, name: str, src: pathlib.Path,
-                 entries: Dict[str, Sequence],
-                 queries: Optional[Dict[str, Sequence]] = None):
+                 entries: Dict[str, Sequence]):
         self.name = name
         self.src = src
         self.entries = dict(entries)
-        self.queries = dict(queries or {})
         self.launches = 0
         self.by_entry: Dict[str, int] = {e: 0 for e in self.entries}
         self.build_log = ""
@@ -126,25 +123,18 @@ class Kernel:
         lib = ctypes.CDLL(str(so))
         lib.ddps_error_string.restype = ctypes.c_char_p
         lib.ddps_error_string.argtypes = [ctypes.c_int]
-        for fn, argtypes in {**self.entries, **self.queries}.items():
+        for fn, argtypes in self.entries.items():
             f = getattr(lib, fn)
             f.restype = ctypes.c_int
             f.argtypes = list(argtypes)
         return lib
 
-    def _call(self, entry: str, what: str, *args) -> None:
+    def launch(self, entry: str, *args) -> None:
+        """Call ``entry``, raise on a failed launch, count it."""
         code = getattr(self.library(), entry)(*args)
         if code != 0:
             msg = self.library().ddps_error_string(code).decode()
-            raise RuntimeError(f"{self.name} {what} failed: {msg} ({code})")
-
-    def query(self, entry: str, *args) -> None:
-        """Call the query ``entry``, raise on an error; not counted."""
-        self._call(entry, "query", *args)
-
-    def launch(self, entry: str, *args) -> None:
-        """Call ``entry``, raise on a failed launch, count it."""
-        self._call(entry, "launch", *args)
+            raise RuntimeError(f"{self.name} launch failed: {msg} ({code})")
         self.launches += 1
         self.by_entry[entry] += 1
 
@@ -185,12 +175,11 @@ SELL_CHUNKED_SPMV = Kernel(
         "ddps_sell_chunked_spmv_f64_f64": _CHUNKED_ARGS,
     })
 
-# slice_ptr, cols, vals, b, invd, x, r, p, ap, part, stats, n, maxiter,
-# tol2, grid, stream
+# slice_ptr, cols, vals, b, invd, x, r, p, ap, part, max_blocks, stats, n,
+# maxiter, tol2, stream
 FUSED_CG = Kernel(
     "fused_cg", _PKG / "csrc" / "fused_cg.cu",
-    {"ddps_fused_cg_f32": [_P] * 11 + [_I64, _INT, _F32, _INT, _P]},
-    queries={"ddps_fused_cg_grid": [_I64, _P]},
+    {"ddps_fused_cg_f32": [_P] * 10 + [_I64, _P, _I64, _INT, _F32, _P]},
 )
 
 KERNELS = (SELL_SPMV, PAD_STENCIL, DIA_SPMV, SELL_CHUNKED_SPMV, FUSED_CG)
@@ -326,19 +315,21 @@ def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
             or slice_ptr.numel() != -(-n // 32) + 1
             or cols.numel() != vals.numel()):
         raise ValueError(f"inconsistent operator or vectors for {n} rows")
-    grid = ctypes.c_int(0)
+    # The kernel sizes its grid from the occupancy calculator; no SM holds
+    # more than 2048 threads, so 2048 / 256 blocks per SM bound it.
+    max_blocks = (torch.cuda.get_device_properties(dev).multi_processor_count
+                  * (2048 // 256))
     with torch.cuda.device(dev):
-        FUSED_CG.query("ddps_fused_cg_grid", n, ctypes.addressof(grid))
         x = x0.clone()
         r, p, ap = (torch.empty_like(b) for _ in range(3))
-        part = torch.empty(6 * grid.value, dtype=torch.float64, device=dev)
+        part = torch.empty(6 * max_blocks, dtype=torch.float64, device=dev)
         stats = torch.empty(4, dtype=torch.float64, device=dev)
         FUSED_CG.launch(
             "ddps_fused_cg_f32", slice_ptr.data_ptr(), cols.data_ptr(),
             vals.data_ptr(), b.data_ptr(), invd.data_ptr(), x.data_ptr(),
             r.data_ptr(), p.data_ptr(), ap.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), n, int(maxiter), float(np.float32(tol * tol)),
-            grid.value, _stream(dev),
+            max_blocks, stats.data_ptr(), n, int(maxiter),
+            float(np.float32(tol * tol)), _stream(dev),
         )
     return x, stats
 

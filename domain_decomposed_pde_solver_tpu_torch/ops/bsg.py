@@ -316,23 +316,6 @@ def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
     )
 
 
-_RAGGED_MIN_BYTES = 4e9  # JAX's gate: dense slot arrays above ~4 GB
-
-
-def _pick_layout(layout: str, widths: np.ndarray, chunk: int,
-                 slot_bytes: int) -> str:
-    """JAX's ``layout="auto"`` rule (``bsg.py:359-385`` there): ragged only
-    when the dense slot arrays exceed 4 GB and the chunked form stores at
-    most 0.9x their bytes."""
-    if layout != "auto":
-        return layout
-    dense = int(widths.sum()) * SLICE * slot_bytes
-    ragged = int((-(-widths // chunk) * chunk).sum()) * SLICE * slot_bytes
-    if dense > _RAGGED_MIN_BYTES and ragged <= 0.9 * dense:
-        return "ragged"
-    return "dense"
-
-
 def bsg_from_csr(
     csr: CSRMatrix,
     *,
@@ -361,13 +344,13 @@ def bsg_from_csr(
     wide slice no longer holds one warp for its whole width.  JAX caps the
     number of chunks (``_TMAP_CAP``, widening ``chunk``) because its map
     must fit the TPU's 1 MB scalar memory; the GPU reads the map from
-    device memory, so the port has no cap.  ``layout="auto"`` is JAX's rule:
-    ragged only when the dense slot arrays exceed 4 GB and the chunked
-    form stores at most 0.9x their bytes.  JAX's dense layout pads every
-    tile to the widest tile, so its chunked form can be smaller; the port's
-    dense layout already pads each slice only to its own width, so the
-    chunked form is never smaller and ``"auto"`` keeps the dense layout.
-    JAX measured ragged as "a memory-footprint lever, not a speed lever"
+    device memory, so the port has no cap.  ``layout="auto"`` is the dense
+    layout.  JAX's rule (``bsg.py:359-385`` there) picks ragged only when
+    the dense slot arrays exceed 4 GB and the chunked form stores at most
+    0.9x their bytes: its dense layout pads every tile to the widest tile,
+    so its chunked form can be smaller.  The port's dense layout already
+    pads each slice only to its own width, so the chunked form is never
+    smaller and that rule always keeps the dense layout.  JAX measured ragged as "a memory-footprint lever, not a speed lever"
     (``bsg.py:275-283`` there)."""
     if csr.shape[0] != csr.shape[1]:
         raise ValueError("bsg_from_csr requires a square operator")
@@ -393,8 +376,6 @@ def bsg_from_csr(
     S.sort_indices()
     n_pad = max(1, -(-n // row_multiple)) * row_multiple
     vdt = _storage_dtype(storage)
-    layout = _pick_layout(layout, _slice_widths(S.indptr, n_pad), chunk,
-                          4 + vdt.itemsize)
     chunk = chunk if layout == "ragged" else 0
     slice_ptr, cols, vals = sell_pack(
         S.indptr, S.indices, S.data, n_pad,

@@ -22,7 +22,6 @@ from domain_decomposed_pde_solver_tpu.ops.bsg import bsg_spmv as j_bsg_spmv
 from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
 from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
     SLICE,
-    _pick_layout,
     bsg_from_coo,
     bsg_from_csr,
     bsg_spmv,
@@ -118,16 +117,19 @@ def test_ragged_keeps_empty_slices_without_chunks():
 
 
 def test_auto_layout_keeps_dense():
-    """JAX's rule: ragged only above 4 GB of dense slot arrays and at most
-    0.9x their bytes.  The port's dense layout pads each slice only to its
-    own width, so the chunked form is never smaller: auto stays dense,
-    even past the size gate."""
+    """JAX's rule picks ragged only where the chunked form is smaller.  The
+    port's dense layout pads each slice only to its own width, so the
+    chunked form never is: auto is the dense layout, slot for slot."""
     _mesh, sy = jax_problem(MESH_DIMS[1])
-    A = bsg_from_csr(port_csr(sy), device="cpu")
+    csr = port_csr(sy)
+    A = bsg_from_csr(csr, device="cpu")
     assert A.layout == "dense" and A.chunk == 0 and A.tmap is None
-    huge = np.full(10**7, 17)  # 10M slices of width 17: 43.5 GB dense
-    assert _pick_layout("auto", huge, 16, 8) == "dense"
-    assert _pick_layout("ragged", huge, 16, 8) == "ragged"
+    D = bsg_from_csr(csr, layout="dense", device="cpu")
+    assert torch.equal(A.slice_ptr, D.slice_ptr)
+    assert torch.equal(A.cols, D.cols) and torch.equal(A.vals, D.vals)
+    for chunk in (1, 4, 16):
+        R = bsg_from_csr(csr, layout="ragged", chunk=chunk, device="cpu")
+        assert R.n_slots >= A.n_slots
     G = bsg_from_coo([0, 1], [1, 0], [2.0, 3.0], 2, 2, device="cpu")
     assert G.layout == "dense"
 
