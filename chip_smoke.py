@@ -40,10 +40,10 @@ D1. Jacobi-PCG in one launch (the fused CG kernel) against the unfused
    computed before either solve, exactly one fused launch and no
    sliced-ELL launch inside a fused solve.
 D2. The same 833k system packed ``layout="ragged", chunk=16`` (the chunked
-   kernel): Jacobi-PCG, and CG+AMG with the ragged operator as the AMG's
-   fine level, each within one iteration of the dense layout's; the
-   chunked kernel launched, the sliced-ELL kernel only by the coarser
-   levels and the transfers.
+   kernel), which stores exactly the dense layout's slots: Jacobi-PCG, and
+   CG+AMG with the ragged operator as the AMG's fine level, each within
+   one iteration of the dense layout's; the chunked kernel launched, the
+   sliced-ELL kernel only by the coarser levels and the transfers.
 D3. The CLI's reference routes on an unstructured mesh written to Exodus,
    in f64 to 1e-8: ``--solver bicgstab --precond jacobi`` and
    ``--solver cg --precond chebyshev`` on
@@ -57,14 +57,17 @@ D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
    fused multiply-adds; the fused CG solve within 2 iterations and 1e-4 of
-   its plain recurrence).  These launches do not count.
+   its plain recurrence; the chunked kernel also bit-identical over two
+   launches).  These launches do not count.
 E. Times with CUDA events and the profiler: each kernel on its path's
    shape, its plain version and, as a yardstick the port never calls, one
    PyTorch call computing the same product (cuSPARSE through
-   ``torch.sparse_csr_tensor @ x``); the 1M pad-stencil product also with
-   L2 flushed between calls; the fused CG solve against the unfused loop
-   (no single PyTorch call solves CG).  Print the kernel record, the card
-   line and the device record as the last line.
+   ``torch.sparse_csr_tensor @ x``); the pad-stencil product also with L2
+   flushed between calls, at every block shape of ``PAD_TILES`` (each
+   bit-identical to the launch's own choice) and on a 10M-DOF space of
+   the same stencil (mxp = 256); the fused CG solve against the unfused
+   loop (no single PyTorch call solves CG).  Print the kernel record, the
+   card line and the device record as the last line.
 """
 
 from __future__ import annotations
@@ -519,7 +522,10 @@ def phase_d2(device, kernels, run_c, run_d1) -> dict:
     the chunked kernel against the dense layout."""
     import torch
 
-    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_from_csr
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
+        WARP_CHUNKS,
+        bsg_from_csr,
+    )
     from domain_decomposed_pde_solver_tpu_torch.solvers import (
         cg_solve,
         jacobi_preconditioner,
@@ -533,6 +539,9 @@ def phase_d2(device, kernels, run_c, run_d1) -> dict:
     t_pack = time.perf_counter() - t0
     check(R.layout == "ragged" and torch.equal(R.perm, A.perm),
           "[D2] the ragged operator has another numbering")
+    check(R.n_slots == A.n_slots,
+          f"[D2] {R.n_slots} ragged slots, {A.n_slots} dense: the ragged "
+          f"layout stores the dense layout's slots")
     b = R.put_vector(sy.b, dtype=torch.float32)
     zero = torch.zeros_like(b)
     reset_counts(kernels)
@@ -550,9 +559,10 @@ def phase_d2(device, kernels, run_c, run_d1) -> dict:
     counts = read_counts(kernels)
     ref_jacobi = run_d1["833k"]["unfused"]
     rr = [host_relres(sy.A, R.get_vector(r.x), sy.b) for r in (rj, ra)]
-    log(f"[D2] ragged chunk 16: {R.n_chunks} chunks, {R.n_slots} slots "
-        f"(dense {A.n_slots}), packed in {t_pack:.2f} s, AMG set-up "
-        f"{t_amg:.2f} s")
+    log(f"[D2] ragged chunk 16: {R.n_chunks} chunks ({R.wide.numel()} in "
+        f"slices of more than {WARP_CHUNKS} chunks), {R.n_slots} slots "
+        f"(dense {A.n_slots}, slot ratio {R.n_slots / A.n_slots:.4f}), "
+        f"packed in {t_pack:.2f} s, AMG set-up {t_amg:.2f} s")
     log(f"[D2] Jacobi-PCG {rj.iterations} iterations (dense "
         f"{ref_jacobi.iterations}), launches {json.dumps(dj)}; CG+AMG "
         f"{ra.iterations} (dense {rd.iterations}), launches ragged "
@@ -814,19 +824,27 @@ def compare_path_d(device, run_d1, run_d2, errs, vec) -> None:
     x32 = vec(R.n_pad)
     for name, x, tol in (("float32", x32, TOL_F32),
                          ("float64", x32.double(), TOL_F64)):
+        y = bsg_spmv(R, x)
         _compare(f"chunked ELL path D2 ({R.n_chunks} chunks of 16, {name} "
-                 f"vectors)", bsg_spmv(R, x), spmv_plain(R, x), tol, errs,
+                 f"vectors)", y, spmv_plain(R, x), tol, errs,
                  "sell_chunked_spmv")
+        check(torch.equal(y, bsg_spmv(R, x)),
+              f"[D] chunked ELL path D2 ({name}): two launches differ")
     skew = _skewed_csr(4096, seed=7)
-    for chunk in (1, 4, 16):
+    for chunk in (1, 3, 16):
         for storage, name, tol in (("float32", "float32", TOL_F32),
+                                   ("float32", "float64", TOL_F64),
                                    ("float64", "float64", TOL_F64)):
             S = bsg_from_csr(skew, reorder=False, storage=storage,
                              layout="ragged", chunk=chunk, device=device)
             x = vec(S.n_pad, getattr(np, name))
+            y = bsg_spmv(S, x)
             _compare(f"chunked ELL skewed widths 1/200/0 (chunk {chunk}, "
-                     f"{storage})", bsg_spmv(S, x), spmv_plain(S, x), tol,
+                     f"{S.wide.numel()} chunks spread one per warp, "
+                     f"{storage} storage)", y, spmv_plain(S, x), tol,
                      errs, "sell_chunked_spmv")
+            check(torch.equal(y, bsg_spmv(S, x)),
+                  f"[D] chunked ELL chunk {chunk}: two launches differ")
 
     # Kernel 5: the fused solve against its plain recurrence, both sizes.
     from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
@@ -875,23 +893,29 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def time_ms_cold(fn, scrub, reps: int = 20) -> float:
-    """Milliseconds per call with the 50 MB L2 flushed before each call
-    (a 256 MB buffer rewritten), CUDA events around each call alone."""
+def profile_cold(fn, scrub, kernel: str, reps: int = 20) -> float:
+    """Device ms per call of the kernels whose name holds ``kernel``, with
+    the 50 MB L2 flushed before each call (a 256 MB buffer rewritten),
+    from the profiler: event timing of a launch this short would measure
+    the host's dispatch."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    total = 0.0
-    for _ in range(reps):
-        scrub.add_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(stop)
-    return total / reps
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scrub.add_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in _device_events(prof) if kernel in e[0]]
+        if len(ev) == reps:
+            break
+        log(f"profiler: cold trace {attempt + 1} held {len(ev)} launches")
+    check(len(ev) == reps, f"the profiler recorded {len(ev)} of {reps} "
+          f"launches of {kernel}")
+    return sum(t - s for _n, s, t in ev) / 1e3 / reps
 
 
 def _device_events(prof):
@@ -1017,6 +1041,7 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     A = run_a["report"]["operator"]
     sy = run_a["report"]["system"]
     S = sy.A.to_scipy()
+    scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
     for name in ("float32", "float64"):
         dt = getattr(torch, name)
         x = A.put_vector(rng.normal(size=sy.n_free), dtype=dt)
@@ -1027,30 +1052,26 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
             "plain": lambda: A.matvec_reference(x),
             "library": lambda: Acsr @ xi,
         })
-        # Compulsory bytes: x and corr on the real nodes only (pad slots of
-        # x hold 0 and corr is not needed there), y on every slot (pads are
-        # written 0).
-        vb = x.element_size()
-        nbytes = (A.n_rows * (vb + A.corr.element_size())
-                  + A.n_pad * vb)
-        flops = A.n_rows * (len(A.taps) + 2 * len(A.groups) + 2)
-        b_ms, b_by = bound(nbytes, flops)
-        scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
-        cold = time_ms_cold(lambda: A.matvec(x), scrub)
-        del scrub
+        b_ms, b_by, nbytes = _pad_bound(A, x)
+        cold = profile_cold(lambda: A.matvec(x), scrub, "pad_stencil_kernel")
         log(f"[E] pad-stencil 1M ({name} vectors, {A.n_pad} slots), device "
             f"ms per call: kernel {t['kernel']['device_ms']}, plain "
             f"{t['plain']['device_ms']}, cuSPARSE CSR ({S.nnz} nnz) "
             f"{t['library']['device_ms']}; events back to back: "
             f"{json.dumps({k: v['events_ms'] for k, v in t.items()})}; kernel "
-            f"alone with L2 flushed {cold} ms; bound {b_ms} ms by {b_by} "
-            f"({nbytes / 1e6:.2f} MB) [{card}]")
+            f"with L2 flushed before each call {cold} ms; bound {b_ms} ms by "
+            f"{b_by} ({nbytes / 1e6:.2f} MB) [{card}]")
         rec[f"pad_stencil/{name}"] = dict(
             ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
             library_ms=t["library"]["device_ms"], bound_ms=b_ms,
             bound_by=b_by, cold_ms=cold,
             events_ms={k: v["events_ms"] for k, v in t.items()})
         del Acsr
+    k3 = rec["pad_stencil/float32"]
+    k3["f64_ms"] = rec["pad_stencil/float64"]["ms"]
+    k3["f64_cold_ms"] = rec["pad_stencil/float64"]["cold_ms"]
+    k3["tiles"] = time_pad_tiles(device, card, A, sy, rng, scrub)
+    del scrub
 
     # Kernel 4: level 1 of the 1M hierarchy (the main path's shape), then
     # the default route's f64/bf16 fine DIA at the 1M size.
@@ -1119,14 +1140,79 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     return rec
 
 
+def _pad_bound(A, x) -> tuple:
+    """Kernel 3's bound: x and corr on the real nodes only (pad slots of x
+    hold 0 and corr is not needed there), y on every slot (pads are
+    written 0); flops per real node: the taps' adds, a multiply-add per
+    group, the correction's."""
+    vb = x.element_size()
+    nbytes = A.n_rows * (vb + A.corr.element_size()) + A.n_pad * vb
+    flops = A.n_rows * (len(A.taps) + 2 * len(A.groups) + 2)
+    return (*bound(nbytes, flops), nbytes)
+
+
+# Kernel 3's block shapes timed beside the launch's own choice (0 = the
+# kernel's): (rows per tile, z-layers per block).
+PAD_TILES = ((0, 0), (8, 1), (8, 2), (8, 4), (8, 8), (4, 2), (4, 4), (4, 8))
+BIG_CELLS = 216  # a 10M-DOF box's free grid: 215 x 217 x 217, mxp = 256
+
+
+def time_pad_tiles(device, card, A, sy, rng, scrub) -> dict:
+    """Kernel 3 in f32 at every block shape of PAD_TILES, on path A's
+    operator and on a 10M-DOF space of the same stencil (mxp = 256), each
+    against the plain version; device ms per call, and with L2 flushed
+    for the launch's own choice.  Launches here do not count."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_parts,
+    )
+
+    n = BIG_CELLS - 1, BIG_CELLS + 1, BIG_CELLS + 1
+    parts = dict(pats=A.pats.cpu().numpy(), const_vals=A.const_vals.cpu().numpy(),
+                 corr_pad=np.zeros(n[0] * n[1] * n[2], np.float32),
+                 taps=A.taps, groups=A.groups, group_const=A.group_const,
+                 dims=n, period=A.period)
+    big = pad_stencil_from_parts(parts, device=device)
+    out = {}
+    for label, op in (("1M", A), ("10M", big)):
+        x = op.put_vector(rng.normal(size=op.n_rows), dtype=torch.float32)
+        y_ref = op.matvec_reference(x)
+        b_ms, b_by, nbytes = _pad_bound(op, x)
+        times = {}
+        for tile in PAD_TILES:
+            y = _kernels.pad_stencil_launch(op, x, tile=tile)
+            sync(device)
+            check(torch.equal(y, op.matvec(x)),
+                  f"[E] pad-stencil {label} tile {tile}: not bit-identical "
+                  f"to the launch's own choice")
+            times[f"{tile[0]}x{tile[1]}"] = profile_device(
+                lambda: _kernels.pad_stencil_launch(op, x, tile=tile)
+            )["device_ms"]
+        err = (y.double() - y_ref.double()).abs().max().item() / max(
+            y_ref.double().abs().max().item(), 1e-300)
+        check(err <= TOL_F32, f"[E] pad-stencil {label}: rel err {err:.3e}")
+        cold = profile_cold(lambda: op.matvec(x), scrub, "pad_stencil_kernel")
+        log(f"[E] pad-stencil {label} f32, dims {op.dims}, (Z, myp, mxp) = "
+            f"({op.Z}, {op.myp}, {op.mxp}): device ms per call by (rows, "
+            f"z-layers) of a block (0x0 = the launch's choice): "
+            f"{json.dumps(times)}; the launch's choice with L2 flushed "
+            f"{cold} ms; bound {b_ms} ms by {b_by} ({nbytes / 1e6:.2f} MB); "
+            f"max rel err vs plain {err:.3e} [{card}]")
+        out[label] = dict(ms=times, cold_ms=cold, bound_ms=b_ms,
+                          dims=list(op.dims), n_pad=op.n_pad)
+    return out
+
+
 def time_chunked(device, card, run_c, run_d2, k1, k1_bytes) -> dict:
-    """Kernel 2 on path D2's operator (chunk 16), beside kernel 1.
+    """Kernel 2 on path D2's operator (chunk 16), beside kernel 1 and
+    cuSPARSE on the same product.
 
     Its bound is kernel 1's: the same product of the same operator, whose
-    compulsory bytes are the dense layout's slots, x and y.  The chunked
-    layout's rounding of every slice to a multiple of 16 columns is the
-    kernel's own overhead, reported beside it as the slot ratio and the
-    time its own slots would take at the memory rate."""
+    compulsory bytes are the dense layout's slots, x and y; the ragged
+    layout stores exactly those slots (slot ratio 1)."""
     import numpy as np
     import torch
 
@@ -1145,24 +1231,21 @@ def time_chunked(device, card, run_c, run_d2, k1, k1_bytes) -> dict:
         "library": lambda: Acsr @ xo,
     })
     b_ms, b_by = k1["bound_ms"], k1["bound_by"]
-    own_bytes = (R.n_slots * 8 + R.chunk_ptr.numel() * 4 + R.x_len * 4
-                 + R.n_pad * 4)
-    own_ms = own_bytes / HBM_BYTES_PER_S * 1e3
     ratio = R.n_slots / run_c["solver"].operator.n_slots
+    ms = t["kernel"]["device_ms"]
     log(f"[E] chunked ELL fine ({R.n_pad} rows, {R.n_chunks} chunks of 16, "
-        f"{R.n_slots} slots, f32), device ms per call: kernel "
-        f"{t['kernel']['device_ms']} (kernel 1 on the dense layout "
-        f"{k1['ms']}), plain {t['plain']['device_ms']}, cuSPARSE CSR "
-        f"{t['library']['device_ms']}; events back to back: "
+        f"{R.wide.numel()} spread one per warp, {R.n_slots} slots, slot "
+        f"ratio {ratio:.4f}, f32), device ms per call: kernel {ms} (kernel 1 "
+        f"on the dense layout {k1['ms']}: {ms / k1['ms']:.3f}x), plain "
+        f"{t['plain']['device_ms']}, cuSPARSE CSR "
+        f"{t['library']['device_ms']} ({ms / t['library']['device_ms']:.3f}x)"
+        f"; events back to back: "
         f"{json.dumps({k: v['events_ms'] for k, v in t.items()})}; bound "
-        f"{b_ms} ms by {b_by} (kernel 1's, {k1_bytes / 1e6:.2f} MB); the "
-        f"layout's slots are {ratio:.4f}x the dense layout's, "
-        f"{own_bytes / 1e6:.2f} MB, {own_ms} ms at the memory rate "
-        f"[{card}]")
+        f"{b_ms} ms by {b_by} (kernel 1's, {k1_bytes / 1e6:.2f} MB) [{card}]")
     return {"sell_chunked_spmv": dict(
-        ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
+        ms=ms, plain_ms=t["plain"]["device_ms"],
         library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
-        slot_ratio=ratio, own_slots_ms=own_ms,
+        slot_ratio=ratio, vs_kernel_1=ms / k1["ms"],
         events_ms={k: v["events_ms"] for k, v in t.items()})}
 
 
@@ -1391,8 +1474,9 @@ def main() -> int:
     for k in kernels:
         key, counts = main_shape[k.name]
         r = rec[key]
-        extra = {f: r[f] for f in ("yardstick", "yardstick_ms", "slot_ratio")
-                 if f in r}
+        extra = {f: r[f] for f in ("yardstick", "yardstick_ms", "slot_ratio",
+                                   "vs_kernel_1", "cold_ms", "f64_ms",
+                                   "f64_cold_ms") if f in r}
         records.append({
             "name": k.name,
             "route": "cuda",

@@ -157,8 +157,9 @@ DIA_SPMV = Kernel("dia_spmv", _PKG / "csrc" / "dia_spmv.cu", {
 })
 
 # x, corr, y, taps (host int32 (n_taps, 3)), n_taps, group_start (host
-# int32), n_groups, quads (host f32), mx, my, mz, myp, mxp, Z, stream
-_PAD_ARGS = [_P, _P, _P, _P, _INT, _P, _INT, _P] + [_INT] * 6 + [_P]
+# int32), n_groups, quads (host f32), mx, my, mz, myp, mxp, Z, ty, zc,
+# stream
+_PAD_ARGS = [_P, _P, _P, _P, _INT, _P, _INT, _P] + [_INT] * 8 + [_P]
 PAD_STENCIL = Kernel("pad_stencil", _PKG / "csrc" / "pad_stencil.cu", {
     "ddps_pad_stencil_f32_bf16": _PAD_ARGS,
     "ddps_pad_stencil_f32_f32": _PAD_ARGS,
@@ -166,8 +167,9 @@ PAD_STENCIL = Kernel("pad_stencil", _PKG / "csrc" / "pad_stencil.cu", {
     "ddps_pad_stencil_f64_f32": _PAD_ARGS,
 })
 
-# cols, vals, chunk_ptr, partial, x, y, n_chunks, chunk, n_out, n_x, stream
-_CHUNKED_ARGS = [_P] * 6 + [_I64, _INT, _I64, _I64, _P]
+# slice_ptr, cols, vals, tmap, chunk_ptr, wide, partial, arrivals, x, y,
+# n_slices, n_wide, chunk, warp_chunks, n_out, n_x, stream
+_CHUNKED_ARGS = [_P] * 10 + [_I64, _I64, _INT, _INT, _I64, _I64, _P]
 SELL_CHUNKED_SPMV = Kernel(
     "sell_chunked_spmv", _PKG / "csrc" / "sell_chunked_spmv.cu", {
         "ddps_sell_chunked_spmv_f32_f32": _CHUNKED_ARGS,
@@ -243,24 +245,33 @@ def sell_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
     return y
 
 
-def sell_chunked_spmv(cols: torch.Tensor, vals: torch.Tensor,
-                      chunk_ptr: torch.Tensor, chunk: int, x: torch.Tensor,
-                      n_out: int) -> torch.Tensor:
+def sell_chunked_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
+                      vals: torch.Tensor, tmap: torch.Tensor,
+                      chunk_ptr: torch.Tensor, wide: torch.Tensor, chunk: int,
+                      x: torch.Tensor, n_out: int) -> torch.Tensor:
     """Launch the chunked sliced-ELL SpMV on CUDA tensors; returns y
     (n_out,).
 
-    ``cols`` (int32) and ``vals`` hold ``n_chunks * 32 * chunk`` slots,
-    chunk after chunk; ``chunk_ptr`` (int32, ``ceil(n_out / 32) + 1``) is
-    the first chunk of every slice.  ``x`` may be shorter than the
+    The slots are the dense layout's (``slice_ptr`` int64 of
+    ``ceil(n_out / 32) + 1``, ``cols`` int32); ``tmap`` (int32, chunk ->
+    slice), ``chunk_ptr`` (int32, first chunk of every slice) and ``wide``
+    (int32, the chunks of slices of more than ``WARP_CHUNKS`` chunks) cut
+    them into chunks of ``chunk`` columns.  ``x`` may be shorter than the
     operator's input space (zero-extended by the kernel)."""
+    from .bsg import WARP_CHUNKS
+
     dev = _require_cuda(x, "sell_chunked_spmv")
-    for name, t in (("cols", cols), ("vals", vals), ("chunk_ptr", chunk_ptr)):
+    named = (("slice_ptr", slice_ptr), ("cols", cols), ("vals", vals),
+             ("tmap", tmap), ("chunk_ptr", chunk_ptr), ("wide", wide))
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D tensor")
-    if cols.dtype != torch.int32 or chunk_ptr.dtype != torch.int32:
-        raise TypeError("cols and chunk_ptr must be int32")
+    if slice_ptr.dtype != torch.int64 or any(
+            t.dtype != torch.int32 for t in (cols, tmap, chunk_ptr, wide)):
+        raise TypeError("slice_ptr must be int64; cols, tmap, chunk_ptr and "
+                        "wide int32")
     entry = (f"ddps_sell_chunked_spmv_{_NAME.get(vals.dtype)}_"
              f"{_NAME.get(x.dtype)}")
     if entry not in SELL_CHUNKED_SPMV.entries:
@@ -269,22 +280,27 @@ def sell_chunked_spmv(cols: torch.Tensor, vals: torch.Tensor,
         )
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    per_chunk = 32 * chunk
-    n_chunks = cols.numel() // per_chunk
-    if (cols.numel() != vals.numel() or cols.numel() % per_chunk
-            or chunk_ptr.numel() != -(-n_out // 32) + 1):
+    n_slices = -(-n_out // 32)
+    if (cols.numel() != vals.numel() or slice_ptr.numel() != n_slices + 1
+            or chunk_ptr.numel() != n_slices + 1
+            or wide.numel() > tmap.numel()):
         raise ValueError(
             f"inconsistent chunked arrays: {cols.numel()} cols, "
-            f"{vals.numel()} vals, chunks of {per_chunk} slots, "
-            f"{chunk_ptr.numel()} chunk pointers for {n_out} rows"
+            f"{vals.numel()} vals, {slice_ptr.numel()} slice and "
+            f"{chunk_ptr.numel()} chunk pointers for {n_out} rows, "
+            f"{wide.numel()} wide of {tmap.numel()} chunks"
         )
-    partial = torch.empty(n_chunks * 32, dtype=x.dtype, device=dev)
+    n_wide = wide.numel()
     y = torch.empty(n_out, dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
+        partial = torch.empty(n_wide * 32, dtype=x.dtype, device=dev)
+        arrivals = torch.zeros(n_wide, dtype=torch.int32, device=dev)
         SELL_CHUNKED_SPMV.launch(
-            entry, cols.data_ptr(), vals.data_ptr(), chunk_ptr.data_ptr(),
-            partial.data_ptr(), x.data_ptr(), y.data_ptr(), n_chunks, chunk,
-            n_out, x.numel(), _stream(dev),
+            entry, slice_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            tmap.data_ptr(), chunk_ptr.data_ptr(), wide.data_ptr(),
+            partial.data_ptr(), arrivals.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n_slices, n_wide, chunk, WARP_CHUNKS, n_out,
+            x.numel(), _stream(dev),
         )
     return y
 
@@ -373,9 +389,14 @@ def dia_spmv_launch(data: torch.Tensor, offsets: Sequence[int],
 _PAD_MAX_TAPS = 27  # 3 x 3 x 3 lattice neighbourhood
 
 
-def pad_stencil_launch(A, x: torch.Tensor) -> torch.Tensor:
+def pad_stencil_launch(A, x: torch.Tensor, tile=(0, 0)) -> torch.Tensor:
     """Launch the pad-stencil SpMV of a ``PadStencilOperator`` on a CUDA
-    vector of its padded space; returns y in ``x``'s dtype."""
+    vector of its padded space; returns y in ``x``'s dtype.
+
+    ``tile = (rows, z-layers)`` of a block: rows 4 or 8, layers >= 1; 0
+    takes the kernel's choice (4 rows; layers from the grid and the
+    occupancy).  Only measurements and tests of the kernel pass anything
+    else."""
     dev = _require_cuda(x, "pad_stencil")
     corr = A.corr
     if corr.device != dev:
@@ -384,9 +405,15 @@ def pad_stencil_launch(A, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"vectors must have {A.n_pad} entries")
     if not corr.is_contiguous():
         raise ValueError("corr must be contiguous")
-    if A.mxp % 32 or A.myp % 8:
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the kernel copies it "
+                         "in 16-byte vectors)")
+    if A.mxp % 128 or A.myp % 8:
         raise ValueError(f"padded extents ({A.myp}, {A.mxp}) are not "
-                         f"multiples of (8, 32)")
+                         f"multiples of (8, 128)")
+    ty, zc = (int(v) for v in tile)
+    if ty not in (0, 4, 8) or zc < 0:
+        raise ValueError(f"tile {tile}: rows 0, 4 or 8, layers >= 0")
     entry = f"ddps_pad_stencil_{_NAME.get(x.dtype)}_{_NAME.get(corr.dtype)}"
     if entry not in PAD_STENCIL.entries:
         raise TypeError(
@@ -402,6 +429,6 @@ def pad_stencil_launch(A, x: torch.Tensor) -> torch.Tensor:
             entry, x.data_ptr(), corr.data_ptr(), y.data_ptr(),
             taps.ctypes.data, taps.shape[0], start.ctypes.data,
             start.size - 1, quads.ctypes.data, mx, my, mz, A.myp, A.mxp,
-            A.Z, _stream(dev),
+            A.Z, ty, zc, _stream(dev),
         )
     return y

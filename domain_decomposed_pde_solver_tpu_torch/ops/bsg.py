@@ -23,10 +23,9 @@ internal row of original row ``i``.  RCM is scipy's
 runs it, so both packages share one internal numbering.
 
 Two layouts, as in JAX (``layout=`` of :func:`bsg_from_csr`): the dense
-one above, and the ragged one, whose slices are rounded up to a multiple of
-``chunk`` slot columns and stored as flat chunks of ``32 * chunk`` slots
-with a chunk -> slice map (JAX's ``_bsg_spmv_ragged``, ``bsg.py:857-924``
-there).
+one above, and the ragged one, which stores the same slots and cuts every
+slice into chunks of ``chunk`` slot columns (the last one shorter), with a
+chunk -> slice map (JAX's ``_bsg_spmv_ragged``, ``bsg.py:857-924`` there).
 
 On a CUDA tensor :meth:`BSGMatrix.matvec` launches the hand-written kernel
 of its layout (dense: ``csrc/spmv.cu``; ragged: ``csrc/sell_chunked_spmv.cu``,
@@ -47,6 +46,7 @@ from ..utils.device import resolve_device
 from .csr import CSRMatrix
 
 __all__ = [
+    "WARP_CHUNKS",
     "BSGMatrix",
     "bsg_from_csr",
     "bsg_from_coo",
@@ -57,6 +57,9 @@ __all__ = [
 
 TILE = 1024  # padded-length granule of the JAX BSG layout (8 x 128 rows)
 SLICE = 32  # rows per sliced-ELL slice: one warp
+# Ragged layout: a slice of at most this many chunks is one warp's work;
+# the chunks of a wider slice go one per warp (csrc/sell_chunked_spmv.cu).
+WARP_CHUNKS = 4
 
 _STORAGE = {"float32": torch.float32, "float64": torch.float64}
 
@@ -68,11 +71,15 @@ class BSGMatrix:
     ``slice_ptr[s]`` is the first slot of slice ``s`` (int64, length
     ``n_slices + 1``); slot ``j`` of row ``32*s + i`` is at
     ``slice_ptr[s] + 32*j + i`` in ``cols`` (int32) and ``vals``.
-    The ragged layout (``chunk > 0``) rounds every slice width up to a
-    multiple of ``chunk``, so chunk ``k`` is slots ``[32*chunk*k,
-    32*chunk*(k+1))``; ``tmap[k]`` is its slice (int32, non-decreasing) and
-    ``chunk_ptr[s]`` the first chunk of slice ``s`` (int32, length
-    ``n_slices + 1``; a slice of width 0 owns no chunk).
+    The ragged layout (``chunk > 0``) keeps these slots and cuts slice ``s``
+    of width ``w`` into ``ceil(w / chunk)`` chunks: chunk ``j`` of the
+    slice holds its slot columns ``[chunk*j, min(chunk*(j+1), w))``.
+    Chunks are numbered slice after slice; ``tmap[k]`` is the slice of
+    chunk ``k`` (int32, non-decreasing) and ``chunk_ptr[s]`` the first chunk
+    of slice ``s`` (int32, length ``n_slices + 1``; a slice of width 0 owns
+    no chunk).  ``wide`` lists, ascending, the chunks of the slices of more
+    than :data:`WARP_CHUNKS` chunks (int32), which the kernel spreads one
+    chunk per warp.
     ``x_len`` is the length of the input space a matvec accepts: ``n_pad``
     for square operators, the given input length for :func:`bsg_from_coo`.
     ``shape`` is the true logical shape ``(n_rows, n_cols)``, rectangular
@@ -91,7 +98,8 @@ class BSGMatrix:
     chunk: int = 0  # slot columns per chunk; 0 is the dense layout
     tmap: Optional[torch.Tensor] = None  # (n_chunks,) int32 chunk -> slice
     chunk_ptr: Optional[torch.Tensor] = None  # (n_slices + 1,) int32
-    _slot_row: Optional[torch.Tensor] = dataclasses.field(
+    wide: Optional[torch.Tensor] = None  # (n_wide,) int32 chunks, ascending
+    _slot_key: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False
     )
 
@@ -145,9 +153,11 @@ class BSGMatrix:
         """The plain PyTorch evaluation on any device (validation only)."""
         return spmv_plain(self, x_padded)
 
-    def slot_row(self) -> torch.Tensor:
-        """Row of every slot (int64), built once for :func:`spmv_plain`."""
-        if self._slot_row is None:
+    def slot_key(self) -> torch.Tensor:
+        """Where every slot's product is added in :func:`spmv_plain`
+        (int64, built once): its row in the dense layout, its chunk's
+        partial ``32 * chunk + lane`` in the ragged one."""
+        if self._slot_key is None:
             widths = (self.slice_ptr[1:] - self.slice_ptr[:-1]) // SLICE
             n_slices = widths.numel()
             slice_of = torch.repeat_interleave(
@@ -156,8 +166,12 @@ class BSGMatrix:
             within = torch.arange(self.n_slots, device=self.device) - (
                 self.slice_ptr[:-1][slice_of]
             )
-            self._slot_row = slice_of * SLICE + within % SLICE
-        return self._slot_row
+            first = slice_of
+            if self.chunk:
+                first = (self.chunk_ptr.to(torch.int64)[slice_of]
+                         + within // (SLICE * self.chunk))
+            self._slot_key = first * SLICE + within % SLICE
+        return self._slot_key
 
 
 def _check_input(A: BSGMatrix, x: torch.Tensor) -> None:
@@ -181,9 +195,10 @@ def spmv_plain(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
     over the kernel's own arrays, in the kernel's slot order per row.
 
     The ragged layout is summed as its kernel sums it: one partial per row
-    of every chunk, then the partials of a slice's chunks added in chunk
-    order.  Same contract as the kernels: columns past ``len(x)`` read 0 (a
-    shorter input is zero-extended), empty and padding rows give 0."""
+    of every chunk (its columns in order), then the partials of a slice's
+    chunks added in chunk order.  Same contract as the kernels: columns
+    past ``len(x)`` read 0 (a shorter input is zero-extended), empty and
+    padding rows give 0."""
     _check_input(A, x_padded)
     n_x = x_padded.numel()
     xe = torch.cat([x_padded, x_padded.new_zeros(1)])
@@ -193,12 +208,13 @@ def spmv_plain(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
     # hold padding slots only.
     n_slices = A.slice_ptr.numel() - 1
     if A.chunk:
-        partial = prod.view(-1, A.chunk, SLICE).sum(dim=1)
+        partial = x_padded.new_zeros(A.n_chunks * SLICE)
+        partial.index_add_(0, A.slot_key(), prod)
         y = x_padded.new_zeros((n_slices, SLICE))
-        y.index_add_(0, A.tmap.to(torch.int64), partial)
+        y.index_add_(0, A.tmap.to(torch.int64), partial.view(-1, SLICE))
         return y.view(-1)[: A.n_pad]
     y = x_padded.new_zeros(n_slices * SLICE)
-    return y.index_add_(0, A.slot_row(), prod)[: A.n_pad]
+    return y.index_add_(0, A.slot_key(), prod)[: A.n_pad]
 
 
 def bsg_spmv(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
@@ -215,7 +231,8 @@ def bsg_spmv(A: BSGMatrix, x_padded: torch.Tensor) -> torch.Tensor:
     from ._kernels import sell_chunked_spmv, sell_spmv
 
     if A.chunk:
-        return sell_chunked_spmv(A.cols, A.vals, A.chunk_ptr, A.chunk,
+        return sell_chunked_spmv(A.slice_ptr, A.cols, A.vals, A.tmap,
+                                 A.chunk_ptr, A.wide, A.chunk,
                                  x_padded.contiguous(), A.n_pad)
     return sell_spmv(A.slice_ptr, A.cols, A.vals, x_padded.contiguous(),
                      A.n_pad)
@@ -235,15 +252,13 @@ def _slice_widths(indptr: np.ndarray, n_pad: int) -> np.ndarray:
 
 
 def sell_pack(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
-              n_pad: int, value_dtype=np.float32, chunk: int = 0):
+              n_pad: int, value_dtype=np.float32):
     """Pack row-sorted CSR arrays (``len(indptr) - 1 <= n_pad`` rows) into
-    sliced-ELL host arrays ``(slice_ptr, cols, vals)``; ``chunk > 0``
-    rounds every slice width up to a multiple of ``chunk``."""
+    sliced-ELL host arrays ``(slice_ptr, cols, vals)``, each slice as wide
+    as its widest row (both layouts)."""
     indptr = np.asarray(indptr, dtype=np.int64)
     n = indptr.size - 1
     widths = _slice_widths(indptr, n_pad)
-    if chunk:
-        widths = -(-widths // chunk) * chunk
     n_slices = widths.size
     lens = np.diff(indptr)
     slice_ptr = np.zeros(n_slices + 1, dtype=np.int64)
@@ -285,13 +300,16 @@ def _storage_dtype(storage: str) -> torch.dtype:
 
 
 def _chunk_maps(slice_ptr: np.ndarray, chunk: int):
-    """``(tmap, chunk_ptr)`` of a ragged pack: chunks per slice are
-    ``width / chunk``, numbered slice after slice."""
-    per_slice = np.diff(slice_ptr) // (SLICE * chunk)
+    """``(tmap, chunk_ptr, wide)`` of a ragged pack: a slice of width ``w``
+    owns ``ceil(w / chunk)`` chunks, numbered slice after slice; ``wide``
+    lists the chunks of slices of more than :data:`WARP_CHUNKS` chunks."""
+    widths = np.diff(slice_ptr) // SLICE
+    per_slice = -(-widths // chunk)
     tmap = np.repeat(np.arange(per_slice.size, dtype=np.int32), per_slice)
     chunk_ptr = np.zeros(per_slice.size + 1, dtype=np.int32)
     np.cumsum(per_slice, out=chunk_ptr[1:])
-    return tmap, chunk_ptr
+    wide = np.flatnonzero(per_slice[tmap] > WARP_CHUNKS).astype(np.int32)
+    return tmap, chunk_ptr, wide
 
 
 def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
@@ -299,9 +317,10 @@ def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
     dev = resolve_device(device)
     maps = {}
     if chunk:
-        tmap, chunk_ptr = _chunk_maps(slice_ptr, chunk)
+        tmap, chunk_ptr, wide = _chunk_maps(slice_ptr, chunk)
         maps = dict(chunk=int(chunk), tmap=torch.from_numpy(tmap).to(dev),
-                    chunk_ptr=torch.from_numpy(chunk_ptr).to(dev))
+                    chunk_ptr=torch.from_numpy(chunk_ptr).to(dev),
+                    wide=torch.from_numpy(wide).to(dev))
     return BSGMatrix(
         slice_ptr=torch.from_numpy(slice_ptr).to(dev),
         cols=torch.from_numpy(cols).to(dev),
@@ -338,20 +357,23 @@ def bsg_from_csr(
     as in the JAX BSG layout; AMG levels outside the BSG chain pad to 8, as
     the JAX package pads its ELL levels.  ``device`` defaults to the card.
 
-    ``layout="ragged"`` rounds every slice up to a multiple of ``chunk``
-    slot columns (default 16, as in JAX) and stores the chunks flat with a
-    chunk -> slice map; its CUDA product gives each chunk one warp, so a
-    wide slice no longer holds one warp for its whole width.  JAX caps the
-    number of chunks (``_TMAP_CAP``, widening ``chunk``) because its map
-    must fit the TPU's 1 MB scalar memory; the GPU reads the map from
-    device memory, so the port has no cap.  ``layout="auto"`` is the dense
-    layout.  JAX's rule (``bsg.py:359-385`` there) picks ragged only when
-    the dense slot arrays exceed 4 GB and the chunked form stores at most
-    0.9x their bytes: its dense layout pads every tile to the widest tile,
-    so its chunked form can be smaller.  The port's dense layout already
-    pads each slice only to its own width, so the chunked form is never
-    smaller and that rule always keeps the dense layout.  JAX measured ragged as "a memory-footprint lever, not a speed lever"
-    (``bsg.py:275-283`` there)."""
+    ``layout="ragged"`` keeps the dense layout's slots and cuts every
+    slice into chunks of ``chunk`` slot columns (default 16, as in JAX; a
+    slice's last chunk holds what remains), with a chunk -> slice map.  Its
+    CUDA product gives a slice of at most :data:`WARP_CHUNKS` chunks one
+    warp, which adds the chunks' partials in chunk order, and spreads a
+    wider slice one chunk per warp, so a wide slice (the transposed
+    tentative transfer of AMG) does not hold one warp for its whole width.
+    JAX caps the number of chunks (``_TMAP_CAP``, widening ``chunk``)
+    because its map must fit the TPU's 1 MB scalar memory; the GPU reads
+    the map from device memory, so the port has no cap.  ``layout="auto"``
+    is the dense layout.  JAX's rule (``bsg.py:359-385`` there) picks
+    ragged only when the dense slot arrays exceed 4 GB and the chunked form
+    stores at most 0.9x their bytes: its dense layout pads every tile to
+    the widest tile, so its chunked form can be smaller.  The port's two
+    layouts store the same slots, so that rule always keeps the dense
+    layout.  JAX measured ragged as "a memory-footprint lever, not a speed
+    lever" (``bsg.py:275-283`` there)."""
     if csr.shape[0] != csr.shape[1]:
         raise ValueError("bsg_from_csr requires a square operator")
     if layout not in ("auto", "dense", "ragged"):
@@ -380,7 +402,6 @@ def bsg_from_csr(
     slice_ptr, cols, vals = sell_pack(
         S.indptr, S.indices, S.data, n_pad,
         value_dtype=np.float32 if vdt == torch.float32 else np.float64,
-        chunk=chunk,
     )
     diag = np.zeros(n_pad, dtype=np.float32)
     diag[:n] = S.diagonal().astype(np.float32)

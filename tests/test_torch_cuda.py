@@ -169,6 +169,87 @@ def test_pad_stencil_kernel_matches_plain(cuda_device, shape, elem, name,
     assert np.abs(A.get_vector(y) - ref).max() <= TOL[name] * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("tile", [(4, 1), (4, 3), (8, 5), (8, 0), (0, 7)],
+                         ids=["4x1", "4x3", "8x5", "8xauto", "defaultx7"])
+@pytest.mark.parametrize("name,corr", [("float32", "bfloat16"),
+                                       ("float64", "float32")])
+@pytest.mark.parametrize("shape,elem", [((9, 9, 9), "TETRA4"),
+                                        ((132, 8, 8), "TETRA4"),
+                                        ((8, 8, 8), "HEX8")],
+                         ids=["tet-mxp128", "tet-mxp256", "hex8"])
+def test_pad_stencil_kernel_tiles_and_z_depths(cuda_device, shape, elem, name,
+                                               corr, tile):
+    """Every tile and z-depth a launch may take, including depths that do
+    not divide Z (16 here), against the plain version; pads exactly 0."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_stencil,
+    )
+
+    _mesh, sy, dims = _box_system(shape, elem)
+    st = choose_operator(sy.A, dtype=torch.float32, grid_dims=dims,
+                         device=cuda_device)
+    A = pad_stencil_from_stencil(st, corr_storage=corr)
+    assert A.Z % 3 and A.Z % 5 and A.Z % 7
+    x = A.put_vector(np.random.default_rng(25).normal(size=sy.A.n_rows),
+                     dtype=getattr(torch, name))
+    y = _kernels.pad_stencil_launch(A, x, tile=tile)
+    torch.cuda.synchronize()
+    assert _relerr(y, A.matvec_reference(x)) <= TOL[name]
+    assert not torch.any(y[A.pad_mask() == 0])
+    # Every output's sum has one order, whatever the tile: bit-identical.
+    assert torch.equal(y, A.matvec(x))
+
+
+def _split_first_group(A):
+    """The same operator with its first group of taps split in two: a
+    grouping the kernel has no compile-time instance for."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_parts,
+    )
+
+    g0 = A.groups[0]
+    half = len(g0) // 2
+    groups = (g0[:half], g0[half:]) + A.groups[1:]
+    const = A.const_vals.cpu().numpy()
+    parts = dict(
+        pats=A.pats.cpu().numpy(), taps=A.taps, groups=groups,
+        group_const=(A.group_const[0],) + A.group_const,
+        const_vals=np.concatenate([const[:1], const]),
+        corr_pad=A.extract_device(A.corr.float()).cpu().numpy(),
+        dims=A.dims, period=A.period)
+    return pad_stencil_from_parts(parts, corr_storage=str(A.corr.dtype)[6:],
+                                  device=A.device)
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+@pytest.mark.parametrize("shape,elem", [((9, 9, 9), "TETRA4"),
+                                        ((8, 8, 8), "HEX8")],
+                         ids=["tet", "hex8"])
+def test_pad_stencil_kernel_on_any_grouping(cuda_device, shape, elem, name):
+    """A grouping other than the two lattices' (first group split in two)
+    runs through the kernel's table-driven instance, to rounding of the
+    plain version's sums."""
+    _mesh, sy, dims = _box_system(shape, elem)
+    st = choose_operator(sy.A, dtype=torch.float32, grid_dims=dims,
+                         device=cuda_device)
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_stencil,
+    )
+
+    A = pad_stencil_from_stencil(st)
+    B = _split_first_group(A)
+    assert len(B.groups) == len(A.groups) + 1
+    x = A.put_vector(np.random.default_rng(26).normal(size=sy.A.n_rows),
+                     dtype=getattr(torch, name))
+    before = _kernels.PAD_STENCIL.launches
+    y = B.matvec(x)
+    assert _kernels.PAD_STENCIL.launches == before + 1
+    torch.cuda.synchronize()
+    assert _relerr(y, B.matvec_reference(x)) <= TOL[name]
+    assert _relerr(y, A.matvec(x)) <= TOL[name]
+    assert not torch.any(y[A.pad_mask() == 0])
+
+
 def _wide_dia(n, mx, my, seed):
     rng = np.random.default_rng(seed)
     big = mx * my + mx + 1
@@ -320,6 +401,62 @@ def test_chunked_kernel_matches_plain_on_skewed_slices(cuda_device, chunk,
     empty = np.flatnonzero(np.diff(csr.indptr) == 0)
     assert not torch.any(y[torch.as_tensor(empty, device=cuda_device)])
     assert torch.equal(y, bsg_spmv(A, x))  # deterministic
+
+
+def _edge_width_csr(chunk, seed):
+    """Square CSR whose 32-row slices are, in turn, exactly ``chunk`` wide,
+    ``chunk + 1`` wide, empty, ``WARP_CHUNKS * chunk`` wide (the widest a
+    warp takes alone), one column more (spread one chunk per warp: a
+    transposed transfer's wide rows beside narrow ones) and 1 wide."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import WARP_CHUNKS
+
+    rng = np.random.default_rng(seed)
+    kinds = [chunk, chunk + 1, 0, WARP_CHUNKS * chunk, WARP_CHUNKS * chunk + 1,
+             1] * 8
+    n = 32 * len(kinds)
+    lens = np.zeros(n, dtype=np.int64)
+    for s, w in enumerate(kinds):
+        if w:
+            lens[32 * s : 32 * s + 32] = rng.integers(1, w + 1, 32)
+            lens[32 * s + rng.integers(32)] = w  # the slice is exactly w wide
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    indices = np.concatenate(
+        [np.sort(rng.choice(n, size=k, replace=False)) for k in lens if k]
+    )
+    return CSRMatrix(indptr=indptr, indices=indices.astype(np.int64),
+                     data=rng.normal(size=indices.size), shape=(n, n))
+
+
+@pytest.mark.parametrize("chunk", [3, 16])
+@pytest.mark.parametrize("storage,name", [("float32", "float32"),
+                                          ("float32", "float64"),
+                                          ("float64", "float64")])
+def test_chunked_kernel_on_slice_widths_at_its_edges(cuda_device, chunk,
+                                                     storage, name):
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import WARP_CHUNKS
+
+    csr = _edge_width_csr(chunk, seed=34)
+    A = bsg_from_csr(csr, reorder=False, storage=storage, layout="ragged",
+                     chunk=chunk, device=cuda_device)
+    D = bsg_from_csr(csr, reorder=False, storage=storage, device=cuda_device)
+    widths = torch.diff(A.slice_ptr).cpu().numpy() // 32
+    per_slice = np.diff(A.chunk_ptr.cpu().numpy())
+    np.testing.assert_array_equal(per_slice, -(-widths // chunk))
+    assert A.n_slots == D.n_slots
+    assert A.wide.numel() == 8 * (WARP_CHUNKS + 1)  # the one-too-wide slices
+    x = torch.as_tensor(np.random.default_rng(35).normal(size=A.n_pad),
+                        dtype=getattr(torch, name), device=cuda_device)
+    before = _kernels.SELL_CHUNKED_SPMV.launches
+    y = bsg_spmv(A, x)
+    assert _kernels.SELL_CHUNKED_SPMV.launches == before + 1
+    torch.cuda.synchronize()
+    assert _relerr(y, spmv_plain(A, x)) <= TOL[name]
+    assert _relerr(y, bsg_spmv(D, x)) <= TOL[name]
+    empty = np.flatnonzero(np.diff(csr.indptr) == 0)
+    assert not torch.any(y[torch.as_tensor(empty, device=cuda_device)])
+    for _ in range(2):
+        assert torch.equal(y, bsg_spmv(A, x))  # bit-identical launches
 
 
 def test_chunked_kernel_on_the_heat_operator(cuda_device):

@@ -22,6 +22,7 @@ from domain_decomposed_pde_solver_tpu.ops.bsg import bsg_spmv as j_bsg_spmv
 from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
 from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
     SLICE,
+    WARP_CHUNKS,
     bsg_from_coo,
     bsg_from_csr,
     bsg_spmv,
@@ -48,7 +49,7 @@ def _both(S):
     return j, csr_from_numpy(S.indptr, S.indices, S.data, S.shape)
 
 
-@pytest.mark.parametrize("chunk", [4, 16])
+@pytest.mark.parametrize("chunk", [3, 4, 16])
 def test_ragged_product_matches_jax_ragged_kernel(chunk):
     S = random_laplacian(4000, 14, 21)
     jcsr, pcsr = _both(S)
@@ -84,23 +85,45 @@ def test_ragged_matches_dense_on_the_heat_operator(chunk, name, tol):
 
 @pytest.mark.parametrize("chunk", [1, 3, 16])
 def test_ragged_layout_structure(chunk):
+    """The ragged layout stores the dense layout's slots and only cuts each
+    slice into chunks: ceil(w / chunk) per slice, the last one short, none
+    for an empty slice; the chunks of slices of more than WARP_CHUNKS
+    chunks are listed in ``wide``."""
     _mesh, sy = jax_problem(MESH_DIMS[1])
     csr = port_csr(sy)
     D = bsg_from_csr(csr, device="cpu")
     R = bsg_from_csr(csr, layout="ragged", chunk=chunk, device="cpu")
-    dense_w = (np.diff(D.slice_ptr.numpy()) // SLICE)
-    widths = (np.diff(R.slice_ptr.numpy()) // SLICE)
-    per_slice = -(-dense_w // chunk)  # ceil(width / chunk)
-    np.testing.assert_array_equal(widths, per_slice * chunk)
-    tmap = R.tmap.numpy()
+    assert R.n_slots == D.n_slots
+    assert torch.equal(R.slice_ptr, D.slice_ptr)
+    assert torch.equal(R.cols, D.cols) and torch.equal(R.vals, D.vals)
+    widths = np.diff(R.slice_ptr.numpy()) // SLICE
+    per_slice = -(-widths // chunk)  # ceil(width / chunk)
     assert R.tmap.dtype == torch.int32 and R.chunk_ptr.dtype == torch.int32
+    tmap = R.tmap.numpy()
     assert (np.diff(tmap) >= 0).all()
     np.testing.assert_array_equal(np.bincount(tmap, minlength=widths.size),
                                   per_slice)
     np.testing.assert_array_equal(np.diff(R.chunk_ptr.numpy()), per_slice)
-    assert R.n_chunks * SLICE * chunk == R.n_slots
-    # Padding slots hold (col 0, value 0); the nonzeros are all there.
-    assert int((R.vals != 0).sum()) == int((D.vals != 0).sum())
+    assert R.n_chunks == int(per_slice.sum())
+    # Empty slices (the padded tail) own no chunk.
+    assert (widths == 0).any() and (per_slice[widths == 0] == 0).all()
+    # Chunk widths: full but for each slice's last, which holds the rest.
+    key = R.slot_key().numpy()
+    chunk_slots = np.bincount(key // SLICE, minlength=R.n_chunks) // SLICE
+    last = R.chunk_ptr.numpy()[1:][per_slice > 0] - 1
+    np.testing.assert_array_equal(
+        chunk_slots[last], widths[per_slice > 0] - chunk * (
+            per_slice[per_slice > 0] - 1))
+    full = np.setdiff1d(np.arange(R.n_chunks), last)
+    assert (chunk_slots[full] == chunk).all()
+    if chunk > 1:
+        assert (chunk_slots[last] < chunk).any()  # a short last chunk
+    # Wide slices: more than WARP_CHUNKS chunks, listed chunk by chunk.
+    wide = per_slice > WARP_CHUNKS
+    assert wide.any() == (chunk < 16)  # RCM widths here are 14 to 21
+    np.testing.assert_array_equal(R.wide.numpy(),
+                                  np.flatnonzero(wide[tmap]))
+    assert R.wide.dtype == torch.int32
 
 
 def test_ragged_keeps_empty_slices_without_chunks():
@@ -118,8 +141,8 @@ def test_ragged_keeps_empty_slices_without_chunks():
 
 def test_auto_layout_keeps_dense():
     """JAX's rule picks ragged only where the chunked form is smaller.  The
-    port's dense layout pads each slice only to its own width, so the
-    chunked form never is: auto is the dense layout, slot for slot."""
+    port's two layouts store the same slots, so the chunked form never is:
+    auto is the dense layout, slot for slot."""
     _mesh, sy = jax_problem(MESH_DIMS[1])
     csr = port_csr(sy)
     A = bsg_from_csr(csr, device="cpu")
@@ -129,7 +152,7 @@ def test_auto_layout_keeps_dense():
     assert torch.equal(A.cols, D.cols) and torch.equal(A.vals, D.vals)
     for chunk in (1, 4, 16):
         R = bsg_from_csr(csr, layout="ragged", chunk=chunk, device="cpu")
-        assert R.n_slots >= A.n_slots
+        assert R.n_slots == A.n_slots
     G = bsg_from_coo([0, 1], [1, 0], [2.0, 3.0], 2, 2, device="cpu")
     assert G.layout == "dense"
 

@@ -200,6 +200,20 @@ def test_kernel_tables_follow_the_groups():
     np.testing.assert_array_equal(quads, Ap.quads.numpy())
 
 
+def test_kernel_tables_of_a_period_1_hex8_box():
+    """HEX8: 27 taps in two groups, a period-1 pattern, so every group's
+    scalar is the same for all eight parities."""
+    _sy, _Aj, Ap = _pads("hex8")
+    taps, start, quads = Ap.kernel_tables()
+    assert Ap.period == 1 and taps.shape == (27, 3)
+    assert start.tolist() == [0] + list(np.cumsum([len(g) for g in Ap.groups]))
+    assert sorted(map(tuple, taps.tolist())) == sorted(Ap.taps)
+    for g, tap_idx in enumerate(Ap.groups):
+        got = [tuple(t) for t in taps[start[g] : start[g + 1]]]
+        assert got == [Ap.taps[d] for d in tap_idx]
+    assert (quads == quads[:, :1]).all()
+
+
 def test_wrapper_dispatch_by_device():
     """On a CPU tensor the wrapper takes the plain version; the launch
     function refuses anything but CUDA tensors, before building."""
