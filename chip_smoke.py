@@ -63,7 +63,7 @@ E. Times with CUDA events and the profiler: each kernel on its path's
    shape, its plain version and, as a yardstick the port never calls, one
    PyTorch call computing the same product (cuSPARSE through
    ``torch.sparse_csr_tensor @ x``); the pad-stencil product also with L2
-   flushed between calls, at every block shape of ``PAD_TILES`` (each
+   flushed between calls, at every z-depth of ``PAD_DEPTHS`` (each
    bit-identical to the launch's own choice) and on a 10M-DOF space of
    the same stencil (mxp = 256); the fused CG solve against the unfused
    loop (no single PyTorch call solves CG).  Print the kernel record, the
@@ -1070,7 +1070,7 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     k3 = rec["pad_stencil/float32"]
     k3["f64_ms"] = rec["pad_stencil/float64"]["ms"]
     k3["f64_cold_ms"] = rec["pad_stencil/float64"]["cold_ms"]
-    k3["tiles"] = time_pad_tiles(device, card, A, sy, rng, scrub)
+    k3["depths"] = time_pad_depths(device, card, A, sy, rng, scrub)
     del scrub
 
     # Kernel 4: level 1 of the 1M hierarchy (the main path's shape), then
@@ -1151,14 +1151,13 @@ def _pad_bound(A, x) -> tuple:
     return (*bound(nbytes, flops), nbytes)
 
 
-# Kernel 3's block shapes timed beside the launch's own choice (0 = the
-# kernel's): (rows per tile, z-layers per block).
-PAD_TILES = ((0, 0), (8, 1), (8, 2), (8, 4), (8, 8), (4, 2), (4, 4), (4, 8))
+# Kernel 3's z-layers per block, timed beside the launch's own choice (0).
+PAD_DEPTHS = (0, 1, 2, 4, 8, 16)
 BIG_CELLS = 216  # a 10M-DOF box's free grid: 215 x 217 x 217, mxp = 256
 
 
-def time_pad_tiles(device, card, A, sy, rng, scrub) -> dict:
-    """Kernel 3 in f32 at every block shape of PAD_TILES, on path A's
+def time_pad_depths(device, card, A, sy, rng, scrub) -> dict:
+    """Kernel 3 in f32 at every z-depth of PAD_DEPTHS, on path A's
     operator and on a 10M-DOF space of the same stencil (mxp = 256), each
     against the plain version; device ms per call, and with L2 flushed
     for the launch's own choice.  Launches here do not count."""
@@ -1182,22 +1181,22 @@ def time_pad_tiles(device, card, A, sy, rng, scrub) -> dict:
         y_ref = op.matvec_reference(x)
         b_ms, b_by, nbytes = _pad_bound(op, x)
         times = {}
-        for tile in PAD_TILES:
-            y = _kernels.pad_stencil_launch(op, x, tile=tile)
+        for zc in PAD_DEPTHS:
+            y = _kernels.pad_stencil_launch(op, x, z_layers=zc)
             sync(device)
             check(torch.equal(y, op.matvec(x)),
-                  f"[E] pad-stencil {label} tile {tile}: not bit-identical "
+                  f"[E] pad-stencil {label} z-depth {zc}: not bit-identical "
                   f"to the launch's own choice")
-            times[f"{tile[0]}x{tile[1]}"] = profile_device(
-                lambda: _kernels.pad_stencil_launch(op, x, tile=tile)
+            times[str(zc)] = profile_device(
+                lambda: _kernels.pad_stencil_launch(op, x, z_layers=zc)
             )["device_ms"]
         err = (y.double() - y_ref.double()).abs().max().item() / max(
             y_ref.double().abs().max().item(), 1e-300)
         check(err <= TOL_F32, f"[E] pad-stencil {label}: rel err {err:.3e}")
         cold = profile_cold(lambda: op.matvec(x), scrub, "pad_stencil_kernel")
         log(f"[E] pad-stencil {label} f32, dims {op.dims}, (Z, myp, mxp) = "
-            f"({op.Z}, {op.myp}, {op.mxp}): device ms per call by (rows, "
-            f"z-layers) of a block (0x0 = the launch's choice): "
+            f"({op.Z}, {op.myp}, {op.mxp}): device ms per call by z-layers "
+            f"of a 4-row block (0 = the launch's choice): "
             f"{json.dumps(times)}; the launch's choice with L2 flushed "
             f"{cold} ms; bound {b_ms} ms by {b_by} ({nbytes / 1e6:.2f} MB); "
             f"max rel err vs plain {err:.3e} [{card}]")

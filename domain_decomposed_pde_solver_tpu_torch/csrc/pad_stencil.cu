@@ -29,7 +29,7 @@
 // set fits in the 50 MB L2, so at that size latency and instruction issue,
 // not DRAM, decide the time.
 //
-// Design.  A block owns a tile of TY rows x 128 lanes (one warp per row, each
+// Design.  A block owns a tile of 4 rows x 128 lanes (one warp per row, each
 // lane computing lanes t, t+32, t+64, t+96 of it, so every shared-memory read
 // of a warp is 32 consecutive words and every store 32 consecutive slots) and
 // marches zc layers of z.  The x-planes it needs (the tile with a one-row,
@@ -45,14 +45,15 @@
 // group ends are compile-time, so the loop is straight-line code and later
 // taps' loads issue while earlier sums complete; any other pattern of at
 // most 27 taps runs the same loop with its group ends read from the
-// parameter block.  TY is 4 and zc the shallowest march whose grid fits in
-// one wave of resident blocks (4 at the 1M box, 8 on a 10M-DOF space of
-// mxp = 256).  A design with one output per thread, tap bounds read at run
+// parameter block.  zc is the shallowest march whose grid fits in one wave
+// of resident blocks (4 at the 1M box, 8 on a 10M-DOF space of mxp = 256).
+// 8-row tiles were timed and lost at both sizes (PERF.md, Findings).  A design with one output per thread, tap bounds read at run
 // time and load and compute chained by two barriers per layer was bound by
-// its tap loop, not its loads.  This one takes 8.9-9.6 us in f32 at the 1M
-// box (11.8 us with L2 flushed), 14.5 us with f64 vectors, and 60-64 us on
-// a 10M-DOF space (bound 33.3 us) (NVIDIA H100 80GB HBM3, 700.00 W;
-// chip_smoke.py phase E).
+// its tap loop, not its loads.  This one takes 9.0 us in f32 at the 1M box
+// (10.7 us with L2 flushed; bound 3.46 us), 14.2 us with f64 vectors (16.5
+// us flushed; bound 6.32 us), and 60.0 us on a 10M-DOF space (bound 33.3
+// us), each device time per call from torch.profiler (NVIDIA H100 80GB
+// HBM3, 700.00 W; chip_smoke.py phase E).
 //
 // Contract.  T (float or double) is the type of x, y and the accumulator;
 // C (bfloat16 bits as uint16, or float) the storage of corr; coefficients are
@@ -67,6 +68,8 @@
 namespace {
 
 constexpr int kTX = 128;  // lanes per tile
+constexpr int kTY = 4;    // rows per tile, one warp each
+constexpr int kThreads = 32 * kTY;
 constexpr int kVec = 4;   // lanes per thread, 32 apart
 constexpr int kRing = 4;  // x-planes in shared memory
 constexpr int kMaxTaps = 27;
@@ -154,15 +157,14 @@ __device__ __forceinline__ void copy_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Start the copy of x-plane z (rows r0-1 .. r0+TY, lanes l0-1 .. l0+128)
+// Start the copy of x-plane z (rows r0-1 .. r0+4, lanes l0-1 .. l0+128)
 // into buf.  Anything outside the padded space reads 0 (it only feeds pads).
-template <typename T, int TY>
+template <typename T>
 __device__ __forceinline__ void load_plane(T* buf, const T* __restrict__ x,
                                            int z, int r0, int l0, int Z,
                                            int myp, int mxp, int tid) {
   using P = Plane<T>;
-  constexpr int kThreads = 32 * TY;
-  constexpr int kRows = TY + 2;
+  constexpr int kRows = kTY + 2;
   constexpr int kEl = 16 / sizeof(T);
   const bool z_ok = z >= 0 && z < Z;
   const int64_t plane0 = static_cast<int64_t>(z) * myp;
@@ -242,12 +244,12 @@ __device__ __forceinline__ void tap_sums(const T* ring, int z, int in_plane,
   }
 }
 
-template <typename T, typename C, int TY, typename Groups>
-__global__ void __launch_bounds__(32 * TY)
+template <typename T, typename C, typename Groups>
+__global__ void __launch_bounds__(kThreads)
 pad_stencil_kernel(const T* __restrict__ x, const C* __restrict__ corr,
                    T* __restrict__ y, const __grid_constant__ StencilParams p) {
   using P = Plane<T>;
-  constexpr int kPlane = (TY + 2) * P::kStride;  // elements per ring plane
+  constexpr int kPlane = (kTY + 2) * P::kStride;  // elements per ring plane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   T* coef = ring + kRing * kPlane;
@@ -255,19 +257,19 @@ pad_stencil_kernel(const T* __restrict__ x, const C* __restrict__ corr,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wrow = tid >> 5;  // the warp's row in the tile
-  const int l0 = blockIdx.x * kTX, r0 = blockIdx.y * TY;
+  const int l0 = blockIdx.x * kTX, r0 = blockIdx.y * kTY;
   const int Z = p.Z, myp = p.myp, mxp = p.mxp;
   const int z0 = blockIdx.z * p.zc;
   const int z1 = min(z0 + p.zc, Z);
   const int r = r0 + wrow;
 
-  load_plane<T, TY>(ring + ((z0 - 1) & 3) * kPlane, x, z0 - 1, r0, l0, Z,
-                    myp, mxp, tid);
-  load_plane<T, TY>(ring + (z0 & 3) * kPlane, x, z0, r0, l0, Z, myp, mxp, tid);
-  load_plane<T, TY>(ring + ((z0 + 1) & 3) * kPlane, x, z0 + 1, r0, l0, Z, myp,
-                    mxp, tid);
+  load_plane<T>(ring + ((z0 - 1) & 3) * kPlane, x, z0 - 1, r0, l0, Z, myp,
+                mxp, tid);
+  load_plane<T>(ring + (z0 & 3) * kPlane, x, z0, r0, l0, Z, myp, mxp, tid);
+  load_plane<T>(ring + ((z0 + 1) & 3) * kPlane, x, z0 + 1, r0, l0, Z, myp,
+                mxp, tid);
   copy_commit();
-  for (int k = tid; k < p.n_groups * 8; k += 32 * TY) {
+  for (int k = tid; k < p.n_groups * 8; k += kThreads) {
     coef[k] = static_cast<T>(p.quads[k]);
   }
 
@@ -278,8 +280,8 @@ pad_stencil_kernel(const T* __restrict__ x, const C* __restrict__ corr,
     copy_wait_all();  // plane z+1, this thread's copies
     __syncthreads();  // everyone's copies landed; layer z-1 read its planes
     if (z + 2 <= z1) {
-      load_plane<T, TY>(ring + ((z + 2) & 3) * kPlane, x, z + 2, r0, l0, Z,
-                        myp, mxp, tid);
+      load_plane<T>(ring + ((z + 2) & 3) * kPlane, x, z + 2, r0, l0, Z, myp,
+                    mxp, tid);
       copy_commit();
     }
     T out[kVec];
@@ -315,12 +317,12 @@ pad_stencil_kernel(const T* __restrict__ x, const C* __restrict__ corr,
 // Blocks of this instance resident on the whole card at once (one wave),
 // from the occupancy calculator (per SM, asked once per instance); 0 if it
 // cannot tell.
-template <typename T, typename C, int TY, typename Groups>
+template <typename T, typename C, typename Groups>
 int resident_blocks(size_t smem) {
   static const int per_sm = [smem] {
     int n = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, pad_stencil_kernel<T, C, TY, Groups>, 32 * TY, smem) !=
+            &n, pad_stencil_kernel<T, C, Groups>, kThreads, smem) !=
         cudaSuccess) {
       cudaGetLastError();  // a failed query is not the launch's error
       return 0;
@@ -339,22 +341,22 @@ int resident_blocks(size_t smem) {
 
 // dxy: host (dx, dy) of every slot; the offsets take this instance's row
 // stride.
-template <typename T, typename C, int TY, typename Groups>
-int launch_tile(const T* x, const C* corr, T* y, StencilParams p,
-                const int* dxy, int zc, cudaStream_t stream) {
+template <typename T, typename C, typename Groups>
+int launch_groups(const T* x, const C* corr, T* y, StencilParams p,
+                  const int* dxy, int zc, cudaStream_t stream) {
   using P = Plane<T>;
   for (int s = 0; s < p.n_taps; ++s) {
     p.off[s] = dxy[2 * s + 1] * P::kStride + dxy[2 * s];
   }
   const size_t smem =
-      (kRing * (TY + 2) * P::kStride + kMaxGroups * 8) * sizeof(T);
+      (kRing * (kTY + 2) * P::kStride + kMaxGroups * 8) * sizeof(T);
   if (zc <= 0) {
     // The shallowest march (from 2 layers) whose grid fits in one wave of
     // resident blocks: the z-halo (2 planes per march) is re-read least
     // where no block waits for a second wave.  A grid too large for one
     // wave at 16 layers marches 8.
-    const int tiles = (p.mxp / kTX) * (p.myp / TY);
-    const int wave = resident_blocks<T, C, TY, Groups>(smem);
+    const int tiles = (p.mxp / kTX) * (p.myp / kTY);
+    const int wave = resident_blocks<T, C, Groups>(smem);
     zc = 8;
     for (int d = 2; d <= 16; d *= 2) {
       if (tiles * ((p.Z + d - 1) / d) <= wave) {
@@ -364,9 +366,9 @@ int launch_tile(const T* x, const C* corr, T* y, StencilParams p,
     }
   }
   p.zc = zc;
-  const dim3 grid(p.mxp / kTX, p.myp / TY, (p.Z + zc - 1) / zc);
-  pad_stencil_kernel<T, C, TY, Groups>
-      <<<grid, 32 * TY, smem, stream>>>(x, corr, y, p);
+  const dim3 grid(p.mxp / kTX, p.myp / kTY, (p.Z + zc - 1) / zc);
+  pad_stencil_kernel<T, C, Groups><<<grid, kThreads, smem, stream>>>(x, corr, y,
+                                                                     p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -374,12 +376,11 @@ template <typename T, typename C>
 int launch(const void* x, const void* corr, void* y, const int32_t* taps,
            int n_taps, const int32_t* group_start, int n_groups,
            const float* quads, int mx, int my, int mz, int myp, int mxp, int Z,
-           int ty, int zc, void* stream) {
+           int zc, void* stream) {
   if (n_taps < 1 || n_taps > kMaxTaps || n_groups < 1 ||
       n_groups > kMaxGroups || group_start[0] != 0 ||
       group_start[n_groups] != n_taps || myp % 8 || mxp % kTX || Z < 1 ||
-      (ty != 0 && ty != 4 && ty != 8) ||
-      reinterpret_cast<uintptr_t>(x) % 16) {
+      zc < 0 || reinterpret_cast<uintptr_t>(x) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   StencilParams p = {};
@@ -416,14 +417,9 @@ int launch(const void* x, const void* corr, void* y, const int32_t* taps,
   const int* gs = group_start;
   const bool tetra4 = n_groups == 3 && gs[1] == 12 && gs[2] == 18 && gs[3] == 19;
   const bool hex8 = n_groups == 2 && gs[1] == 26 && gs[2] == 27;
-  if (ty == 8) {
-    if (tetra4) return launch_tile<T, C, 8, Tetra4Groups>(xt, ct, yt, p, dxy, zc, st);
-    if (hex8) return launch_tile<T, C, 8, Hex8Groups>(xt, ct, yt, p, dxy, zc, st);
-    return launch_tile<T, C, 8, GroupSizes<>>(xt, ct, yt, p, dxy, zc, st);
-  }
-  if (tetra4) return launch_tile<T, C, 4, Tetra4Groups>(xt, ct, yt, p, dxy, zc, st);
-  if (hex8) return launch_tile<T, C, 4, Hex8Groups>(xt, ct, yt, p, dxy, zc, st);
-  return launch_tile<T, C, 4, GroupSizes<>>(xt, ct, yt, p, dxy, zc, st);
+  if (tetra4) return launch_groups<T, C, Tetra4Groups>(xt, ct, yt, p, dxy, zc, st);
+  if (hex8) return launch_groups<T, C, Hex8Groups>(xt, ct, yt, p, dxy, zc, st);
+  return launch_groups<T, C, GroupSizes<>>(xt, ct, yt, p, dxy, zc, st);
 }
 
 }  // namespace
@@ -432,15 +428,14 @@ extern "C" {
 
 // taps: host int32 (n_taps, 3) as (dx, dy, dz), in group order;
 // group_start: host int32 (n_groups + 1); quads: host float (n_groups, 8);
-// ty: rows per tile, 4 or 8 (0: 4); zc: z-layers per block (0: chosen from
-// the grid and the occupancy).
+// zc: z-layers per block (0: chosen from the grid and the occupancy).
 #define DDPS_PAD_ENTRY(NAME, T, C)                                            \
   int NAME(const void* x, const void* corr, void* y, const int32_t* taps,    \
            int n_taps, const int32_t* group_start, int n_groups,             \
            const float* quads, int mx, int my, int mz, int myp, int mxp,     \
-           int Z, int ty, int zc, void* stream) {                            \
+           int Z, int zc, void* stream) {                                    \
     return launch<T, C>(x, corr, y, taps, n_taps, group_start, n_groups,     \
-                        quads, mx, my, mz, myp, mxp, Z, ty, zc, stream);     \
+                        quads, mx, my, mz, myp, mxp, Z, zc, stream);         \
   }
 
 DDPS_PAD_ENTRY(ddps_pad_stencil_f32_bf16, float, uint16_t)

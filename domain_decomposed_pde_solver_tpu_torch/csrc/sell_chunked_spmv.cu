@@ -18,10 +18,12 @@
 // chunk k.  A chunk's first slot and width follow from slice_ptr and its
 // position in its slice: no pointer array of its own.
 //
-// Work per warp.  A slice of at most K chunks (K = warp_chunks, the
-// caller's constant) is one warp's, one lane per row: the warp forms each
-// chunk's partial over the chunk's columns in order and adds the partials
-// in chunk order in registers, then writes y.  Only a slice of more than K
+// Work per warp.  A slice of at most K chunks is one warp's, one lane per
+// row (K = DDPS_WARP_CHUNKS, defined at build time by ops/_kernels.py from
+// the WARP_CHUNKS the host packer lists the wide chunks by, so the two
+// cannot disagree): the warp forms each chunk's partial over the chunk's
+// columns in order and adds the partials in chunk order in registers, then
+// writes y.  Only a slice of more than K
 // chunks (a few very wide rows, as the transposed tentative transfer of
 // AMG has) is spread one chunk per warp, so it does not hold one warp for
 // its whole width while the card idles: the caller lists those chunks
@@ -44,9 +46,9 @@
 // slice's columns and values as contiguous 128-byte lines); the wide route
 // adds one write and one read of 32 partials per wide chunk.  On the
 // 833,048-row refined box at chunk 16 (every slice one warp's) it takes
-// 0.0527 ms, against 0.0491 ms for csrc/spmv.cu and 0.0618 ms for cuSPARSE
-// CSR on the same product, bound 0.0385 ms (NVIDIA H100 80GB HBM3, 700.00 W;
-// chip_smoke.py phase E).
+// 0.0530 ms, against 0.0494 ms for csrc/spmv.cu and 0.0622 ms for cuSPARSE
+// CSR on the same product, bound 0.0385 ms, each device time per call from
+// torch.profiler (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase E).
 //
 // Contract.  Columns are int32, slice_ptr int64, chunk_ptr, tmap and wide
 // int32.  Values are V (float or double), x, y and the accumulators T
@@ -65,6 +67,10 @@ namespace {
 constexpr int kSlice = 32;
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / kSlice;  // warps (slices or chunks) per block
+#ifndef DDPS_WARP_CHUNKS
+#error "build with -DDDPS_WARP_CHUNKS=K, the packer's chunks per warp"
+#endif
+constexpr int kWarpChunks = DDPS_WARP_CHUNKS;  // K
 
 // One lane's partial over `width` slot columns from `slot` (its own row).
 template <typename V, typename T>
@@ -95,18 +101,18 @@ chunked_spmv_kernel(const int64_t* __restrict__ slice_ptr,
                     T* __restrict__ partial, int32_t* __restrict__ arrivals,
                     const T* __restrict__ x, T* __restrict__ y,
                     int64_t n_slices, int64_t n_wide, int chunk,
-                    int warp_chunks, int64_t n_out, int64_t n_x) {
+                    int64_t n_out, int64_t n_x) {
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kSlice;
   const int lane = threadIdx.x % kSlice;
   if (warp < n_slices) {
     // One-warp route: the whole slice, chunk after chunk.  A slice of
-    // width w owns ceil(w / chunk) chunks, more than warp_chunks exactly
-    // when w > warp_chunks * chunk: no chunk map is read here.
+    // width w owns ceil(w / chunk) chunks, more than K exactly when
+    // w > K * chunk: no chunk map is read here.
     const int64_t s = warp;
     const int64_t p0 = __ldg(slice_ptr + s);
     const int w = static_cast<int>((__ldg(slice_ptr + s + 1) - p0) / kSlice);
-    if (w > warp_chunks * chunk) return;  // spread over the wide route
+    if (w > kWarpChunks * chunk) return;  // spread over the wide route
     int64_t slot = p0 + lane;
     T acc = T(0);
     for (int j0 = 0; j0 < w; j0 += chunk) {
@@ -117,7 +123,7 @@ chunked_spmv_kernel(const int64_t* __restrict__ slice_ptr,
     if (row < n_out) y[row] = acc;
     return;
   }
-  // Wide route: one chunk of a slice of more than warp_chunks chunks.
+  // Wide route: one chunk of a slice of more than K chunks.
   const int64_t i = warp - n_slices;
   if (i >= n_wide) return;
   const int32_t k = __ldg(wide + i);
@@ -153,9 +159,9 @@ template <typename V, typename T>
 int launch(const void* slice_ptr, const void* cols, const void* vals,
            const void* tmap, const void* chunk_ptr, const void* wide,
            void* partial, void* arrivals, const void* x, void* y,
-           int64_t n_slices, int64_t n_wide, int chunk, int warp_chunks,
-           int64_t n_out, int64_t n_x, void* stream) {
-  if (chunk < 1 || warp_chunks < 1 || n_slices < 0 || n_wide < 0 ||
+           int64_t n_slices, int64_t n_wide, int chunk, int64_t n_out,
+           int64_t n_x, void* stream) {
+  if (chunk < 1 || n_slices < 0 || n_wide < 0 ||
       n_out > n_slices * kSlice) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -170,7 +176,7 @@ int launch(const void* slice_ptr, const void* cols, const void* vals,
         static_cast<const int32_t*>(chunk_ptr),
         static_cast<const int32_t*>(wide), static_cast<T*>(partial),
         static_cast<int32_t*>(arrivals), static_cast<const T*>(x),
-        static_cast<T*>(y), n_slices, n_wide, chunk, warp_chunks, n_out, n_x);
+        static_cast<T*>(y), n_slices, n_wide, chunk, n_out, n_x);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -183,11 +189,11 @@ extern "C" {
   int NAME(const void* slice_ptr, const void* cols, const void* vals,        \
            const void* tmap, const void* chunk_ptr, const void* wide,        \
            void* partial, void* arrivals, const void* x, void* y,            \
-           int64_t n_slices, int64_t n_wide, int chunk, int warp_chunks,     \
-           int64_t n_out, int64_t n_x, void* stream) {                       \
+           int64_t n_slices, int64_t n_wide, int chunk, int64_t n_out,       \
+           int64_t n_x, void* stream) {                                      \
     return launch<V, T>(slice_ptr, cols, vals, tmap, chunk_ptr, wide,        \
                         partial, arrivals, x, y, n_slices, n_wide, chunk,    \
-                        warp_chunks, n_out, n_x, stream);                    \
+                        n_out, n_x, stream);                                 \
   }
 
 // Storage float, vectors float; storage float, vectors double; storage

@@ -38,6 +38,7 @@ __all__ = [
     "PAD_STENCIL",
     "SELL_CHUNKED_SPMV",
     "SELL_SPMV",
+    "WARP_CHUNKS",
     "build_kernels",
     "dia_spmv_launch",
     "fused_cg_launch",
@@ -75,13 +76,16 @@ class Kernel:
 
     ``entries`` maps each C entry point that launches the kernel to its
     ctypes argument types; every one returns an ``int`` (a
-    ``cudaError_t``)."""
+    ``cudaError_t``).  ``defines`` are the source's build-time constants
+    (``-DNAME=value``)."""
 
     def __init__(self, name: str, src: pathlib.Path,
-                 entries: Dict[str, Sequence]):
+                 entries: Dict[str, Sequence],
+                 defines: Optional[Dict[str, int]] = None):
         self.name = name
         self.src = src
         self.entries = dict(entries)
+        self.flags = [f"-D{k}={v}" for k, v in (defines or {}).items()]
         self.launches = 0
         self.by_entry: Dict[str, int] = {e: 0 for e in self.entries}
         self.build_log = ""
@@ -100,7 +104,8 @@ class Kernel:
             return self._lib
 
     def _build_and_load(self) -> ctypes.CDLL:
-        digest = hashlib.sha256(self.src.read_bytes()).hexdigest()[:16]
+        digest = hashlib.sha256(self.src.read_bytes() + " ".join(
+            self.flags).encode()).hexdigest()[:16]
         out_dir = kernel_build_dir()
         so = out_dir / f"lib{self.name}-{digest}.so"
         if not so.exists():
@@ -108,7 +113,7 @@ class Kernel:
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             cmd = [
                 _nvcc(), _ARCH, "-std=c++17", "-O3", "-shared",
-                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v", *self.flags,
                 "-o", str(tmp), str(self.src),
             ]
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -157,9 +162,8 @@ DIA_SPMV = Kernel("dia_spmv", _PKG / "csrc" / "dia_spmv.cu", {
 })
 
 # x, corr, y, taps (host int32 (n_taps, 3)), n_taps, group_start (host
-# int32), n_groups, quads (host f32), mx, my, mz, myp, mxp, Z, ty, zc,
-# stream
-_PAD_ARGS = [_P, _P, _P, _P, _INT, _P, _INT, _P] + [_INT] * 8 + [_P]
+# int32), n_groups, quads (host f32), mx, my, mz, myp, mxp, Z, zc, stream
+_PAD_ARGS = [_P, _P, _P, _P, _INT, _P, _INT, _P] + [_INT] * 7 + [_P]
 PAD_STENCIL = Kernel("pad_stencil", _PKG / "csrc" / "pad_stencil.cu", {
     "ddps_pad_stencil_f32_bf16": _PAD_ARGS,
     "ddps_pad_stencil_f32_f32": _PAD_ARGS,
@@ -167,15 +171,20 @@ PAD_STENCIL = Kernel("pad_stencil", _PKG / "csrc" / "pad_stencil.cu", {
     "ddps_pad_stencil_f64_f32": _PAD_ARGS,
 })
 
+# The ragged layout's chunks per warp: a slice of at most this many chunks
+# is one warp's work, the chunks of a wider one go one per warp.  The kernel
+# takes it at build time; ``bsg._chunk_maps`` lists the wide chunks by it.
+WARP_CHUNKS = 4
+
 # slice_ptr, cols, vals, tmap, chunk_ptr, wide, partial, arrivals, x, y,
-# n_slices, n_wide, chunk, warp_chunks, n_out, n_x, stream
-_CHUNKED_ARGS = [_P] * 10 + [_I64, _I64, _INT, _INT, _I64, _I64, _P]
+# n_slices, n_wide, chunk, n_out, n_x, stream
+_CHUNKED_ARGS = [_P] * 10 + [_I64, _I64, _INT, _I64, _I64, _P]
 SELL_CHUNKED_SPMV = Kernel(
     "sell_chunked_spmv", _PKG / "csrc" / "sell_chunked_spmv.cu", {
         "ddps_sell_chunked_spmv_f32_f32": _CHUNKED_ARGS,
         "ddps_sell_chunked_spmv_f32_f64": _CHUNKED_ARGS,
         "ddps_sell_chunked_spmv_f64_f64": _CHUNKED_ARGS,
-    })
+    }, defines={"DDPS_WARP_CHUNKS": WARP_CHUNKS})
 
 # slice_ptr, cols, vals, b, invd, x, r, p, ap, part, max_blocks, stats, n,
 # maxiter, tol2, stream
@@ -258,8 +267,6 @@ def sell_chunked_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
     (int32, the chunks of slices of more than ``WARP_CHUNKS`` chunks) cut
     them into chunks of ``chunk`` columns.  ``x`` may be shorter than the
     operator's input space (zero-extended by the kernel)."""
-    from .bsg import WARP_CHUNKS
-
     dev = _require_cuda(x, "sell_chunked_spmv")
     named = (("slice_ptr", slice_ptr), ("cols", cols), ("vals", vals),
              ("tmap", tmap), ("chunk_ptr", chunk_ptr), ("wide", wide))
@@ -299,8 +306,8 @@ def sell_chunked_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
             entry, slice_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
             tmap.data_ptr(), chunk_ptr.data_ptr(), wide.data_ptr(),
             partial.data_ptr(), arrivals.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n_slices, n_wide, chunk, WARP_CHUNKS, n_out,
-            x.numel(), _stream(dev),
+            y.data_ptr(), n_slices, n_wide, chunk, n_out, x.numel(),
+            _stream(dev),
         )
     return y
 
@@ -389,14 +396,13 @@ def dia_spmv_launch(data: torch.Tensor, offsets: Sequence[int],
 _PAD_MAX_TAPS = 27  # 3 x 3 x 3 lattice neighbourhood
 
 
-def pad_stencil_launch(A, x: torch.Tensor, tile=(0, 0)) -> torch.Tensor:
+def pad_stencil_launch(A, x: torch.Tensor, z_layers: int = 0) -> torch.Tensor:
     """Launch the pad-stencil SpMV of a ``PadStencilOperator`` on a CUDA
     vector of its padded space; returns y in ``x``'s dtype.
 
-    ``tile = (rows, z-layers)`` of a block: rows 4 or 8, layers >= 1; 0
-    takes the kernel's choice (4 rows; layers from the grid and the
-    occupancy).  Only measurements and tests of the kernel pass anything
-    else."""
+    ``z_layers``: layers of z each block marches; 0 takes the kernel's
+    choice (from the grid and the occupancy).  Only measurements and tests
+    of the kernel pass anything else."""
     dev = _require_cuda(x, "pad_stencil")
     corr = A.corr
     if corr.device != dev:
@@ -411,9 +417,8 @@ def pad_stencil_launch(A, x: torch.Tensor, tile=(0, 0)) -> torch.Tensor:
     if A.mxp % 128 or A.myp % 8:
         raise ValueError(f"padded extents ({A.myp}, {A.mxp}) are not "
                          f"multiples of (8, 128)")
-    ty, zc = (int(v) for v in tile)
-    if ty not in (0, 4, 8) or zc < 0:
-        raise ValueError(f"tile {tile}: rows 0, 4 or 8, layers >= 0")
+    if z_layers < 0:
+        raise ValueError(f"z_layers must be >= 0, got {z_layers}")
     entry = f"ddps_pad_stencil_{_NAME.get(x.dtype)}_{_NAME.get(corr.dtype)}"
     if entry not in PAD_STENCIL.entries:
         raise TypeError(
@@ -429,6 +434,6 @@ def pad_stencil_launch(A, x: torch.Tensor, tile=(0, 0)) -> torch.Tensor:
             entry, x.data_ptr(), corr.data_ptr(), y.data_ptr(),
             taps.ctypes.data, taps.shape[0], start.ctypes.data,
             start.size - 1, quads.ctypes.data, mx, my, mz, A.myp, A.mxp,
-            A.Z, ty, zc, _stream(dev),
+            A.Z, int(z_layers), _stream(dev),
         )
     return y

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ._kernels import WARP_CHUNKS
 from .csr import CSRMatrix
 
 __all__ = [
@@ -57,9 +58,6 @@ __all__ = [
 
 TILE = 1024  # padded-length granule of the JAX BSG layout (8 x 128 rows)
 SLICE = 32  # rows per sliced-ELL slice: one warp
-# Ragged layout: a slice of at most this many chunks is one warp's work;
-# the chunks of a wider slice go one per warp (csrc/sell_chunked_spmv.cu).
-WARP_CHUNKS = 4
 
 _STORAGE = {"float32": torch.float32, "float64": torch.float64}
 

@@ -169,18 +169,18 @@ def test_pad_stencil_kernel_matches_plain(cuda_device, shape, elem, name,
     assert np.abs(A.get_vector(y) - ref).max() <= TOL[name] * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("tile", [(4, 1), (4, 3), (8, 5), (8, 0), (0, 7)],
-                         ids=["4x1", "4x3", "8x5", "8xauto", "defaultx7"])
+@pytest.mark.parametrize("z_layers", [1, 3, 5, 7, 16])
 @pytest.mark.parametrize("name,corr", [("float32", "bfloat16"),
                                        ("float64", "float32")])
 @pytest.mark.parametrize("shape,elem", [((9, 9, 9), "TETRA4"),
                                         ((132, 8, 8), "TETRA4"),
                                         ((8, 8, 8), "HEX8")],
                          ids=["tet-mxp128", "tet-mxp256", "hex8"])
-def test_pad_stencil_kernel_tiles_and_z_depths(cuda_device, shape, elem, name,
-                                               corr, tile):
-    """Every tile and z-depth a launch may take, including depths that do
-    not divide Z (16 here), against the plain version; pads exactly 0."""
+def test_pad_stencil_kernel_z_depths(cuda_device, shape, elem, name, corr,
+                                     z_layers):
+    """Every z-depth a launch may take, including depths that do not
+    divide Z (16 here) and one block over all of Z, against the plain
+    version; pads exactly 0."""
     from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
         pad_stencil_from_stencil,
     )
@@ -192,11 +192,11 @@ def test_pad_stencil_kernel_tiles_and_z_depths(cuda_device, shape, elem, name,
     assert A.Z % 3 and A.Z % 5 and A.Z % 7
     x = A.put_vector(np.random.default_rng(25).normal(size=sy.A.n_rows),
                      dtype=getattr(torch, name))
-    y = _kernels.pad_stencil_launch(A, x, tile=tile)
+    y = _kernels.pad_stencil_launch(A, x, z_layers=z_layers)
     torch.cuda.synchronize()
     assert _relerr(y, A.matvec_reference(x)) <= TOL[name]
     assert not torch.any(y[A.pad_mask() == 0])
-    # Every output's sum has one order, whatever the tile: bit-identical.
+    # Every output's sum has one order, whatever the depth: bit-identical.
     assert torch.equal(y, A.matvec(x))
 
 
