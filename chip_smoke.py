@@ -37,8 +37,9 @@ D1. Jacobi-PCG in one launch (the fused CG kernel) against the unfused
    iterations within max(2, 2 %), host f64 relres <= 5e-6 plus the f32
    rounding floor eps/2 * || |A| |u| || / ||b|| (hundreds of f32 updates
    at the answer's scale), with u a host f64 Jacobi-PCG answer to 1e-10
-   computed before either solve, exactly one fused launch and no
-   sliced-ELL launch inside a fused solve.
+   computed before either solve; each fused solve launches exactly one C
+   entry of any kernel: the cluster instance's at 16k, the grid
+   instance's at 833k.
 D2. The same 833k system packed ``layout="ragged", chunk=16`` (the chunked
    kernel), which stores exactly the dense layout's slots: Jacobi-PCG, and
    CG+AMG with the ragged operator as the AMG's fine level, each within
@@ -58,15 +59,29 @@ D. Every kernel against its plain PyTorch version on the card, on the
    f32, 1e-12 in f64: the same products summed in another order, with
    fused multiply-adds; the fused CG solve within 2 iterations and 1e-4 of
    its plain recurrence; the chunked kernel also bit-identical over two
-   launches).  These launches do not count.
+   launches).  The DIA kernel at every compiled instance it has for the
+   shape, the run-time loop and every launch shape (blocks of 32 to 256
+   threads, 1 or 2 rows per thread), all bit-identical, on levels 1 and 2
+   of path A, path B's operator and a random 11-diagonal operator.  The
+   fused CG's cluster instance at 16k and on refined boxes of one and
+   eight CTAs, and an operator of 17 CTAs that must take the grid
+   instance, each bit-identical over two runs.  These launches do not
+   count.
 E. Times with CUDA events and the profiler: each kernel on its path's
    shape, its plain version and, as a yardstick the port never calls, one
    PyTorch call computing the same product (cuSPARSE through
    ``torch.sparse_csr_tensor @ x``); the pad-stencil product also with L2
    flushed between calls, at every z-depth of ``PAD_DEPTHS`` (each
    bit-identical to the launch's own choice) and on a 10M-DOF space of
-   the same stencil (mxp = 256); the fused CG solve against the unfused
-   loop (no single PyTorch call solves CG).  Print the kernel record, the
+   the same stencil (mxp = 256); the DIA kernel on levels 1 and 2 of path
+   A, path B's operator and the 1M fine operator beside its launch floor
+   (a kernel that does nothing on the same grid) and one dependent load (a
+   copy of n values on the same grid), at every launch shape and with the
+   run-time loop; the fused CG solve against the unfused loop (no single
+   PyTorch call solves CG), beside its synchronisation floor (the same
+   launch with only the barriers and reductions of every iteration) and
+   with the matvec but no vector updates, in the instance each size takes
+   and, at 16k, in the grid instance too.  Print the kernel record, the
    card line and the device record as the last line.
 """
 
@@ -143,15 +158,20 @@ def read_counts(kernels) -> dict:
             for k in kernels}
 
 
-def launch_delta(kernels, fn):
+def launch_delta(kernels, fn, entries=None):
     """Run ``fn`` (then synchronise); returns its result and the launches
-    of every kernel during it."""
+    of every kernel during it.  With a dict ``entries``, also fill it with
+    the launches of every C entry launched during it."""
     import torch
 
     before = {k.name: k.launches for k in kernels}
+    by = {(k.name, e): n for k in kernels for e, n in k.by_entry.items()}
     out = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+    if entries is not None:
+        entries.update({e: n - by[(k.name, e)] for k in kernels
+                        for e, n in k.by_entry.items() if n != by[(k.name, e)]})
     return out, {k.name: k.launches - before[k.name] for k in kernels}
 
 
@@ -465,6 +485,9 @@ def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
         fused_cg_solve,
         jacobi_preconditioner,
     )
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plan,
+    )
 
     solver = run_c["solver"]
     sy_s, A_s = _refined_system(small_cells, device)
@@ -488,15 +511,18 @@ def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
             maxiter=PCG_MAXITER))
         wall_u = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
+        ef = {}
         rf, df = launch_delta(kernels, lambda: fused_cg_solve(
-            A, b, tol=PCG_TOL, maxiter=PCG_MAXITER))
+            A, b, tol=PCG_TOL, maxiter=PCG_MAXITER), ef)
         wall_f = (time.perf_counter() - t0) * 1e3
         rr = [host_relres(sy.A, A.get_vector(r.x), sy.b) for r in (ru, rf)]
         slack = max(2, int(0.02 * ru.iterations))
+        plan = fused_cg_plan(A)
         log(f"[D1] {label} ({sy.n_free} DOF, {A.n_slots} slots): unfused "
             f"{ru.iterations} iterations in {wall_u:.1f} ms (launches "
-            f"{json.dumps(du)}), fused {rf.iterations} in {wall_f:.1f} ms "
-            f"(launches {json.dumps(df)}); host f64 relres {rr[0]:.3e} / "
+            f"{json.dumps(du)}), fused ({plan.instance} instance) "
+            f"{rf.iterations} in {wall_f:.1f} ms (launches by entry "
+            f"{json.dumps(ef)}); host f64 relres {rr[0]:.3e} / "
             f"{rr[1]:.3e} (limit {limit:.3e}: 5e-6 + the f32 floor "
             f"{floor:.3e} of the host f64 answer, {k_ref} iterations to "
             f"1e-10 in {t_ref:.1f} s)")
@@ -505,13 +531,17 @@ def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
               f"[D1] {label}: iterations {rf.iterations} vs {ru.iterations}")
         check(max(rr) <= limit, f"[D1] {label}: host relres {rr}")
         if device.type == "cuda":
-            check(df["fused_cg"] == 1 and df["sell_spmv"] == 0,
-                  f"[D1] {label}: launches in the fused solve {df}")
+            want = ("ddps_fused_cg_cluster_f32" if label == "16k"
+                    else "ddps_fused_cg_f32")
+            check(ef == {want: 1} and sum(df.values()) == 1,
+                  f"[D1] {label}: launches in the fused solve {ef}, want "
+                  f"one of {want}")
             check(du["sell_spmv"] > 0 and du["fused_cg"] == 0,
                   f"[D1] {label}: launches in the unfused solve {du}")
         out[label] = dict(system=sy, A=A, b=b, M=M, unfused=ru, fused=rf,
                           wall_ms=(wall_u, wall_f), host_relres=rr,
-                          floor=floor, limit=limit)
+                          floor=floor, limit=limit, entries=ef,
+                          instance=plan.instance)
     out["counts"] = read_counts(kernels)
     log(f"[D1] launches during the path: {json.dumps(out['counts'])}")
     return out
@@ -742,10 +772,33 @@ def _skewed_csr(n_slices: int, seed: int):
                      data=rng.normal(size=rows.size), shape=(n, n))
 
 
+def _random_laplacian(n: int, deg: int, seed: int, shift: float = 0.5):
+    """Random graph Laplacian plus ``shift`` on the diagonal (SPD), as
+    SciPy CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    m = n * deg // 2
+    u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    M = sp.coo_matrix((np.ones(2 * u.size), (np.r_[u, v], np.r_[v, u])),
+                      shape=(n, n)).tocsr()
+    M.data[:] = -1.0
+    M.setdiag(0)
+    M.eliminate_zeros()
+    M.setdiag(-np.asarray(M.sum(axis=1)).ravel() + shift)
+    M = M.tocsr()
+    M.sort_indices()
+    return M
+
+
 def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     import numpy as np
     import torch
 
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
     from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_spmv, spmv_plain
     from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
         dia_matvec_plain,
@@ -771,15 +824,33 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
                   A, sy)
 
     def dia_case(label, A, name, tol):
+        """The default launch against the plain version; every compiled
+        instance for the shape, the run-time loop and every launch shape
+        bit-identical to it."""
         x = torch.as_tensor(rng.normal(size=A.n_pad), dtype=getattr(torch, name),
                             device=device)
+        y = A.matvec(x)
         _compare(f"DIA {label} ({A.ndiags} diagonals, {A.n_pad} rows, "
-                 f"{str(A.data.dtype)[6:]} storage)", A.matvec(x),
+                 f"{str(A.data.dtype)[6:]} storage)", y,
                  dia_matvec_plain(A, x), tol, errs, "dia_spmv")
+        default = _kernels.dia_launch_shape(A.n_pad, A.ndiags, A.data.dtype,
+                                            x.dtype)
+        shapes = [_kernels.DiaLaunch(i, blk, r)
+                  for i in sorted({default.instance, 0})
+                  for blk in _kernels.DIA_BLOCKS for r in _kernels.DIA_ROWS]
+        for sh in shapes:
+            ys = _kernels.dia_spmv_launch(A.data, A.offsets_array, x, shape=sh)
+            sync(device)
+            check(torch.equal(ys, y), f"[D] DIA {label}: {sh} is not "
+                  f"bit-identical to the default launch {default}")
+        log(f"[D] DIA {label}: {len(shapes)} instances x launch shapes "
+            f"bit-identical to the default {default}")
 
-    L1 = run_a["report"]["precond"].levels[1].A
+    levels = run_a["report"]["precond"].levels
+    L1, L2 = levels[1].A, levels[2].A
     dia_case("level 1 of path A", L1, "float32", TOL_F32)
     dia_case("level 1 of path A", L1, "float64", TOL_F64)
+    dia_case("level 2 of path A", L2, "float32", TOL_F32)
     dia_case("fine operator of the default route", run_b["report"]["operator"],
              "float64", TOL_F64)
     wide = _wide_dia(device)
@@ -846,26 +917,55 @@ def compare_path_d(device, run_d1, run_d2, errs, vec) -> None:
             check(torch.equal(y, bsg_spmv(S, x)),
                   f"[D] chunked ELL chunk {chunk}: two launches differ")
 
-    # Kernel 5: the fused solve against its plain recurrence, both sizes.
+    # Kernel 5: the fused solve against its plain recurrence, in both
+    # instances, at the sizes of path D1 and at the cluster's edges.
     from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
         _inverse_diagonal,
         fused_cg_plain,
+        fused_cg_plan,
         fused_cg_solve,
     )
 
-    for label in ("833k", "16k"):
-        A, b = run_d1[label]["A"], run_d1[label]["b"]
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.csr import CSRMatrix
+
+    cases = {label: (run_d1[label]["A"], run_d1[label]["b"], want)
+             for label, want in (("833k", "grid"), ("16k", "cluster"))}
+    for cells, want in ((5, "cluster"), (10, "cluster")):
+        sy, A = _refined_system(cells, device)
+        cases[f"refined {cells}^3, {A.n_pad} rows"] = (
+            A, A.put_vector(sy.b, dtype=torch.float32), want)
+    S = _random_laplacian(16_385, 6, 4)  # 17 CTAs: past the cluster
+    A = bsg_from_csr(CSRMatrix(indptr=S.indptr.astype(np.int64),
+                               indices=S.indices.astype(np.int64),
+                               data=S.data, shape=S.shape), device=device)
+    xt = np.random.default_rng(5).standard_normal(S.shape[0])
+    cases[f"random graph, {A.n_pad} rows"] = (
+        A, A.put_vector(S @ xt, dtype=torch.float32), "grid")
+    entry = {"cluster": "ddps_fused_cg_cluster_f32", "grid": "ddps_fused_cg_f32"}
+    for label, (A, b, want) in cases.items():
+        check(fused_cg_plan(A).instance == want,
+              f"[D] fused CG {label}: not the {want} instance")
+        before = _kernels.FUSED_CG.by_entry[entry[want]]
         rf = fused_cg_solve(A, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
+        again = fused_cg_solve(A, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
         rp = fused_cg_plain(A, b, torch.zeros_like(b), _inverse_diagonal(A),
                             tol=PCG_TOL, maxiter=PCG_MAXITER)
         sync(device)
+        if device.type == "cuda":
+            check(_kernels.FUSED_CG.by_entry[entry[want]] == before + 2,
+                  f"[D] fused CG {label}: the {want} entry was not launched")
         diff = (rf.x.double() - rp.x.double()).abs().max().item()
         rel = diff / rp.x.double().abs().max().item()
-        log(f"[D] fused CG {label}: kernel {rf.iterations} iterations, plain "
-            f"{rp.iterations}; max rel diff of x {rel:.3e} (limit 1e-4)")
+        log(f"[D] fused CG {label} ({want} instance): kernel {rf.iterations} "
+            f"iterations, plain {rp.iterations}; max rel diff of x {rel:.3e} "
+            f"(limit 1e-4); two runs bit-identical: "
+            f"{torch.equal(again.x, rf.x)}")
         check(abs(rf.iterations - rp.iterations) <= 2,
               f"[D] fused CG {label}: iterations differ by more than 2")
         check(rel <= 1e-4, f"[D] fused CG {label}: x differs by {rel:.3e}")
+        check(again.iterations == rf.iterations and torch.equal(again.x, rf.x),
+              f"[D] fused CG {label}: two runs differ")
         errs["fused_cg"] = max(errs.get("fused_cg", 0.0), diff)
 
 
@@ -1029,10 +1129,6 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     import torch
 
     from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_spmv, spmv_plain
-    from domain_decomposed_pde_solver_tpu_torch.ops.dia import dia_from_csr
-    from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
-        dia_matvec_plain,
-    )
 
     rng = np.random.default_rng(1)
     rec = {}
@@ -1073,38 +1169,7 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     k3["depths"] = time_pad_depths(device, card, A, sy, rng, scrub)
     del scrub
 
-    # Kernel 4: level 1 of the 1M hierarchy (the main path's shape), then
-    # the default route's f64/bf16 fine DIA at the 1M size.
-    L1 = run_a["report"]["precond"].levels[1].A
-    fine = dia_from_csr(sy.A, dtype=torch.float64, device=device)
-    for label, D, name in (("level 1", L1, "float32"),
-                           ("1M fine", fine, "float64")):
-        dt = getattr(torch, name)
-        x = torch.as_tensor(rng.normal(size=D.n_pad), dtype=dt, device=device)
-        ip, ix, dv = _dia_csr(D)
-        Dcsr = _csr_tensor(ip, ix, dv, D.n_rows, dt, device)
-        xr = x[: D.n_rows].contiguous()
-        t = _measure({
-            "kernel": lambda: D.matvec(x),
-            "plain": lambda: dia_matvec_plain(D, x),
-            "library": lambda: Dcsr @ xr,
-        })
-        vb = x.element_size()
-        nbytes = D.ndiags * D.n_pad * D.data.element_size() + 2 * D.n_pad * vb
-        b_ms, b_by = bound(nbytes, 2 * D.ndiags * D.n_pad)
-        log(f"[E] DIA {label} ({D.ndiags} diagonals, {D.n_pad} rows, "
-            f"{str(D.data.dtype)[6:]} storage, {name} vectors), device ms "
-            f"per call: kernel {t['kernel']['device_ms']}, plain "
-            f"{t['plain']['device_ms']}, cuSPARSE CSR "
-            f"{t['library']['device_ms']}; events back to back: "
-            f"{json.dumps({k: v['events_ms'] for k, v in t.items()})}; bound "
-            f"{b_ms} ms by {b_by} [{card}]")
-        rec[f"dia_spmv/{label}"] = dict(
-            ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
-            library_ms=t["library"]["device_ms"], bound_ms=b_ms,
-            bound_by=b_by,
-            events_ms={k: v["events_ms"] for k, v in t.items()})
-    del fine
+    rec.update(time_dia(device, card, run_a, run_b, rng))
 
     # Kernel 1: slice 1's fine operator.
     solver = run_c["solver"]
@@ -1137,6 +1202,89 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     rec.update(time_chunked(device, card, run_c, run_d2, rec["sell_spmv"],
                             nbytes))
     rec.update(time_fused(card, run_d1))
+    return rec
+
+
+def time_dia(device, card, run_a, run_b, rng) -> dict:
+    """Kernel 4 on levels 1 and 2 of path A, path B's operator and the 1M
+    fine operator in bf16/f64 (the default route's at the BASELINE's
+    size): its default launch beside its launch floor (``noop``: a kernel
+    that does nothing, on the same grid and block) and one dependent load
+    (``copy``: n values read and written on the same grid), every launch
+    shape of its instance, the run-time loop at the default shape; the
+    plain version and cuSPARSE on level 1 and the 1M operator.  Launches
+    here do not count."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import dia_from_csr
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
+        dia_matvec_plain,
+    )
+
+    levels = run_a["report"]["precond"].levels
+    fine = dia_from_csr(run_a["report"]["system"].A, dtype=torch.float64,
+                        device=device)
+    shapes = (("level 1", levels[1].A, "float32", True),
+              ("level 2", levels[2].A, "float32", False),
+              ("path B", run_b["report"]["operator"], "float64", False),
+              ("1M fine", fine, "float64", True))
+    rec = {}
+    for label, D, name, yardsticks in shapes:
+        dt = getattr(torch, name)
+        x = torch.as_tensor(rng.normal(size=D.n_pad), dtype=dt, device=device)
+        offs = D.offsets_array
+        default = _kernels.dia_launch_shape(D.n_pad, D.ndiags, D.data.dtype, dt)
+
+        def launch(sh):
+            return lambda: _kernels.dia_spmv_launch(D.data, offs, x, shape=sh)
+
+        ms = profile_device(lambda: D.matvec(x))["device_ms"]
+        floor = profile_device(lambda: _kernels.dia_floor_launch(
+            "noop", x, default))["device_ms"]
+        # PR 4's launch: 256 threads, one row each.
+        floor_256 = profile_device(lambda: _kernels.dia_floor_launch(
+            "noop", x, _kernels.DiaLaunch(0, 256, 1)))["device_ms"]
+        copy = profile_device(lambda: _kernels.dia_floor_launch(
+            "copy", x, default))["device_ms"]
+        loop = profile_device(launch(_kernels.DiaLaunch(
+            0, default.block, default.rows)))["device_ms"]
+        sweep = {f"{blk}x{r}": profile_device(launch(_kernels.DiaLaunch(
+            default.instance, blk, r)))["device_ms"]
+                 for blk in _kernels.DIA_BLOCKS for r in _kernels.DIA_ROWS}
+        vb = x.element_size()
+        nbytes = D.ndiags * D.n_pad * D.data.element_size() + 2 * D.n_pad * vb
+        b_ms, b_by = bound(nbytes, 2 * D.ndiags * D.n_pad)
+        r = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor,
+                 launch_floor_256_ms=floor_256, copy_ms=copy, loop_ms=loop,
+                 sweep_ms=sweep,
+                 instance=default.instance, block=default.block,
+                 rows_per_thread=default.rows, ndiags=D.ndiags, n=D.n_pad,
+                 storage=str(D.data.dtype)[6:], vectors=name)
+        line = (f"[E] DIA {label} ({D.ndiags} diagonals, {D.n_pad} rows, "
+                f"{r['storage']} storage, {name} vectors), device ms per "
+                f"call: kernel {ms} ({default}; {ms / floor:.2f}x its launch "
+                f"floor), launch floor {floor} (256-thread blocks "
+                f"{floor_256}), one-load copy {copy}, run-time loop {loop}; "
+                f"by block x rows per thread "
+                f"{json.dumps(sweep)}; bound {b_ms} ms by {b_by}")
+        if yardsticks:
+            ip, ix, dv = _dia_csr(D)
+            Dcsr = _csr_tensor(ip, ix, dv, D.n_rows, dt, device)
+            xr = x[: D.n_rows].contiguous()
+            t = _measure({
+                "kernel": lambda: D.matvec(x),
+                "plain": lambda: dia_matvec_plain(D, x),
+                "library": lambda: Dcsr @ xr,
+            })
+            r.update(plain_ms=t["plain"]["device_ms"],
+                     library_ms=t["library"]["device_ms"],
+                     events_ms={k: v["events_ms"] for k, v in t.items()})
+            line += (f"; plain {r['plain_ms']}, cuSPARSE CSR "
+                     f"{r['library_ms']}; events back to back: "
+                     f"{json.dumps(r['events_ms'])}")
+        log(line + f" [{card}]")
+        rec[f"dia_spmv/{label}"] = r
     return rec
 
 
@@ -1260,19 +1408,51 @@ def _wall_ms(fn, reps: int) -> list:
     return out
 
 
+def _fused_modes(A, b, plan, instance: str, iters: int) -> dict:
+    """Device ms of one launch of ``instance`` in each measurement mode,
+    ``iters`` iterations: ``barriers`` (the synchronisation floor: the
+    launch, barriers and reductions of every iteration), ``matvec`` (and
+    the matvec, with the cluster's window fills), ``solve``."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    zero = torch.zeros_like(b)
+    out = {}
+    for mode in _kernels.FUSED_CG_MODES:
+        if instance == "cluster":
+            pk = plan.pack
+            fn = (lambda m=mode: _kernels.fused_cg_cluster_launch(
+                A.vals, pk.lcols, A.slice_ptr, pk.windows, pk.max_slots,
+                pk.max_win, b, plan.invd, None, PCG_TOL, iters, mode=m))
+        else:
+            fn = (lambda m=mode: _kernels.fused_cg_launch(
+                A.slice_ptr, A.cols, A.vals, b, plan.invd, zero, PCG_TOL,
+                iters, mode=m))
+        out[mode] = profile_device(fn, reps=3)["device_ms"]
+    return out
+
+
 def time_fused(card, run_d1) -> dict:
     """Kernel 5 per solve at both sizes: wall (host clock around the solve
     and a synchronise) and device time (profiler), beside its plain
-    recurrence and, as the yardstick, the unfused loop on kernel 1."""
+    recurrence and, as the yardstick, the unfused loop on kernel 1; the
+    instance's synchronisation floor and matvec-only time; at 16k the grid
+    instance too.  Two bounds: ``bound_ms`` counts the function's
+    compulsory bytes (operator, b, D^-1 and x0 read once, x written once)
+    against its flops, as every kernel's bound here; ``streaming_bound_ms``
+    the operator and nine vector passes read from device memory in every
+    iteration, what a solve whose operator does not stay on chip moves."""
     import torch
 
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
     from domain_decomposed_pde_solver_tpu_torch.solvers import (
         cg_solve,
         fused_cg_solve,
     )
     from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
-        _inverse_diagonal,
         fused_cg_plain,
+        fused_cg_plan,
     )
 
     rec = {}
@@ -1280,7 +1460,8 @@ def time_fused(card, run_d1) -> dict:
         d = run_d1[label]
         A, b, M = d["A"], d["b"], d["M"]
         zero = torch.zeros_like(b)
-        invd = _inverse_diagonal(A)
+        plan = fused_cg_plan(A)
+        invd = plan.invd
         fns = {
             "fused": lambda: fused_cg_solve(A, b, tol=PCG_TOL,
                                             maxiter=PCG_MAXITER),
@@ -1295,35 +1476,56 @@ def time_fused(card, run_d1) -> dict:
         prof = {k: profile_device(fns[k], reps=3 if k == "fused" else 1)
                 for k in fns}
         iters = d["fused"].iterations
+        modes = _fused_modes(A, b, plan, plan.instance, iters)
+        extra = {}
+        if plan.instance == "cluster":
+            grid = _fused_modes(A, b, plan, "grid", iters)
+            extra = dict(grid_ms=grid["solve"], grid_floor_ms=grid["barriers"],
+                         grid_matvec_ms=grid["matvec"])
+            _x, _st, active = _kernels.fused_cg_cluster_launch(
+                A.vals, plan.pack.lcols, A.slice_ptr, plan.pack.windows,
+                plan.pack.max_slots, plan.pack.max_win, b, invd, None,
+                PCG_TOL, iters)
+            extra.update(active_clusters=active, ctas=plan.pack.ctas,
+                         max_slots=plan.pack.max_slots,
+                         max_window=plan.pack.max_win)
         per_iter = (A.n_slots * 8 + A.slice_ptr.numel() * 8
                     + (A.x_len + VECTOR_PASSES * A.n_pad) * 4)
         setup = (A.n_slots * 8 + 5 * A.n_pad * 4)  # A x0, b, x0, D^-1, r, p
-        nbytes = iters * per_iter + setup
-        b_ms, b_by = bound(nbytes, iters * (2 * A.n_slots + 12 * A.n_pad))
+        flops = iters * (2 * A.n_slots + 12 * A.n_pad)
+        s_ms, _s_by = bound(iters * per_iter + setup, flops)
+        once = (A.n_slots * 8 + A.slice_ptr.numel() * 8 + 4 * A.n_pad * 4)
+        b_ms, b_by = bound(once, flops)
         dev = prof["fused"]["device_ms"]
         unf = prof["unfused"]
         idle = 1.0 - unf["busy_ms"] / unf["wall_ms"]
-        log(f"[E] fused CG {label} ({A.n_pad} rows, {iters} iterations; "
-            f"unfused {d['unfused'].iterations}): wall ms per solve fused "
-            f"{walls['fused']}, unfused {walls['unfused']}, plain "
-            f"{walls['plain']}; device ms per solve fused {dev} "
-            f"({dev * 1e3 / iters:.2f} us per iteration), unfused "
-            f"{unf['device_ms']} (busy {unf['busy_ms']} of "
-            f"{unf['wall_ms']} ms under the profiler, idle share {idle}), "
-            f"plain {prof['plain']['device_ms']}; bound {b_ms} ms by {b_by} "
-            f"({b_ms * 1e3 / iters:.2f} us per iteration, "
-            f"{nbytes / 1e6:.1f} MB) [{card}]")
+        us = dev * 1e3 / iters
+        log(f"[E] fused CG {label} ({A.n_pad} rows, {plan.instance} instance, "
+            f"{iters} iterations; unfused {d['unfused'].iterations}): wall ms "
+            f"per solve fused {walls['fused']}, unfused {walls['unfused']}, "
+            f"plain {walls['plain']}; device ms per solve fused {dev} "
+            f"({us:.2f} us per iteration), unfused {unf['device_ms']} (busy "
+            f"{unf['busy_ms']} of {unf['wall_ms']} ms under the profiler, "
+            f"idle share {idle}), plain {prof['plain']['device_ms']}; one "
+            f"launch of the {plan.instance} instance by mode "
+            f"{json.dumps(modes)} ms (synchronisation floor "
+            f"{modes['barriers'] * 1e3 / iters:.2f} us per iteration); "
+            f"{json.dumps(extra)}; bound {b_ms} ms by {b_by} (operator and "
+            f"vectors once, {once / 1e6:.2f} MB), streaming bound {s_ms} ms "
+            f"({s_ms * 1e3 / iters:.2f} us per iteration) [{card}]")
         rec[f"fused_cg/{label}"] = dict(
             ms=dev, plain_ms=prof["plain"]["device_ms"], bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, iterations=iters,
-            us_per_iteration=dev * 1e3 / iters,
-            wall_ms=walls["fused"], plain_wall_ms=walls["plain"],
+            bound_by=b_by, streaming_bound_ms=s_ms, library_ms=None,
+            instance=plan.instance, iterations=iters, us_per_iteration=us,
+            floor_ms=modes["barriers"], matvec_mode_ms=modes["matvec"],
+            solve_mode_ms=modes["solve"], wall_ms=walls["fused"],
+            plain_wall_ms=walls["plain"],
             yardstick="unfused cg_solve + Jacobi on the sliced-ELL kernel",
             yardstick_ms=min(walls["unfused"]),
             yardstick_wall_ms=walls["unfused"],
             yardstick_device_ms=unf["device_ms"],
             yardstick_idle_share=idle,
-            unfused_iterations=d["unfused"].iterations)
+            unfused_iterations=d["unfused"].iterations, **extra)
     return rec
 
 
@@ -1469,13 +1671,29 @@ def main() -> int:
                   "dia_spmv": ("dia_spmv/level 1", run_a["counts"]),
                   "sell_chunked_spmv": ("sell_chunked_spmv", run_d2["counts"]),
                   "fused_cg": ("fused_cg/833k", run_d1["counts"])}
+    # Kernels 4 and 5 list their instances, each at the shape that takes it.
+    instances = {
+        "dia_spmv": {k.split("/")[1]: {f: v for f, v in r.items()
+                                       if f != "events_ms"}
+                     for k, r in rec.items() if k.startswith("dia_spmv/")},
+        "fused_cg": {r["instance"] + " (" + k.split("/")[1] + ")": {
+            f: r[f] for f in ("ms", "bound_ms", "streaming_bound_ms",
+                              "us_per_iteration", "floor_ms",
+                              "matvec_mode_ms", "iterations", "grid_ms",
+                              "grid_floor_ms", "active_clusters") if f in r}
+            for k, r in rec.items() if k.startswith("fused_cg/")},
+    }
     records = []
     for k in kernels:
         key, counts = main_shape[k.name]
         r = rec[key]
         extra = {f: r[f] for f in ("yardstick", "yardstick_ms", "slot_ratio",
                                    "vs_kernel_1", "cold_ms", "f64_ms",
-                                   "f64_cold_ms") if f in r}
+                                   "f64_cold_ms", "launch_floor_ms",
+                                   "copy_ms", "streaming_bound_ms")
+                 if f in r}
+        if k.name in instances:
+            extra["instances"] = instances[k.name]
         records.append({
             "name": k.name,
             "route": "cuda",

@@ -10,33 +10,61 @@
 // rotation because Mosaic cannot load at unaligned 1-D offsets; a GPU thread
 // loads any address, so none of that is carried over.
 //
-// Bound.  On this card the product is bound by bytes: it reads ndiags * n
-// coefficients (2 B in bfloat16 storage, 4 B in float, 8 B in double) and x,
-// writes y, and does two flops per coefficient.  For the structured heat
-// operators (19 to 27 diagonals) that is under one flop per byte, far below
-// the H100's ridge point.  The design's answer is coalescing: one thread per
-// row, so at diagonal d a warp reads 32 consecutive coefficients of data[d]
-// and 32 consecutive x[i + off[d]]; the x reads of neighbouring diagonals hit
-// the same cache lines, so x comes from L1/L2, not from device memory, after
-// its first touch.  The offsets travel in the kernel's parameter block (the
-// constant bank), read uniformly by every thread.
+// Bound.  By bytes the product is far below the card's ridge point: it
+// reads ndiags * n coefficients (2 B in bfloat16 storage, 4 B in float, 8 B
+// in double) and x, writes y, and does two flops per coefficient.  But the
+// operators of the AMG hierarchy's DIA levels are small (4,920 rows at
+// level 1 of the 1M box: 0.12 us of bytes), so there the product is bound
+// by latency: the launch's ramp and one thread's chain of dependent loads.
+// The design's answers:
+//   - Compile-time diagonal counts.  The 19-diagonal (TETRA4), 27-diagonal
+//     (HEX8) and 23-diagonal (level 2 of the TETRA4 box's brick
+//     hierarchy) operators are template instances: the unrolled body
+//     issues every coefficient and x load of a row before its first
+//     multiply-add, so a row costs one load round trip, not ndiags.  Any
+//     other count runs the run-time loop.
+//   - No bounds test in the interior.  A block whose rows plus
+//     [min off, max off] lie inside [0, n) reads x unchecked; edge blocks
+//     keep the test.  The offsets travel in the __grid_constant__
+//     parameter block (the constant bank), read uniformly by every thread.
+//   - A launch shape from the size.  The caller picks the block (32 to 256
+//     threads) and the rows per thread (1 or 2: two consecutive rows, their
+//     coefficients loaded as one pair, a 32-bit load in bfloat16) from the
+//     operator's size (ops/_kernels.py::dia_launch_shape), so a small level
+//     spreads over the SMs and a large one keeps more bytes in flight.
+// Every instance and launch shape adds a row's products in ascending d,
+// one fused multiply-add each, starting from 0: all give bit-identical
+// results.
 //
 // Contract.  data is (ndiags, n) row-major, storage S (bfloat16 bits as
 // uint16, float or double); x, y and the accumulator are T (float or double)
 // with S no wider than T; each coefficient is upcast before its multiply.
-// The launch allocates nothing, runs on the caller's stream and does not
-// synchronise; each entry point returns cudaGetLastError().
+// Two rows per thread need n even and data aligned to a pair.  The launch
+// allocates nothing, runs on the caller's stream and does not synchronise;
+// each entry point returns cudaGetLastError().
+//
+// Measurement entries (never called by the port): ddps_dia_floor_noop
+// launches a kernel that does nothing, and ddps_dia_floor_copy_* one that
+// copies n values of x to y, each on the grid and block of a product of n
+// rows, so that a product's time can be read beside its launch floor and
+// one dependent load.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kMaxBlock = 256;
 constexpr int kMaxDiags = 128;
 
+// ND > 0: a compiled diagonal count; ND == 0: the run-time loop, up to
+// kMaxDiags offsets.  lo and hi bound the rows whose every tap lies inside
+// [0, n): lo = max(0, -min off), hi = min(n, n - max off).
+template <int ND>
 struct DiaParams {
-  int64_t off[kMaxDiags];
+  int64_t off[ND > 0 ? ND : kMaxDiags];
+  int64_t lo;
+  int64_t hi;
   int nd;
 };
 
@@ -51,37 +79,226 @@ __device__ __forceinline__ double load_coef(const double* p, int64_t k) {
   return __ldg(p + k);
 }
 
-template <typename S, typename T>
-__global__ void __launch_bounds__(kBlock)
-dia_spmv_kernel(const S* __restrict__ data, const T* __restrict__ x,
-                T* __restrict__ y, int64_t n,
-                const __grid_constant__ DiaParams p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  if (i >= n) return;
-  T acc = T(0);
-  for (int d = 0; d < p.nd; ++d) {
-    const int64_t j = i + p.off[d];
-    const T a = static_cast<T>(load_coef(data, static_cast<int64_t>(d) * n + i));
-    const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-    acc += a * xv;
-  }
-  y[i] = acc;
+// Coefficients of rows k and k + 1 (k even) in one load.
+__device__ __forceinline__ void load_pair(const uint16_t* p, int64_t k,
+                                          float (&a)[2]) {
+  const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p + k));
+  a[0] = __uint_as_float(w << 16);
+  a[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void load_pair(const float* p, int64_t k,
+                                          float (&a)[2]) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p + k));
+  a[0] = v.x;
+  a[1] = v.y;
+}
+__device__ __forceinline__ void load_pair(const double* p, int64_t k,
+                                          double (&a)[2]) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p + k));
+  a[0] = v.x;
+  a[1] = v.y;
 }
 
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// R consecutive rows from i0, all inside [0, n), every tap of every row in
+// range: no test.  The compiled instances load everything first.
+template <typename S, typename T, int ND, int R>
+__device__ __forceinline__ void rows_interior(const S* __restrict__ data,
+                                              const T* __restrict__ x,
+                                              T* __restrict__ y, int64_t n,
+                                              int64_t i0,
+                                              const DiaParams<ND>& p) {
+  if constexpr (ND > 0) {
+    T a[ND][R];
+    T v[ND][R];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const int64_t k = static_cast<int64_t>(d) * n + i0;
+      if constexpr (R == 2) {
+        decltype(load_coef(data, 0)) pair[2];
+        load_pair(data, k, pair);
+        a[d][0] = static_cast<T>(pair[0]);
+        a[d][1] = static_cast<T>(pair[1]);
+      } else {
+        a[d][0] = static_cast<T>(load_coef(data, k));
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[d][r] = __ldg(x + i0 + r + p.off[d]);
+    }
+    // Keep every load above the first multiply-add: without this fence the
+    // compiler interleaves them and holds a row to several round trips.
+    asm volatile("" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      T acc = T(0);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) acc = fma_t(a[d][r], v[d][r], acc);
+      y[i0 + r] = acc;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int64_t i = i0 + r;
+      T acc = T(0);
+      for (int d = 0; d < p.nd; ++d) {
+        const T a = static_cast<T>(load_coef(data, static_cast<int64_t>(d) * n + i));
+        acc = fma_t(a, __ldg(x + i + p.off[d]), acc);
+      }
+      y[i] = acc;
+    }
+  }
+}
+
+// Rows near either end: each row and each tap tested.
+template <typename S, typename T, int ND, int R>
+__device__ __forceinline__ void rows_edge(const S* __restrict__ data,
+                                          const T* __restrict__ x,
+                                          T* __restrict__ y, int64_t n,
+                                          int64_t i0, const DiaParams<ND>& p) {
+  // A compile-time trip count for the instances, p.nd for the loop.
+  constexpr bool kFixed = ND > 0;
+  const int nd = kFixed ? ND : p.nd;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t i = i0 + r;
+    if (i >= n) return;
+    T acc = T(0);
+#pragma unroll
+    for (int d = 0; d < (kFixed ? ND : nd); ++d) {
+      const int64_t j = i + p.off[d];
+      const T a = static_cast<T>(load_coef(data, static_cast<int64_t>(d) * n + i));
+      const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
+      acc = fma_t(a, xv, acc);
+    }
+    y[i] = acc;
+  }
+}
+
+template <typename S, typename T, int ND, int R>
+__global__ void __launch_bounds__(kMaxBlock)
+dia_spmv_kernel(const S* __restrict__ data, const T* __restrict__ x,
+                T* __restrict__ y, int64_t n,
+                const __grid_constant__ DiaParams<ND> p) {
+  const int64_t span = static_cast<int64_t>(blockDim.x) * R;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * span;
+  const int64_t i0 = r0 + static_cast<int64_t>(threadIdx.x) * R;
+  if (r0 >= p.lo && r0 + span <= p.hi) {
+    rows_interior<S, T, ND, R>(data, x, y, n, i0, p);
+  } else {
+    rows_edge<S, T, ND, R>(data, x, y, n, i0, p);
+  }
+}
+
+template <typename S, typename T, int ND, int R>
+cudaError_t launch_instance(const S* data, const int64_t* off, int nd,
+                            const T* x, T* y, int64_t n, int block,
+                            cudaStream_t stream) {
+  DiaParams<ND> p;
+  int64_t mn = off[0], mx = off[0];
+  for (int d = 0; d < nd; ++d) {
+    p.off[d] = off[d];
+    mn = off[d] < mn ? off[d] : mn;
+    mx = off[d] > mx ? off[d] : mx;
+  }
+  p.nd = nd;
+  p.lo = mn < 0 ? -mn : 0;
+  p.hi = mx > 0 ? n - mx : n;
+  const int64_t span = static_cast<int64_t>(block) * R;
+  const int64_t blocks = (n + span - 1) / span;
+  dia_spmv_kernel<S, T, ND, R><<<static_cast<unsigned>(blocks), block, 0,
+                                 stream>>>(data, x, y, n, p);
+  return cudaGetLastError();
+}
+
+template <typename S, typename T, int ND>
+cudaError_t launch_rows(const S* data, const int64_t* off, int nd,
+                        const T* x, T* y, int64_t n, int block, int rows,
+                        cudaStream_t stream) {
+  if (rows == 2) {
+    return launch_instance<S, T, ND, 2>(data, off, nd, x, y, n, block, stream);
+  }
+  return launch_instance<S, T, ND, 1>(data, off, nd, x, y, n, block, stream);
+}
+
+bool valid_shape(int block, int rows) {
+  return (block == 32 || block == 64 || block == 128 || block == 256) &&
+         (rows == 1 || rows == 2);
+}
+
+// instance: the compiled diagonal count to run (19, 23 or 27, equal to nd)
+// or 0 for the run-time loop.
 template <typename S, typename T>
 int launch(const void* data, const void* offsets, int nd, const void* x,
-           void* y, int64_t n, void* stream) {
-  if (nd < 1 || nd > kMaxDiags) return static_cast<int>(cudaErrorInvalidValue);
-  DiaParams p;
+           void* y, int64_t n, int block, int rows, int instance,
+           void* stream) {
+  if (nd < 1 || nd > kMaxDiags || !valid_shape(block, rows) ||
+      (instance != 0 && instance != nd) ||
+      (rows == 2 && ((n & 1) || (reinterpret_cast<uintptr_t>(data) %
+                                 (2 * sizeof(S)))))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const S* d = static_cast<const S*>(data);
   const int64_t* off = static_cast<const int64_t*>(offsets);
-  for (int d = 0; d < nd; ++d) p.off[d] = off[d];
-  p.nd = nd;
-  if (n > 0) {
-    const int64_t blocks = (n + kBlock - 1) / kBlock;
-    dia_spmv_kernel<S, T><<<static_cast<unsigned>(blocks), kBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const S*>(data), static_cast<const T*>(x),
-        static_cast<T*>(y), n, p);
+  const T* xv = static_cast<const T*>(x);
+  T* yv = static_cast<T*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (instance) {
+    case 19:
+      err = launch_rows<S, T, 19>(d, off, nd, xv, yv, n, block, rows, s);
+      break;
+    case 23:
+      err = launch_rows<S, T, 23>(d, off, nd, xv, yv, n, block, rows, s);
+      break;
+    case 27:
+      err = launch_rows<S, T, 27>(d, off, nd, xv, yv, n, block, rows, s);
+      break;
+    case 0:
+      err = launch_rows<S, T, 0>(d, off, nd, xv, yv, n, block, rows, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+__global__ void noop_kernel() {}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kMaxBlock)
+copy_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n) {
+  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x) * R;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (i0 + r < n) y[i0 + r] = __ldg(x + i0 + r);
+  }
+}
+
+template <typename T>
+int launch_copy(const void* x, void* y, int64_t n, int block, int rows,
+                void* stream) {
+  if (!valid_shape(block, rows)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int64_t span = static_cast<int64_t>(block) * rows;
+  const unsigned blocks = static_cast<unsigned>((n + span - 1) / span);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xv = static_cast<const T*>(x);
+  T* yv = static_cast<T*>(y);
+  if (rows == 2) {
+    copy_kernel<T, 2><<<blocks, block, 0, s>>>(xv, yv, n);
+  } else {
+    copy_kernel<T, 1><<<blocks, block, 0, s>>>(xv, yv, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -90,30 +307,44 @@ int launch(const void* data, const void* offsets, int nd, const void* x,
 
 extern "C" {
 
-// offsets: a host array of nd int64 offsets.
-int ddps_dia_spmv_bf16_f32(const void* data, const void* offsets, int nd,
-                           const void* x, void* y, int64_t n, void* stream) {
-  return launch<uint16_t, float>(data, offsets, nd, x, y, n, stream);
+// offsets: a host array of nd int64 offsets; block: 32, 64, 128 or 256
+// threads; rows: 1 or 2 per thread; instance: 19, 23, 27 (== nd) or 0.
+#define DDPS_DIA_ENTRY(NAME, S, T)                                           \
+  int NAME(const void* data, const void* offsets, int nd, const void* x,     \
+           void* y, int64_t n, int block, int rows, int instance,            \
+           void* stream) {                                                   \
+    return launch<S, T>(data, offsets, nd, x, y, n, block, rows, instance,   \
+                        stream);                                             \
+  }
+
+DDPS_DIA_ENTRY(ddps_dia_spmv_bf16_f32, uint16_t, float)
+DDPS_DIA_ENTRY(ddps_dia_spmv_f32_f32, float, float)
+DDPS_DIA_ENTRY(ddps_dia_spmv_bf16_f64, uint16_t, double)
+DDPS_DIA_ENTRY(ddps_dia_spmv_f32_f64, float, double)
+DDPS_DIA_ENTRY(ddps_dia_spmv_f64_f64, double, double)
+
+#undef DDPS_DIA_ENTRY
+
+// Measurement entries: the launch floor and one dependent load of a
+// product of n rows at the same block and rows per thread.
+int ddps_dia_floor_noop(int64_t n, int block, int rows, void* stream) {
+  if (!valid_shape(block, rows)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t span = static_cast<int64_t>(block) * rows;
+  const unsigned blocks = static_cast<unsigned>((n + span - 1) / span);
+  if (blocks > 0) {
+    noop_kernel<<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>();
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-int ddps_dia_spmv_f32_f32(const void* data, const void* offsets, int nd,
-                          const void* x, void* y, int64_t n, void* stream) {
-  return launch<float, float>(data, offsets, nd, x, y, n, stream);
+int ddps_dia_floor_copy_f32(const void* x, void* y, int64_t n, int block,
+                            int rows, void* stream) {
+  return launch_copy<float>(x, y, n, block, rows, stream);
 }
 
-int ddps_dia_spmv_bf16_f64(const void* data, const void* offsets, int nd,
-                           const void* x, void* y, int64_t n, void* stream) {
-  return launch<uint16_t, double>(data, offsets, nd, x, y, n, stream);
-}
-
-int ddps_dia_spmv_f32_f64(const void* data, const void* offsets, int nd,
-                          const void* x, void* y, int64_t n, void* stream) {
-  return launch<float, double>(data, offsets, nd, x, y, n, stream);
-}
-
-int ddps_dia_spmv_f64_f64(const void* data, const void* offsets, int nd,
-                          const void* x, void* y, int64_t n, void* stream) {
-  return launch<double, double>(data, offsets, nd, x, y, n, stream);
+int ddps_dia_floor_copy_f64(const void* x, void* y, int64_t n, int block,
+                            int rows, void* stream) {
+  return launch_copy<double>(x, y, n, block, rows, stream);
 }
 
 const char* ddps_error_string(int code) {

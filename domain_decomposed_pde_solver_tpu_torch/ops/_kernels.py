@@ -19,6 +19,7 @@ launches in plain integers: :attr:`Kernel.launches` in all, and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
@@ -32,15 +33,25 @@ import numpy as np
 import torch
 
 __all__ = [
+    "DIA_BLOCKS",
+    "DIA_INSTANCES",
+    "DIA_ROWS",
     "DIA_SPMV",
+    "DiaLaunch",
+    "CLUSTER_CTA_ROWS",
+    "CLUSTER_MAX_CTAS",
     "FUSED_CG",
+    "FUSED_CG_MODES",
     "Kernel",
     "PAD_STENCIL",
     "SELL_CHUNKED_SPMV",
     "SELL_SPMV",
     "WARP_CHUNKS",
     "build_kernels",
+    "dia_floor_launch",
+    "dia_launch_shape",
     "dia_spmv_launch",
+    "fused_cg_cluster_launch",
     "fused_cg_launch",
     "kernel_build_dir",
     "pad_stencil_launch",
@@ -151,14 +162,21 @@ SELL_SPMV = Kernel("sell_spmv", _PKG / "csrc" / "spmv.cu", {
     "ddps_sell_spmv_f64_f64": _SELL_ARGS,
 })
 
-# data, offsets (host int64), ndiags, x, y, n, stream
-_DIA_ARGS = [_P, _P, _INT, _P, _P, _I64, _P]
+# data, offsets (host int64), ndiags, x, y, n, block, rows, instance, stream
+_DIA_ARGS = [_P, _P, _INT, _P, _P, _I64, _INT, _INT, _INT, _P]
+# x, y, n, block, rows, stream
+_DIA_COPY_ARGS = [_P, _P, _I64, _INT, _INT, _P]
 DIA_SPMV = Kernel("dia_spmv", _PKG / "csrc" / "dia_spmv.cu", {
     "ddps_dia_spmv_bf16_f32": _DIA_ARGS,
     "ddps_dia_spmv_f32_f32": _DIA_ARGS,
     "ddps_dia_spmv_bf16_f64": _DIA_ARGS,
     "ddps_dia_spmv_f32_f64": _DIA_ARGS,
     "ddps_dia_spmv_f64_f64": _DIA_ARGS,
+    # Measurement entries: the launch floor and one dependent load of a
+    # product's grid (``dia_floor_launch``); the port never calls them.
+    "ddps_dia_floor_noop": [_I64, _INT, _INT, _P],
+    "ddps_dia_floor_copy_f32": _DIA_COPY_ARGS,
+    "ddps_dia_floor_copy_f64": _DIA_COPY_ARGS,
 })
 
 # x, corr, y, taps (host int32 (n_taps, 3)), n_taps, group_start (host
@@ -186,12 +204,21 @@ SELL_CHUNKED_SPMV = Kernel(
         "ddps_sell_chunked_spmv_f64_f64": _CHUNKED_ARGS,
     }, defines={"DDPS_WARP_CHUNKS": WARP_CHUNKS})
 
-# slice_ptr, cols, vals, b, invd, x, r, p, ap, part, max_blocks, stats, n,
-# maxiter, tol2, stream
-FUSED_CG = Kernel(
-    "fused_cg", _PKG / "csrc" / "fused_cg.cu",
-    {"ddps_fused_cg_f32": [_P] * 10 + [_I64, _P, _I64, _INT, _F32, _P]},
-)
+# Grid instance: slice_ptr, cols, vals, b, invd, x, r, p, ap, part,
+# max_blocks, stats, n, maxiter, tol2, stream.  Cluster instance: vals,
+# lcols, slice_ptr, windows, b, invd, x0, x, stats, ctas, max_slots,
+# max_win, maxiter, tol2, active_out, stream.  The study entries take a mode
+# first (0: barriers and reductions only, 1: and the matvec, 2: the solve);
+# measurements only, the port never calls them.
+_GRID_ARGS = [_P] * 10 + [_I64, _P, _I64, _INT, _F32, _P]
+_CLUSTER_ARGS = [_P] * 9 + [_INT] * 4 + [_F32, _P, _P]
+FUSED_CG = Kernel("fused_cg", _PKG / "csrc" / "fused_cg.cu", {
+    "ddps_fused_cg_f32": _GRID_ARGS,
+    "ddps_fused_cg_cluster_f32": _CLUSTER_ARGS,
+    "ddps_fused_cg_study_f32": [_INT] + _GRID_ARGS,
+    "ddps_fused_cg_cluster_study_f32": [_INT] + _CLUSTER_ARGS,
+})
+FUSED_CG_MODES = {"barriers": 0, "matvec": 1, "solve": 2}
 
 KERNELS = (SELL_SPMV, PAD_STENCIL, DIA_SPMV, SELL_CHUNKED_SPMV, FUSED_CG)
 
@@ -312,32 +339,53 @@ def sell_chunked_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
     return y
 
 
+def _fused_checks(b: torch.Tensor, named) -> torch.device:
+    """Device, shape and float32 checks shared by both instances."""
+    dev = _require_cuda(b, "fused_cg")
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, b on {dev}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    if any(t.dtype != torch.float32 for name, t in (("b", b), *named)
+           if name in ("b", "vals", "invd", "x0")):
+        raise TypeError("the fused CG kernel takes float32 storage and vectors")
+    return dev
+
+
+def _fused_entry(base: str, mode: str):
+    """The C entry and its leading arguments for ``mode``: the solve's own
+    entry, or the study entry of a measurement mode."""
+    if mode not in FUSED_CG_MODES:
+        raise ValueError(f"mode must be one of {sorted(FUSED_CG_MODES)}")
+    if mode == "solve":
+        return f"ddps_fused_cg{base}_f32", ()
+    return f"ddps_fused_cg{base}_study_f32", (FUSED_CG_MODES[mode],)
+
+
 def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
                     vals: torch.Tensor, b: torch.Tensor, invd: torch.Tensor,
-                    x0: torch.Tensor, tol: float, maxiter: int):
-    """Launch the whole Jacobi-PCG solve on CUDA tensors, once.
+                    x0: torch.Tensor, tol: float, maxiter: int,
+                    mode: str = "solve"):
+    """Launch the whole Jacobi-PCG solve on CUDA tensors, once: the grid
+    instance (a cooperative grid, any size).
 
     A square float32 sliced-ELL operator of ``n = b.numel()`` rows
     (``slice_ptr`` int64 of ``ceil(n / 32) + 1``, ``cols`` int32), float32
     ``b``, ``invd`` and ``x0`` of ``n`` entries.  Returns ``(x, stats)``:
     ``stats`` a float64 device tensor ``[iterations, relres, converged,
-    rnorm2]``, for the caller to read once."""
-    dev = _require_cuda(b, "fused_cg")
+    rnorm2]``, for the caller to read once.  ``mode`` other than
+    ``"solve"`` runs a measurement entry (:data:`FUSED_CG_MODES`)."""
     n = b.numel()
-    for name, t in (("slice_ptr", slice_ptr), ("cols", cols), ("vals", vals),
-                    ("invd", invd), ("x0", x0)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, b on {dev}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    dev = _fused_checks(b, (("slice_ptr", slice_ptr), ("cols", cols),
+                            ("vals", vals), ("invd", invd), ("x0", x0)))
     if slice_ptr.dtype != torch.int64 or cols.dtype != torch.int32:
         raise TypeError("slice_ptr must be int64 and cols int32")
-    if any(t.dtype != torch.float32 for t in (vals, b, invd, x0)):
-        raise TypeError("the fused CG kernel takes float32 storage and vectors")
     if (invd.numel() != n or x0.numel() != n
             or slice_ptr.numel() != -(-n // 32) + 1
             or cols.numel() != vals.numel()):
         raise ValueError(f"inconsistent operator or vectors for {n} rows")
+    entry, lead = _fused_entry("", mode)
     # The kernel sizes its grid from the occupancy calculator; no SM holds
     # more than 2048 threads, so 2048 / 256 blocks per SM bound it.
     max_blocks = (torch.cuda.get_device_properties(dev).multi_processor_count
@@ -348,7 +396,7 @@ def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
         part = torch.empty(6 * max_blocks, dtype=torch.float64, device=dev)
         stats = torch.empty(4, dtype=torch.float64, device=dev)
         FUSED_CG.launch(
-            "ddps_fused_cg_f32", slice_ptr.data_ptr(), cols.data_ptr(),
+            entry, *lead, slice_ptr.data_ptr(), cols.data_ptr(),
             vals.data_ptr(), b.data_ptr(), invd.data_ptr(), x.data_ptr(),
             r.data_ptr(), p.data_ptr(), ap.data_ptr(), part.data_ptr(),
             max_blocks, stats.data_ptr(), n, int(maxiter),
@@ -357,16 +405,103 @@ def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
     return x, stats
 
 
+CLUSTER_CTA_ROWS = 1024  # rows (and threads) of a CTA of the cluster instance
+CLUSTER_MAX_CTAS = 16  # the largest (non-portable) cluster on Hopper
+
+
+def fused_cg_cluster_launch(vals: torch.Tensor, lcols: torch.Tensor,
+                            slice_ptr: torch.Tensor, windows: torch.Tensor,
+                            max_slots: int, max_win: int, b: torch.Tensor,
+                            invd: torch.Tensor, x0: Optional[torch.Tensor],
+                            tol: float, maxiter: int, mode: str = "solve"):
+    """Launch the whole Jacobi-PCG solve on CUDA tensors, once: the cluster
+    instance, ``n / 1024`` CTAs of 1024 rows with the operator in shared
+    memory.
+
+    The operator's float32 ``vals`` and int64 ``slice_ptr`` (sliced ELL),
+    its slots' 16-bit window columns ``lcols`` (int16 bits), ``windows``
+    int32 ``(lo, width)`` per CTA and the largest CTA's slots and window:
+    a :class:`..solvers.fused_cg.ClusterPack`.  ``x0`` may be None (0).
+    Returns ``(x, stats, active)``: ``stats`` as :func:`fused_cg_launch`'s,
+    ``active`` the launch's ``cudaOccupancyMaxActiveClusters``."""
+    n = b.numel()
+    named = [("vals", vals), ("lcols", lcols), ("slice_ptr", slice_ptr),
+             ("windows", windows), ("invd", invd)]
+    if x0 is not None:
+        named.append(("x0", x0))
+    dev = _fused_checks(b, named)
+    ctas = n // CLUSTER_CTA_ROWS
+    if (n % CLUSTER_CTA_ROWS or not 0 < ctas <= CLUSTER_MAX_CTAS
+            or invd.numel() != n or (x0 is not None and x0.numel() != n)
+            or slice_ptr.numel() != n // 32 + 1
+            or lcols.numel() != vals.numel() or windows.numel() != 2 * ctas):
+        raise ValueError(f"inconsistent cluster pack or vectors for {n} rows")
+    if (slice_ptr.dtype != torch.int64 or lcols.dtype != torch.int16
+            or windows.dtype != torch.int32):
+        raise TypeError("lcols must be int16, slice_ptr int64 and windows "
+                        "int32")
+    if vals.data_ptr() % 16 or lcols.data_ptr() % 16:
+        raise ValueError("vals and lcols must be 16-byte aligned (the "
+                         "kernel copies them in 16-byte vectors)")
+    entry, lead = _fused_entry("_cluster", mode)
+    active = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        x = torch.empty_like(b)
+        stats = torch.empty(4, dtype=torch.float64, device=dev)
+        FUSED_CG.launch(
+            entry, *lead, vals.data_ptr(), lcols.data_ptr(),
+            slice_ptr.data_ptr(), windows.data_ptr(), b.data_ptr(),
+            invd.data_ptr(), 0 if x0 is None else x0.data_ptr(),
+            x.data_ptr(), stats.data_ptr(), ctas, int(max_slots),
+            int(max_win), int(maxiter), float(np.float32(tol * tol)),
+            ctypes.addressof(active), _stream(dev),
+        )
+    return x, stats, active.value
+
+
 _DIA_MAX_DIAGS = 128  # the kernel's parameter block holds this many offsets
+# Diagonal counts with a compiled instance: the TETRA4 (19) and HEX8 (27)
+# stencils and the 23 of level 2 of the TETRA4 box's brick hierarchy, the
+# counts of every DIA level the structured routes build.
+DIA_INSTANCES = (19, 23, 27)
+DIA_BLOCKS = (32, 64, 128, 256)  # the launch shapes the kernel takes
+DIA_ROWS = (1, 2)  # rows per thread
+_DIA_LARGE = 1 << 17  # rows from which a product takes large blocks
 
 
-def dia_spmv_launch(data: torch.Tensor, offsets: Sequence[int],
-                    x: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class DiaLaunch:
+    """How kernel 4 runs one product: ``instance`` is the compiled diagonal
+    count (0: the run-time loop), ``block`` the threads per block, ``rows``
+    the consecutive rows per thread."""
+
+    instance: int
+    block: int
+    rows: int
+
+
+def dia_launch_shape(n: int, nd: int, storage: torch.dtype,
+                     vector: torch.dtype) -> DiaLaunch:
+    """Kernel 4's instance and launch shape for an ``(nd, n)`` operator in
+    ``storage`` with ``vector`` vectors: the compiled instance of ``nd``
+    if there is one, else the run-time loop; one row per thread, in blocks
+    of 128 threads below 2^17 rows (a small level spreads over the SMs)
+    and of 256 above.  The rule is the sweep's (``chip_smoke.py`` phase E,
+    PERF.md): no other shape was faster at any measured size and type,
+    and two rows per thread were slower at every one."""
+    instance = nd if nd in DIA_INSTANCES else 0
+    return DiaLaunch(instance, 128 if n < _DIA_LARGE else 256, 1)
+
+
+def dia_spmv_launch(data: torch.Tensor, offsets, x: torch.Tensor, *,
+                    shape: Optional[DiaLaunch] = None) -> torch.Tensor:
     """Launch the DIA SpMV on CUDA tensors; returns y (n_pad,).
 
     ``data`` is (ndiags, n_pad), contiguous, bf16/f32 storage with f32 or
     f64 vectors or f64 storage with f64 vectors; ``offsets`` are host ints
-    (at most 128)."""
+    (at most 128; a contiguous int64 numpy array is passed as it is).
+    ``shape`` overrides :func:`dia_launch_shape` (measurements and tests:
+    every shape gives bit-identical results)."""
     dev = _require_cuda(x, "dia_spmv")
     if data.device != dev:
         raise ValueError(f"data is on {data.device}, x on {dev}")
@@ -383,14 +518,42 @@ def dia_spmv_launch(data: torch.Tensor, offsets: Sequence[int],
         raise TypeError(
             f"no kernel for {data.dtype} storage with {x.dtype} vectors"
         )
+    if shape is None:
+        shape = dia_launch_shape(n, nd, data.dtype, x.dtype)
+    if (shape.block not in DIA_BLOCKS or shape.rows not in DIA_ROWS
+            or shape.instance not in (0, nd)):
+        raise ValueError(f"no launch {shape} for {nd} diagonals")
     offs = np.ascontiguousarray(offsets, dtype=np.int64)
     y = torch.empty(n, dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         DIA_SPMV.launch(
             entry, data.data_ptr(), offs.ctypes.data, nd, x.data_ptr(),
-            y.data_ptr(), n, _stream(dev),
+            y.data_ptr(), n, shape.block, shape.rows, shape.instance,
+            _stream(dev),
         )
     return y
+
+
+def dia_floor_launch(kind: str, x: torch.Tensor, shape: DiaLaunch) -> None:
+    """Measurement only (the port never calls it): launch kernel 4's
+    ``"noop"`` kernel (does nothing) or its ``"copy"`` kernel (reads ``x``,
+    writes a new vector of its length), on the grid and block of a product
+    of ``x.numel()`` rows in ``shape``.  Counted like any launch."""
+    dev = _require_cuda(x, "dia_floor")
+    if shape.block not in DIA_BLOCKS or shape.rows not in DIA_ROWS:
+        raise ValueError(f"no launch {shape}")
+    n = x.numel()
+    with torch.cuda.device(dev):
+        if kind == "noop":
+            DIA_SPMV.launch("ddps_dia_floor_noop", n, shape.block, shape.rows,
+                            _stream(dev))
+            return
+        if kind != "copy" or x.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"no floor kernel {kind!r} for {x.dtype}")
+        y = torch.empty_like(x)
+        DIA_SPMV.launch(f"ddps_dia_floor_copy_{_NAME[x.dtype]}", x.data_ptr(),
+                        y.data_ptr(), n, shape.block, shape.rows,
+                        _stream(dev))
 
 
 _PAD_MAX_TAPS = 27  # 3 x 3 x 3 lattice neighbourhood

@@ -20,6 +20,7 @@ GPU does not need).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -87,6 +88,12 @@ class DIAMatrix:
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    @functools.cached_property
+    def offsets_array(self) -> np.ndarray:
+        """The offsets as a contiguous host int64 array, built once: every
+        kernel launch passes it as it is."""
+        return np.ascontiguousarray(self.offsets, dtype=np.int64)
 
     def put_vector(self, x, dtype=None) -> torch.Tensor:
         """Host (n,) vector -> device padded vector (input dtype kept

@@ -63,4 +63,4 @@ def dia_spmv(A, x_padded: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no DIA product for device {x_padded.device}")
     from ._kernels import dia_spmv_launch
 
-    return dia_spmv_launch(A.data, A.offsets, x_padded.contiguous())
+    return dia_spmv_launch(A.data, A.offsets_array, x_padded.contiguous())

@@ -302,6 +302,90 @@ def test_dia_kernel_reads_zero_outside_the_vector(cuda_device, name):
         TOL[name] * np.abs(ref).max())
 
 
+def _random_dia(n, offsets, storage, vector, device, seed):
+    """A DIA operator on ``offsets`` with random coefficients everywhere,
+    also where the column falls outside [0, n) (the kernel reads x as 0
+    there)."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import DIAMatrix
+
+    rng = np.random.default_rng(seed)
+    data = torch.as_tensor(rng.normal(size=(len(offsets), n)))
+    compute = "" if storage == vector else vector
+    return DIAMatrix(data=data.to(getattr(torch, storage)).to(device),
+                     offsets=tuple(int(o) for o in offsets), n_rows=n,
+                     compute_dtype=compute)
+
+
+def _dia_case(case, device):
+    if case in ("level1", "hex8", "pathB"):
+        shape, elem, name, storage = {
+            "level1": ((16, 16, 19), "TETRA4", "float32", "full"),
+            "hex8": ((12, 12, 12), "HEX8", "float32", "full"),
+            "pathB": ((20, 20, 20), "TETRA4", "float64", "auto"),
+        }[case]
+        _mesh, sy, _dims = _box_system(shape, elem)
+        A = dia_from_csr(sy.A, dtype=getattr(torch, name), storage=storage,
+                         device=device)
+        return A, name
+    rng = np.random.default_rng(31)
+    if case == "edge19":  # fewer rows than a block; offsets past both ends
+        offs = np.r_[0, rng.choice(np.r_[-80:0, 1:81], 18, replace=False)]
+        return _random_dia(40, np.sort(offs), "float32", "float32", device,
+                           32), "float32"
+    if case == "loop23":  # no compiled instance: the run-time loop
+        offs = np.sort(rng.choice(np.arange(-700, 701), 23, replace=False))
+        return _random_dia(5003, offs, "float32", "float64", device,
+                           33), "float64"
+    # 1M rows, the box's 19 offsets, bf16 storage with f64 vectors
+    m = 101
+    offs = sorted({0, 1, -1, m, -m, m * m, -m * m, m + 1, -m - 1, m * m + 1,
+                   -m * m - 1, m * m + m, -m * m - m, m * m + m + 1,
+                   -m * m - m - 1, m - 1, 1 - m, m * m - m, m - m * m})
+    return _random_dia(1_000_000, offs, "bfloat16", "float64", device,
+                       34), "float64"
+
+
+@pytest.mark.parametrize("case", ["level1", "hex8", "pathB", "edge19",
+                                  "loop23", "1M"])
+def test_dia_kernel_every_instance_and_shape_bit_identical(cuda_device, case):
+    """Every compiled instance (19, 27), the run-time loop and every launch
+    shape (32 to 256 threads, 1 or 2 rows per thread) add a row's products
+    in the same order: bit-identical to the default launch, and each
+    within the f32/f64 tolerance of the plain version."""
+    A, name = _dia_case(case, cuda_device)
+    x = torch.as_tensor(np.random.default_rng(35).normal(size=A.n_pad),
+                        dtype=getattr(torch, name), device=cuda_device)
+    default = _kernels.dia_launch_shape(A.n_pad, A.ndiags, A.data.dtype,
+                                        x.dtype)
+    assert default.instance == (A.ndiags if A.ndiags in (19, 27) else 0)
+    assert A.ndiags == {"level1": 19, "hex8": 27, "pathB": 19, "edge19": 19,
+                        "loop23": 23, "1M": 19}[case]
+    before = _kernels.DIA_SPMV.launches
+    y0 = A.matvec(x)
+    assert _kernels.DIA_SPMV.launches == before + 1
+    torch.cuda.synchronize()
+    assert _relerr(y0, dia_matvec_plain(A, x)) <= TOL[name]
+    for instance in sorted({default.instance, 0}):
+        for block in _kernels.DIA_BLOCKS:
+            for rows in _kernels.DIA_ROWS:
+                shape = _kernels.DiaLaunch(instance, block, rows)
+                y = _kernels.dia_spmv_launch(A.data, A.offsets_array, x,
+                                             shape=shape)
+                torch.cuda.synchronize()
+                assert torch.equal(y, y0), shape
+
+
+def test_dia_floor_entries_launch(cuda_device):
+    x = torch.ones(4920, device=cuda_device)
+    before = _kernels.DIA_SPMV.by_entry["ddps_dia_floor_copy_f32"]
+    for kind in ("noop", "copy"):
+        _kernels.dia_floor_launch(kind, x, _kernels.DiaLaunch(0, 64, 1))
+    torch.cuda.synchronize()
+    assert _kernels.DIA_SPMV.by_entry["ddps_dia_floor_copy_f32"] == before + 1
+    with pytest.raises(ValueError):
+        _kernels.dia_floor_launch("copy", x, _kernels.DiaLaunch(0, 48, 1))
+
+
 def test_structured_cli_route_on_the_card_matches_the_cpu(cuda_device,
                                                           tmp_path):
     """The CLI's f64 refinement route on a box with a DIA level 1: the card
@@ -544,3 +628,79 @@ def test_fused_cg_kernel_maxiter_warm_start_and_zero_rhs(cuda_device):
     zero = fused_cg_solve(A, torch.zeros_like(b), tol=1e-6)
     assert zero.iterations == 0 and zero.converged and zero.relres == 0.0
     assert not torch.any(zero.x)
+
+
+def _refined_operator(cells, device):
+    sy = assemble_heat_system(refine_uniform(box_mesh(cells, cells, cells,
+                                                      elem_type="TETRA4"), 1))
+    A = bsg_from_csr(sy.A, device=device)
+    return sy, A, A.put_vector(sy.b)
+
+
+def _entries():
+    return (_kernels.FUSED_CG.by_entry["ddps_fused_cg_cluster_f32"],
+            _kernels.FUSED_CG.by_entry["ddps_fused_cg_f32"])
+
+
+@pytest.mark.parametrize("cells,n_pad", [(5, 1024), (10, 8192), (13, 16384)])
+def test_fused_cg_cluster_instance_matches_plain(cuda_device, cells, n_pad):
+    """Refined boxes of 1, 8 and 16 CTAs (964, 7,379 and 16,028 DOF) take
+    the cluster instance: one launch of its entry, none of the grid's."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        _inverse_diagonal,
+        fused_cg_plain,
+        fused_cg_plan,
+        fused_cg_solve,
+    )
+
+    _sy, A, b = _refined_operator(cells, cuda_device)
+    assert A.n_pad == n_pad and fused_cg_plan(A).instance == "cluster"
+    before = _entries()
+    res = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
+    assert _entries() == (before[0] + 1, before[1])
+    ref = fused_cg_plain(A, b, torch.zeros_like(b), _inverse_diagonal(A),
+                         tol=1e-6, maxiter=2000)
+    assert res.converged and ref.converged
+    assert abs(res.iterations - ref.iterations) <= 2
+    assert _relerr(res.x, ref.x) <= 1e-4
+    again = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
+    assert again.iterations == res.iterations
+    assert torch.equal(again.x, res.x)  # bit-identical
+
+
+def test_fused_cg_cluster_zero_rhs_maxiter_and_warm_start(cuda_device):
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plan,
+        fused_cg_solve,
+    )
+
+    _sy, A, b = _refined_operator(10, cuda_device)
+    assert fused_cg_plan(A).instance == "cluster"
+    zero = fused_cg_solve(A, torch.zeros_like(b), tol=1e-6)
+    assert zero.iterations == 0 and zero.converged and zero.relres == 0.0
+    assert not torch.any(zero.x)
+    x0 = torch.linspace(-1.0, 1.0, A.n_pad, device=cuda_device)
+    none = fused_cg_solve(A, b, x0=x0, tol=1e-6, maxiter=0)
+    assert none.iterations == 0 and not none.converged
+    assert torch.equal(none.x, x0)
+    done = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
+    warm = fused_cg_solve(A, b, x0=done.x, tol=1e-6, maxiter=2000)
+    assert done.converged and warm.iterations == 0 and warm.converged
+    assert torch.equal(warm.x, done.x)
+    capped = fused_cg_solve(A, b, tol=1e-12, maxiter=7)
+    assert capped.iterations == 7 and not capped.converged
+
+
+def test_fused_cg_past_the_cluster_takes_the_grid(cuda_device):
+    """16,385 rows pad to 17 CTAs: the grid instance, launched once."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plan,
+        fused_cg_solve,
+    )
+
+    _S, A, _b_host, b, _invd = _fused_case(16_385, 6, 4, cuda_device)
+    assert A.n_pad == 17_408 and fused_cg_plan(A).instance == "grid"
+    before = _entries()
+    res = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
+    assert _entries() == (before[0], before[1] + 1)
+    assert res.converged

@@ -5,7 +5,11 @@ JAX runs its whole-solve Pallas kernel in interpret mode here (as that
 file runs it); the port runs ``fused_cg_solve(device="cpu")``, which is
 ``fused_cg_plain``, the kernel's recurrence in plain PyTorch.  The CUDA
 kernel itself is held to ``fused_cg_plain`` on the card
-(``tests/test_torch_cuda.py``).
+(``tests/test_torch_cuda.py``).  The cluster instance's host pack and its
+plain product (``cluster_spmv_plain``: window gather, 16-bit local
+columns) are held here to ``spmv_plain`` (bit for bit: the same products
+added in the same order) and to JAX's ``bsg_spmv`` (Pallas, interpret
+mode; f32, 1e-6 relative), and the instance rule is a pure function.
 
 Tolerances: both are float32 CG to 1e-6 with the same stopping test on
 squared norms; their dots add in different orders, so they stop within 2
@@ -18,22 +22,29 @@ import pytest
 import torch
 
 from domain_decomposed_pde_solver_tpu.ops.bsg import bsg_from_csr as j_bsg_from_csr
+from domain_decomposed_pde_solver_tpu.ops.bsg import bsg_spmv as j_bsg_spmv
 from domain_decomposed_pde_solver_tpu.ops.csr import CSRMatrix
 from domain_decomposed_pde_solver_tpu.solvers.fused_cg import (
     fused_cg_solve as j_fused_cg_solve,
 )
 from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
-from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_from_csr
+from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_from_csr, spmv_plain
 from domain_decomposed_pde_solver_tpu_torch.solvers import (
     cg_solve,
     fused_cg_solve,
     jacobi_preconditioner,
 )
 from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+    CLUSTER_SMEM_BUDGET,
     _inverse_diagonal,
+    cluster_pack,
+    cluster_smem_bytes,
+    cluster_spmv_plain,
+    fused_cg_instance,
+    fused_cg_plan,
 )
 from domain_decomposed_pde_solver_tpu_torch.utils.convert import csr_from_numpy
-from torch_parity import random_laplacian
+from torch_parity import jax_problem, mesh_id, port_csr, rand, random_laplacian, relerr
 
 torch.set_num_threads(1)
 
@@ -121,3 +132,89 @@ def test_fused_cg_refuses_ragged_and_f64_operators():
     D64 = bsg_from_csr(p, storage="float64", device="cpu")
     with pytest.raises(ValueError, match="float32"):
         fused_cg_solve(D64, b)
+
+
+# Refined TETRA4 boxes: 5^3 -> 964 DOF (n_pad 1,024, a cluster of one CTA),
+# 8^3 -> 3,823 (4,096), 10^3 -> 7,379 (8,192): the 16,028-DOF operator's
+# family at smaller depth.
+PACK_DIMS = [(5, 5, 5), (8, 8, 8), (10, 10, 10)]
+
+
+@pytest.mark.parametrize("dims", PACK_DIMS, ids=mesh_id)
+def test_cluster_pack_windows_cover_every_column(dims):
+    _mesh, sy = jax_problem(dims)
+    A = bsg_from_csr(port_csr(sy), device="cpu")
+    pk = cluster_pack(A)
+    assert pk.ctas == A.n_pad // 1024
+    lo_w = pk.windows.view(-1, 2).numpy()
+    sp, cols = A.slice_ptr.numpy(), A.cols.numpy()
+    vals, lcols = A.vals.numpy(), pk.lcols.numpy().view(np.uint16)
+    bounds = sp[np.arange(pk.ctas + 1) * 32]
+    assert pk.max_slots == np.diff(bounds).max() and pk.max_slots % 32 == 0
+    assert pk.max_win == lo_w[:, 1].max() < 2**16
+    for k, (lo, width) in enumerate(lo_w):
+        s0, s1 = bounds[k], bounds[k + 1]
+        nz = vals[s0:s1] != 0
+        assert nz.any() and width >= 1
+        # Every nonzero slot's column lies in the window, at its local index.
+        np.testing.assert_array_equal(lo + lcols[s0:s1][nz], cols[s0:s1][nz])
+        assert (lcols[s0:s1] < width).all()
+        assert cols[s0:s1][nz].min() == lo
+        assert cols[s0:s1][nz].max() == lo + width - 1
+    assert fused_cg_plan(A).instance == "cluster"
+    assert fused_cg_plan(A) is fused_cg_plan(A)  # built once per operator
+
+
+@pytest.mark.parametrize("dims", PACK_DIMS, ids=mesh_id)
+def test_cluster_product_matches_spmv_plain_and_jax(dims):
+    _mesh, sy = jax_problem(dims)
+    Aj = j_bsg_from_csr(sy.A)
+    A = bsg_from_csr(port_csr(sy), device="cpu")
+    pk = cluster_pack(A)
+    x = rand(sy.A.n_rows, seed=11, dtype=np.float32)
+    xp = A.put_vector(x)
+    y = cluster_spmv_plain(A, pk, xp)
+    assert torch.equal(y, spmv_plain(A, xp))
+    yj = Aj.get_vector(j_bsg_spmv(Aj, Aj.put_vector(x), interpret=True))
+    assert relerr(A.get_vector(y), yj) <= 1e-6
+
+
+def test_cluster_pack_of_a_random_graph_of_one_cta():
+    """A random graph in one CTA (n_pad 1,024): its window is the span of
+    its columns, and a zero coefficient reads local column 0."""
+    S = random_laplacian(700, 8, 0, shift=0.5).tolil()
+    S[3, 5] = S[5, 3] = 0.0  # explicit zeros stay in the pattern
+    S = S.tocsr()
+    _Aj, A = _operators(S)
+    pk = cluster_pack(A)
+    assert pk.ctas == 1 and pk.windows.tolist() == [0, 700]
+    lcols = pk.lcols.numpy().view(np.uint16)
+    zero = A.vals.numpy() == 0
+    assert (lcols[zero] == 0).all()
+    x = torch.from_numpy(rand(A.n_pad, seed=12, dtype=np.float32))
+    assert torch.equal(cluster_spmv_plain(A, pk, x), spmv_plain(A, x))
+
+
+@pytest.mark.parametrize("n_pad,max_slots,max_win,expect", [
+    (16_384, 19_232, 3_364, "cluster"),  # the 16,028-DOF refined box
+    (1_024, 32, 1, "cluster"),
+    (16_385, 32, 1, "grid"),  # not a multiple of 1024 rows
+    (17_408, 19_232, 3_364, "grid"),  # 16,385 rows padded: 17 CTAs
+    (16_384, 37_000, 3_364, "grid"),  # slots past the budget
+    (8_192, 19_232, 30_000, "grid"),  # window past the budget
+    (8_192, 32, 2**16 + 1, "grid"),  # window past 16-bit columns
+])
+def test_fused_cg_instance_rule(n_pad, max_slots, max_win, expect):
+    assert fused_cg_instance(n_pad, max_slots, max_win) == expect
+    fits = cluster_smem_bytes(max_slots, max_win) <= CLUSTER_SMEM_BUDGET
+    assert (expect == "cluster") <= fits
+
+
+def test_fused_cg_plan_takes_the_grid_past_16k_rows():
+    """16,385 rows pad to 17,408: 17 CTAs, one more than a cluster holds;
+    the plan does not pack them and keeps JAX's inverse diagonal."""
+    S = random_laplacian(16_385, 4, 13, shift=0.5)
+    _Aj, A = _operators(S)
+    plan = fused_cg_plan(A)
+    assert A.n_pad == 17_408 and plan.instance == "grid" and plan.pack is None
+    assert torch.equal(plan.invd, _inverse_diagonal(A))
