@@ -60,9 +60,9 @@ D. Every kernel against its plain PyTorch version on the card, on the
    fused multiply-adds; the fused CG solve within 2 iterations and 1e-4 of
    its plain recurrence; the chunked kernel also bit-identical over two
    launches).  The DIA kernel at every compiled instance it has for the
-   shape, the run-time loop and every launch shape (blocks of 32 to 256
-   threads, 1 or 2 rows per thread), all bit-identical, on levels 1 and 2
-   of path A, path B's operator and a random 11-diagonal operator.  The
+   shape, the run-time loop and every block of 32 to 256 threads, all
+   bit-identical, on levels 1 and 2 of path A, path B's operator and a
+   random 11-diagonal operator.  The
    fused CG's cluster instance at 16k and on refined boxes of one and
    eight CTAs, and an operator of 17 CTAs that must take the grid
    instance, each bit-identical over two runs.  These launches do not
@@ -76,8 +76,8 @@ E. Times with CUDA events and the profiler: each kernel on its path's
    the same stencil (mxp = 256); the DIA kernel on levels 1 and 2 of path
    A, path B's operator and the 1M fine operator beside its launch floor
    (a kernel that does nothing on the same grid) and one dependent load (a
-   copy of n values on the same grid), at every launch shape and with the
-   run-time loop; the fused CG solve against the unfused loop (no single
+   copy of n values on the same grid), at every block of ``DIA_BLOCKS`` and
+   with the run-time loop; the fused CG solve against the unfused loop (no single
    PyTorch call solves CG), beside its synchronisation floor (the same
    launch with only the barriers and reductions of every iteration) and
    with the matvec but no vector updates, in the instance each size takes
@@ -825,7 +825,7 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
 
     def dia_case(label, A, name, tol):
         """The default launch against the plain version; every compiled
-        instance for the shape, the run-time loop and every launch shape
+        instance for the shape, the run-time loop and every block
         bit-identical to it."""
         x = torch.as_tensor(rng.normal(size=A.n_pad), dtype=getattr(torch, name),
                             device=device)
@@ -835,15 +835,15 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
                  dia_matvec_plain(A, x), tol, errs, "dia_spmv")
         default = _kernels.dia_launch_shape(A.n_pad, A.ndiags, A.data.dtype,
                                             x.dtype)
-        shapes = [_kernels.DiaLaunch(i, blk, r)
+        shapes = [_kernels.DiaLaunch(i, blk)
                   for i in sorted({default.instance, 0})
-                  for blk in _kernels.DIA_BLOCKS for r in _kernels.DIA_ROWS]
+                  for blk in _kernels.DIA_BLOCKS]
         for sh in shapes:
             ys = _kernels.dia_spmv_launch(A.data, A.offsets_array, x, shape=sh)
             sync(device)
             check(torch.equal(ys, y), f"[D] DIA {label}: {sh} is not "
                   f"bit-identical to the default launch {default}")
-        log(f"[D] DIA {label}: {len(shapes)} instances x launch shapes "
+        log(f"[D] DIA {label}: {len(shapes)} instances x blocks "
             f"bit-identical to the default {default}")
 
     levels = run_a["report"]["precond"].levels
@@ -1244,14 +1244,14 @@ def time_dia(device, card, run_a, run_b, rng) -> dict:
             "noop", x, default))["device_ms"]
         # PR 4's launch: 256 threads, one row each.
         floor_256 = profile_device(lambda: _kernels.dia_floor_launch(
-            "noop", x, _kernels.DiaLaunch(0, 256, 1)))["device_ms"]
+            "noop", x, _kernels.DiaLaunch(0, 256)))["device_ms"]
         copy = profile_device(lambda: _kernels.dia_floor_launch(
             "copy", x, default))["device_ms"]
         loop = profile_device(launch(_kernels.DiaLaunch(
-            0, default.block, default.rows)))["device_ms"]
-        sweep = {f"{blk}x{r}": profile_device(launch(_kernels.DiaLaunch(
-            default.instance, blk, r)))["device_ms"]
-                 for blk in _kernels.DIA_BLOCKS for r in _kernels.DIA_ROWS}
+            0, default.block)))["device_ms"]
+        sweep = {str(blk): profile_device(launch(_kernels.DiaLaunch(
+            default.instance, blk)))["device_ms"]
+                 for blk in _kernels.DIA_BLOCKS}
         vb = x.element_size()
         nbytes = D.ndiags * D.n_pad * D.data.element_size() + 2 * D.n_pad * vb
         b_ms, b_by = bound(nbytes, 2 * D.ndiags * D.n_pad)
@@ -1259,14 +1259,14 @@ def time_dia(device, card, run_a, run_b, rng) -> dict:
                  launch_floor_256_ms=floor_256, copy_ms=copy, loop_ms=loop,
                  sweep_ms=sweep,
                  instance=default.instance, block=default.block,
-                 rows_per_thread=default.rows, ndiags=D.ndiags, n=D.n_pad,
+                 ndiags=D.ndiags, n=D.n_pad,
                  storage=str(D.data.dtype)[6:], vectors=name)
         line = (f"[E] DIA {label} ({D.ndiags} diagonals, {D.n_pad} rows, "
                 f"{r['storage']} storage, {name} vectors), device ms per "
                 f"call: kernel {ms} ({default}; {ms / floor:.2f}x its launch "
                 f"floor), launch floor {floor} (256-thread blocks "
                 f"{floor_256}), one-load copy {copy}, run-time loop {loop}; "
-                f"by block x rows per thread "
+                f"by block "
                 f"{json.dumps(sweep)}; bound {b_ms} ms by {b_by}")
         if yardsticks:
             ip, ix, dv = _dia_csr(D)

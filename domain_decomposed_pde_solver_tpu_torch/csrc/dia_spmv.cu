@@ -28,18 +28,15 @@
 //     keep the test.  The offsets travel in the __grid_constant__
 //     parameter block (the constant bank), read uniformly by every thread.
 //   - A launch shape from the size.  The caller picks the block (32 to 256
-//     threads) and the rows per thread (1 or 2: two consecutive rows, their
-//     coefficients loaded as one pair, a 32-bit load in bfloat16) from the
-//     operator's size (ops/_kernels.py::dia_launch_shape), so a small level
-//     spreads over the SMs and a large one keeps more bytes in flight.
-// Every instance and launch shape adds a row's products in ascending d,
-// one fused multiply-add each, starting from 0: all give bit-identical
-// results.
+//     threads, one row per thread) from the operator's size
+//     (ops/_kernels.py::dia_launch_shape).
+// Every instance and block adds a row's products in ascending d, one fused
+// multiply-add each, starting from 0: all give bit-identical results.
 //
 // Contract.  data is (ndiags, n) row-major, storage S (bfloat16 bits as
 // uint16, float or double); x, y and the accumulator are T (float or double)
 // with S no wider than T; each coefficient is upcast before its multiply.
-// Two rows per thread need n even and data aligned to a pair.  The launch
+// The launch
 // allocates nothing, runs on the caller's stream and does not synchronise;
 // each entry point returns cudaGetLastError().
 //
@@ -79,26 +76,6 @@ __device__ __forceinline__ double load_coef(const double* p, int64_t k) {
   return __ldg(p + k);
 }
 
-// Coefficients of rows k and k + 1 (k even) in one load.
-__device__ __forceinline__ void load_pair(const uint16_t* p, int64_t k,
-                                          float (&a)[2]) {
-  const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p + k));
-  a[0] = __uint_as_float(w << 16);
-  a[1] = __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ void load_pair(const float* p, int64_t k,
-                                          float (&a)[2]) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p + k));
-  a[0] = v.x;
-  a[1] = v.y;
-}
-__device__ __forceinline__ void load_pair(const double* p, int64_t k,
-                                          double (&a)[2]) {
-  const double2 v = __ldg(reinterpret_cast<const double2*>(p + k));
-  a[0] = v.x;
-  a[1] = v.y;
-}
-
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
 }
@@ -106,99 +83,79 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
 
-// R consecutive rows from i0, all inside [0, n), every tap of every row in
-// range: no test.  The compiled instances load everything first.
-template <typename S, typename T, int ND, int R>
-__device__ __forceinline__ void rows_interior(const S* __restrict__ data,
-                                              const T* __restrict__ x,
-                                              T* __restrict__ y, int64_t n,
-                                              int64_t i0,
-                                              const DiaParams<ND>& p) {
+// A row inside [0, n) whose every tap is in range: no test.  The compiled
+// instances issue every load before the first multiply-add.
+template <typename S, typename T, int ND>
+__device__ __forceinline__ void row_interior(const S* __restrict__ data,
+                                             const T* __restrict__ x,
+                                             T* __restrict__ y, int64_t n,
+                                             int64_t i,
+                                             const DiaParams<ND>& p) {
+  T acc = T(0);
   if constexpr (ND > 0) {
-    T a[ND][R];
-    T v[ND][R];
+    T a[ND];
+    T v[ND];
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      const int64_t k = static_cast<int64_t>(d) * n + i0;
-      if constexpr (R == 2) {
-        decltype(load_coef(data, 0)) pair[2];
-        load_pair(data, k, pair);
-        a[d][0] = static_cast<T>(pair[0]);
-        a[d][1] = static_cast<T>(pair[1]);
-      } else {
-        a[d][0] = static_cast<T>(load_coef(data, k));
-      }
+      a[d] = static_cast<T>(load_coef(data, static_cast<int64_t>(d) * n + i));
     }
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) v[d][r] = __ldg(x + i0 + r + p.off[d]);
-    }
+    for (int d = 0; d < ND; ++d) v[d] = __ldg(x + i + p.off[d]);
     // Keep every load above the first multiply-add: without this fence the
     // compiler interleaves them and holds a row to several round trips.
     asm volatile("" ::: "memory");
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      T acc = T(0);
-#pragma unroll
-      for (int d = 0; d < ND; ++d) acc = fma_t(a[d][r], v[d][r], acc);
-      y[i0 + r] = acc;
-    }
+    for (int d = 0; d < ND; ++d) acc = fma_t(a[d], v[d], acc);
   } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int64_t i = i0 + r;
-      T acc = T(0);
-      for (int d = 0; d < p.nd; ++d) {
-        const T a = static_cast<T>(load_coef(data, static_cast<int64_t>(d) * n + i));
-        acc = fma_t(a, __ldg(x + i + p.off[d]), acc);
-      }
-      y[i] = acc;
-    }
-  }
-}
-
-// Rows near either end: each row and each tap tested.
-template <typename S, typename T, int ND, int R>
-__device__ __forceinline__ void rows_edge(const S* __restrict__ data,
-                                          const T* __restrict__ x,
-                                          T* __restrict__ y, int64_t n,
-                                          int64_t i0, const DiaParams<ND>& p) {
-  // A compile-time trip count for the instances, p.nd for the loop.
-  constexpr bool kFixed = ND > 0;
-  const int nd = kFixed ? ND : p.nd;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int64_t i = i0 + r;
-    if (i >= n) return;
-    T acc = T(0);
-#pragma unroll
-    for (int d = 0; d < (kFixed ? ND : nd); ++d) {
-      const int64_t j = i + p.off[d];
+    for (int d = 0; d < p.nd; ++d) {
       const T a = static_cast<T>(load_coef(data, static_cast<int64_t>(d) * n + i));
-      const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-      acc = fma_t(a, xv, acc);
+      acc = fma_t(a, __ldg(x + i + p.off[d]), acc);
     }
-    y[i] = acc;
   }
+  y[i] = acc;
 }
 
-template <typename S, typename T, int ND, int R>
+// A row near either end: each tap tested.
+template <typename S, typename T, int ND>
+__device__ __forceinline__ void row_edge(const S* __restrict__ data,
+                                         const T* __restrict__ x,
+                                         T* __restrict__ y, int64_t n,
+                                         int64_t i, const DiaParams<ND>& p) {
+  T acc = T(0);
+  // A compile-time trip count for the instances, p.nd for the loop.
+#pragma unroll
+  for (int d = 0; d < (ND > 0 ? ND : p.nd); ++d) {
+    const int64_t j = i + p.off[d];
+    const T a = static_cast<T>(load_coef(data, static_cast<int64_t>(d) * n + i));
+    const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
+    acc = fma_t(a, xv, acc);
+  }
+  y[i] = acc;
+}
+
+template <typename S, typename T, int ND>
 __global__ void __launch_bounds__(kMaxBlock)
 dia_spmv_kernel(const S* __restrict__ data, const T* __restrict__ x,
                 T* __restrict__ y, int64_t n,
                 const __grid_constant__ DiaParams<ND> p) {
-  const int64_t span = static_cast<int64_t>(blockDim.x) * R;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * span;
-  const int64_t i0 = r0 + static_cast<int64_t>(threadIdx.x) * R;
-  if (r0 >= p.lo && r0 + span <= p.hi) {
-    rows_interior<S, T, ND, R>(data, x, y, n, i0, p);
-  } else {
-    rows_edge<S, T, ND, R>(data, x, y, n, i0, p);
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const int64_t i = r0 + threadIdx.x;
+  if (r0 >= p.lo && r0 + blockDim.x <= p.hi) {
+    row_interior<S, T, ND>(data, x, y, n, i, p);
+  } else if (i < n) {
+    row_edge<S, T, ND>(data, x, y, n, i, p);
   }
 }
 
-template <typename S, typename T, int ND, int R>
+bool valid_block(int block) {
+  return block == 32 || block == 64 || block == 128 || block == 256;
+}
+
+unsigned grid_of(int64_t n, int block) {
+  return static_cast<unsigned>((n + block - 1) / block);
+}
+
+template <typename S, typename T, int ND>
 cudaError_t launch_instance(const S* data, const int64_t* off, int nd,
                             const T* x, T* y, int64_t n, int block,
                             cudaStream_t stream) {
@@ -212,38 +169,18 @@ cudaError_t launch_instance(const S* data, const int64_t* off, int nd,
   p.nd = nd;
   p.lo = mn < 0 ? -mn : 0;
   p.hi = mx > 0 ? n - mx : n;
-  const int64_t span = static_cast<int64_t>(block) * R;
-  const int64_t blocks = (n + span - 1) / span;
-  dia_spmv_kernel<S, T, ND, R><<<static_cast<unsigned>(blocks), block, 0,
-                                 stream>>>(data, x, y, n, p);
+  dia_spmv_kernel<S, T, ND><<<grid_of(n, block), block, 0, stream>>>(
+      data, x, y, n, p);
   return cudaGetLastError();
-}
-
-template <typename S, typename T, int ND>
-cudaError_t launch_rows(const S* data, const int64_t* off, int nd,
-                        const T* x, T* y, int64_t n, int block, int rows,
-                        cudaStream_t stream) {
-  if (rows == 2) {
-    return launch_instance<S, T, ND, 2>(data, off, nd, x, y, n, block, stream);
-  }
-  return launch_instance<S, T, ND, 1>(data, off, nd, x, y, n, block, stream);
-}
-
-bool valid_shape(int block, int rows) {
-  return (block == 32 || block == 64 || block == 128 || block == 256) &&
-         (rows == 1 || rows == 2);
 }
 
 // instance: the compiled diagonal count to run (19, 23 or 27, equal to nd)
 // or 0 for the run-time loop.
 template <typename S, typename T>
 int launch(const void* data, const void* offsets, int nd, const void* x,
-           void* y, int64_t n, int block, int rows, int instance,
-           void* stream) {
-  if (nd < 1 || nd > kMaxDiags || !valid_shape(block, rows) ||
-      (instance != 0 && instance != nd) ||
-      (rows == 2 && ((n & 1) || (reinterpret_cast<uintptr_t>(data) %
-                                 (2 * sizeof(S)))))) {
+           void* y, int64_t n, int block, int instance, void* stream) {
+  if (nd < 1 || nd > kMaxDiags || !valid_block(block) ||
+      (instance != 0 && instance != nd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return static_cast<int>(cudaGetLastError());
@@ -252,53 +189,39 @@ int launch(const void* data, const void* offsets, int nd, const void* x,
   const T* xv = static_cast<const T*>(x);
   T* yv = static_cast<T*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (instance) {
     case 19:
-      err = launch_rows<S, T, 19>(d, off, nd, xv, yv, n, block, rows, s);
-      break;
+      return static_cast<int>(
+          launch_instance<S, T, 19>(d, off, nd, xv, yv, n, block, s));
     case 23:
-      err = launch_rows<S, T, 23>(d, off, nd, xv, yv, n, block, rows, s);
-      break;
+      return static_cast<int>(
+          launch_instance<S, T, 23>(d, off, nd, xv, yv, n, block, s));
     case 27:
-      err = launch_rows<S, T, 27>(d, off, nd, xv, yv, n, block, rows, s);
-      break;
+      return static_cast<int>(
+          launch_instance<S, T, 27>(d, off, nd, xv, yv, n, block, s));
     case 0:
-      err = launch_rows<S, T, 0>(d, off, nd, xv, yv, n, block, rows, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(
+          launch_instance<S, T, 0>(d, off, nd, xv, yv, n, block, s));
   }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 __global__ void noop_kernel() {}
 
-template <typename T, int R>
+template <typename T>
 __global__ void __launch_bounds__(kMaxBlock)
 copy_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n) {
-  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x) * R;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (i0 + r < n) y[i0 + r] = __ldg(x + i0 + r);
-  }
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = __ldg(x + i);
 }
 
 template <typename T>
-int launch_copy(const void* x, void* y, int64_t n, int block, int rows,
-                void* stream) {
-  if (!valid_shape(block, rows)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t span = static_cast<int64_t>(block) * rows;
-  const unsigned blocks = static_cast<unsigned>((n + span - 1) / span);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xv = static_cast<const T*>(x);
-  T* yv = static_cast<T*>(y);
-  if (rows == 2) {
-    copy_kernel<T, 2><<<blocks, block, 0, s>>>(xv, yv, n);
-  } else {
-    copy_kernel<T, 1><<<blocks, block, 0, s>>>(xv, yv, n);
+int launch_copy(const void* x, void* y, int64_t n, int block, void* stream) {
+  if (!valid_block(block)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    copy_kernel<T><<<grid_of(n, block), block, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -308,12 +231,11 @@ int launch_copy(const void* x, void* y, int64_t n, int block, int rows,
 extern "C" {
 
 // offsets: a host array of nd int64 offsets; block: 32, 64, 128 or 256
-// threads; rows: 1 or 2 per thread; instance: 19, 23, 27 (== nd) or 0.
+// threads; instance: 19, 23, 27 (== nd) or 0.
 #define DDPS_DIA_ENTRY(NAME, S, T)                                           \
   int NAME(const void* data, const void* offsets, int nd, const void* x,     \
-           void* y, int64_t n, int block, int rows, int instance,            \
-           void* stream) {                                                   \
-    return launch<S, T>(data, offsets, nd, x, y, n, block, rows, instance,   \
+           void* y, int64_t n, int block, int instance, void* stream) {      \
+    return launch<S, T>(data, offsets, nd, x, y, n, block, instance,         \
                         stream);                                             \
   }
 
@@ -326,25 +248,24 @@ DDPS_DIA_ENTRY(ddps_dia_spmv_f64_f64, double, double)
 #undef DDPS_DIA_ENTRY
 
 // Measurement entries: the launch floor and one dependent load of a
-// product of n rows at the same block and rows per thread.
-int ddps_dia_floor_noop(int64_t n, int block, int rows, void* stream) {
-  if (!valid_shape(block, rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t span = static_cast<int64_t>(block) * rows;
-  const unsigned blocks = static_cast<unsigned>((n + span - 1) / span);
-  if (blocks > 0) {
-    noop_kernel<<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>();
+// product of n rows in blocks of `block` threads.
+int ddps_dia_floor_noop(int64_t n, int block, void* stream) {
+  if (!valid_block(block)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    noop_kernel<<<grid_of(n, block), block, 0,
+                  static_cast<cudaStream_t>(stream)>>>();
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int ddps_dia_floor_copy_f32(const void* x, void* y, int64_t n, int block,
-                            int rows, void* stream) {
-  return launch_copy<float>(x, y, n, block, rows, stream);
+                            void* stream) {
+  return launch_copy<float>(x, y, n, block, stream);
 }
 
 int ddps_dia_floor_copy_f64(const void* x, void* y, int64_t n, int block,
-                            int rows, void* stream) {
-  return launch_copy<double>(x, y, n, block, rows, stream);
+                            void* stream) {
+  return launch_copy<double>(x, y, n, block, stream);
 }
 
 const char* ddps_error_string(int code) {

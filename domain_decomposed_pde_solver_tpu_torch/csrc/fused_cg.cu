@@ -30,19 +30,20 @@
 // memory with cp.async: values as float, columns as 16-bit indices into a
 // window that covers every column its rows touch (packed on the host,
 // solvers/fused_cg.py::cluster_pack).  x, r, p, b and D^-1 of the thread's
-// row live in registers; the CTA keeps p and D^-1 over its window.  The
-// operator never leaves the chip, and no cluster barrier is left in the
-// loop: a cluster barrier of 16 CTAs of 1024 threads costs about 0.8 us,
-// so the CTAs signal each other through mbarriers instead.  Every value
-// another CTA needs is pushed into that CTA's shared memory with st.async,
-// which counts its bytes on the receiver's mbarrier, and the receiver waits
-// for the bytes it expects:
+// row live in registers; the CTA keeps p over its window.  The operator
+// never leaves the chip, and no cluster barrier is left in the loop: a
+// cluster barrier of 16 CTAs of 1024 threads costs about 0.8 us, so the
+// CTAs signal each other through mbarriers instead.  Every value another
+// CTA needs is pushed into that CTA's shared memory with st.async, which
+// counts its bytes on the receiver's mbarrier, and the receiver waits for
+// the bytes it expects:
 //   1. Ap = A p from the p window; p.Ap pushed to every CTA;        wait
-//   2. alpha; x += alpha p, r -= alpha Ap; r pushed into the windows that
-//      hold the row; r.z, r.r pushed to every CTA;                  wait
-//   3. beta; wait for the r window; p = D^-1 r + beta p on the thread's
-//      row and over the window, in the same float operations, so every
-//      CTA holds its neighbours' p exactly;                   __syncthreads
+//   2. alpha; x += alpha p, r -= alpha Ap; r.z, r.r pushed to every CTA,
+//      then z = D^-1 r pushed into the windows that hold the row, while
+//      the sums travel;                                             wait
+//   3. beta; wait for the z window; p = z + beta p on the thread's row and
+//      over the window, the same float operation, so every CTA holds its
+//      neighbours' p exactly;                               __syncthreads
 // A CTA can be at most one exchange ahead of another (it needs the other's
 // sums to go on), so one buffer and one mbarrier per exchange suffice.
 // Bound: latency -- the exchanges, the reductions and the matvec's chain
@@ -283,14 +284,14 @@ __host__ __device__ constexpr int64_t align16(int64_t bytes) {
 }
 
 // Dynamic shared memory of a CTA, in this order: slot values (float), slot
-// columns (uint16), three windows (float: r as pushed by its owners, p,
-// D^-1), the partials pushed by the cluster's CTAs (double, kPartRegions x
+// columns (uint16), two windows (float: z = D^-1 r as pushed by its owners,
+// and p), the partials pushed by the cluster's CTAs (double, kPartRegions x
 // 16), 32 warps x 3 warp sums (double), the mbarriers (8 B each, 64 B),
 // every CTA's window start (int, 64 B).  solvers/fused_cg.py::
 // cluster_smem_bytes computes the same.
 __host__ __device__ constexpr int64_t cluster_smem_bytes(int64_t max_slots,
                                                          int64_t max_win) {
-  return align16(6 * max_slots) + 3 * align16(4 * max_win) +
+  return align16(6 * max_slots) + 2 * align16(4 * max_win) +
          8 * kPartRegions * kMaxCtas + 8 * 3 * kCtaWarps + 64 + 4 * kMaxCtas;
 }
 
@@ -357,18 +358,18 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// One cluster-wide sum of NV values: the CTA reduces its threads in a fixed
-// tree (double); warp 0 pushes the CTA's sums into slot `rank` of regions
-// base .. base + NV - 1 of every CTA; each CTA waits on its own mbarrier
-// for the c CTAs' sums and every warp adds them in a fixed butterfly (lane
-// l takes slot l % 16; a + b == b + a, so every lane, warp and CTA holds
-// the same totals).
+// One cluster-wide sum of NV values, in two halves so that other pushes can
+// go out between them.  cluster_push: the CTA reduces its threads in a
+// fixed tree (double) and warp 0 pushes the CTA's sums into slot `rank` of
+// regions base .. base + NV - 1 of every CTA.  cluster_totals: the CTA
+// waits on its own mbarrier for the c CTAs' sums and every warp adds them
+// in a fixed butterfly (lane l takes slot l % 16; a + b == b + a, so every
+// lane, warp and CTA holds the same totals).
 template <int NV>
-__device__ __forceinline__ void cluster_sum(const float (&v)[NV],
-                                            double* warp_sum, double* part,
-                                            uint64_t* bar, uint32_t parity,
-                                            int base, int rank, int c,
-                                            double (&tot)[NV]) {
+__device__ __forceinline__ void cluster_push(const float (&v)[NV],
+                                             double* warp_sum, double* part,
+                                             uint64_t* bar, int base,
+                                             int rank, int c) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -402,8 +403,15 @@ __device__ __forceinline__ void cluster_sum(const float (&v)[NV],
       }
     }
   }
+}
+
+template <int NV>
+__device__ __forceinline__ void cluster_totals(const double* part,
+                                               uint64_t* bar, uint32_t parity,
+                                               int base, int c,
+                                               double (&tot)[NV]) {
   bar_wait(bar, parity);
-  const int slot = lane & (kMaxCtas - 1);
+  const int slot = threadIdx.x & (kMaxCtas - 1);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     double s = slot < c ? part[(base + i) * kMaxCtas + slot] : 0.0;
@@ -448,18 +456,17 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
   float* s_vals = reinterpret_cast<float*>(smem);
   uint16_t* s_cols = reinterpret_cast<uint16_t*>(smem + 4 * max_slots);
   unsigned char* w0 = smem + align16(6 * max_slots);
-  float* s_rwin = reinterpret_cast<float*>(w0);
+  float* s_zwin = reinterpret_cast<float*>(w0);
   float* s_pwin = reinterpret_cast<float*>(w0 + wbytes);
-  float* s_dwin = reinterpret_cast<float*>(w0 + 2 * wbytes);
-  double* s_part = reinterpret_cast<double*>(w0 + 3 * wbytes);
+  double* s_part = reinterpret_cast<double*>(w0 + 2 * wbytes);
   double* s_warp = s_part + kPartRegions * kMaxCtas;
   uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_warp + 3 * kCtaWarps);
   int* s_lo = reinterpret_cast<int*>(s_bar + 8);
   uint64_t* bar_x = s_bar;      // the x0 window (into s_pwin), once
-  uint64_t* bar_r = s_bar + 1;  // the r window, every iteration
+  uint64_t* bar_z = s_bar + 1;  // the z window, every iteration
   uint64_t* bar_s = s_bar + 2;  // set-up sums
   uint64_t* bar_a = s_bar + 3;  // p.Ap
-  uint64_t* bar_z = s_bar + 4;  // r.z, r.r
+  uint64_t* bar_r = s_bar + 4;  // r.z, r.r
 
   if (tid == 0) {
     for (int i = 0; i < kBars; ++i) bar_init(s_bar + i);
@@ -471,7 +478,6 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
   const int64_t slice0 = static_cast<int64_t>(rank) * kCtaWarps;
   const int64_t slot0 = __ldg(slice_ptr + slice0);
   const int n_slots = static_cast<int>(__ldg(slice_ptr + slice0 + kCtaWarps) - slot0);
-  const int lo = __ldg(windows + 2 * rank);
   const int wn = __ldg(windows + 2 * rank + 1);
   if constexpr (M != kSkeleton) {
     for (int k = tid; k < n_slots / 4; k += kCta) {
@@ -481,7 +487,6 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
       copy16_async(s_cols + 8 * k, lcols + slot0 + 8 * k);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    for (int j = tid; j < wn; j += kCta) s_dwin[j] = __ldg(invd + lo + j);
   }
   const int my0 = static_cast<int>(__ldg(slice_ptr + slice0 + warp) - slot0);
   const int width = static_cast<int>(
@@ -521,27 +526,27 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
     ax = row_dot_window(s_pwin);
   }
   float rv = bv - ax;
-  float pv = __fmul_rn(dv, rv);
+  float zv = __fmul_rn(dv, rv);
+  float pv = zv;
+  {
+    float v[3] = {bv * bv, rv * zv, rv * rv};
+    cluster_push<3>(v, s_warp, s_part, bar_s, 0, rank, c);
+  }
   if constexpr (M != kSkeleton) {
-    if (tid == 0) bar_expect(bar_r, static_cast<uint32_t>(4 * wn));
-    push_row(rv, row, dest, s_lo, s_rwin, bar_r);
+    if (tid == 0) bar_expect(bar_z, static_cast<uint32_t>(4 * wn));
+    push_row(zv, row, dest, s_lo, s_zwin, bar_z);
   }
   double tot3[3];
-  {
-    float v[3] = {bv * bv, rv * pv, rv * rv};
-    cluster_sum<3>(v, s_warp, s_part, bar_s, 0, 0, rank, c, tot3);
-  }
+  cluster_totals<3>(s_part, bar_s, 0, 0, c, tot3);
   const float b2 = static_cast<float>(tot3[0]);
   const float bnorm2 = (b2 == 0.f) ? 1.f : b2;
   const float target2 = tol2 * bnorm2;
   float rz = static_cast<float>(tot3[1]);
   float rnorm2 = static_cast<float>(tot3[2]);
-  uint32_t phase = 0;  // of bar_r, bar_a and bar_z in the loop
+  uint32_t phase = 0;  // of bar_z, bar_a and bar_r in the loop
   if constexpr (M != kSkeleton) {
-    bar_wait(bar_r, 0);
-    for (int j = tid; j < wn; j += kCta) {
-      s_pwin[j] = __fmul_rn(s_dwin[j], s_rwin[j]);
-    }
+    bar_wait(bar_z, 0);
+    for (int j = tid; j < wn; j += kCta) s_pwin[j] = s_zwin[j];
     __syncthreads();
   }
 
@@ -553,35 +558,37 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
     double tot1[1];
     {
       float v[1] = {pv * a};
-      cluster_sum<1>(v, s_warp, s_part, bar_a, phase, 3, rank, c, tot1);
+      cluster_push<1>(v, s_warp, s_part, bar_a, 3, rank, c);
     }
+    cluster_totals<1>(s_part, bar_a, phase, 3, c, tot1);
     const float alpha = rz / static_cast<float>(tot1[0]);
-    // 2. x += alpha p ; r -= alpha Ap ; push r ; r.z and r.r
+    // 2. x += alpha p ; r -= alpha Ap ; z = D^-1 r pushed into the windows
+    // that hold the row while r.z and r.r are summed
     if constexpr (M == kFull) {
       xv += alpha * pv;
       rv = rv - alpha * a;
+      zv = __fmul_rn(dv, rv);
     }
-    if constexpr (M != kSkeleton) {
-      if (tid == 0) bar_expect(bar_r, static_cast<uint32_t>(4 * wn));
-      push_row(rv, row, dest, s_lo, s_rwin, bar_r);
-    }
-    const float zv = __fmul_rn(dv, rv);
-    double tot2[2];
     {
       float v[2] = {rv * zv, rv * rv};
-      cluster_sum<2>(v, s_warp, s_part, bar_z, phase, 4, rank, c, tot2);
+      cluster_push<2>(v, s_warp, s_part, bar_r, 4, rank, c);
     }
+    if constexpr (M != kSkeleton) {
+      if (tid == 0) bar_expect(bar_z, static_cast<uint32_t>(4 * wn));
+      push_row(zv, row, dest, s_lo, s_zwin, bar_z);
+    }
+    double tot2[2];
+    cluster_totals<2>(s_part, bar_r, phase, 4, c, tot2);
     const float rz_new = static_cast<float>(tot2[0]);
     rnorm2 = static_cast<float>(tot2[1]);
     const float beta = rz_new / rz;
-    // 3. p = D^-1 r + beta p, on the thread's row and on the window (the
-    // same float operations, so every CTA holds its neighbours' p exactly)
+    // 3. p = z + beta p, on the thread's row and over the window (the same
+    // float operation, so every CTA holds its neighbours' p exactly)
     if constexpr (M != kSkeleton) {
-      bar_wait(bar_r, phase ^ 1);
+      bar_wait(bar_z, phase ^ 1);
       if constexpr (M == kFull) {
         for (int j = tid; j < wn; j += kCta) {
-          s_pwin[j] = __fmaf_rn(beta, s_pwin[j],
-                                __fmul_rn(s_dwin[j], s_rwin[j]));
+          s_pwin[j] = __fmaf_rn(beta, s_pwin[j], s_zwin[j]);
         }
       }
       __syncthreads();

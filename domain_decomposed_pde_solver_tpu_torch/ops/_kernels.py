@@ -35,7 +35,6 @@ import torch
 __all__ = [
     "DIA_BLOCKS",
     "DIA_INSTANCES",
-    "DIA_ROWS",
     "DIA_SPMV",
     "DiaLaunch",
     "CLUSTER_CTA_ROWS",
@@ -162,10 +161,10 @@ SELL_SPMV = Kernel("sell_spmv", _PKG / "csrc" / "spmv.cu", {
     "ddps_sell_spmv_f64_f64": _SELL_ARGS,
 })
 
-# data, offsets (host int64), ndiags, x, y, n, block, rows, instance, stream
-_DIA_ARGS = [_P, _P, _INT, _P, _P, _I64, _INT, _INT, _INT, _P]
-# x, y, n, block, rows, stream
-_DIA_COPY_ARGS = [_P, _P, _I64, _INT, _INT, _P]
+# data, offsets (host int64), ndiags, x, y, n, block, instance, stream
+_DIA_ARGS = [_P, _P, _INT, _P, _P, _I64, _INT, _INT, _P]
+# x, y, n, block, stream
+_DIA_COPY_ARGS = [_P, _P, _I64, _INT, _P]
 DIA_SPMV = Kernel("dia_spmv", _PKG / "csrc" / "dia_spmv.cu", {
     "ddps_dia_spmv_bf16_f32": _DIA_ARGS,
     "ddps_dia_spmv_f32_f32": _DIA_ARGS,
@@ -174,7 +173,7 @@ DIA_SPMV = Kernel("dia_spmv", _PKG / "csrc" / "dia_spmv.cu", {
     "ddps_dia_spmv_f64_f64": _DIA_ARGS,
     # Measurement entries: the launch floor and one dependent load of a
     # product's grid (``dia_floor_launch``); the port never calls them.
-    "ddps_dia_floor_noop": [_I64, _INT, _INT, _P],
+    "ddps_dia_floor_noop": [_I64, _INT, _P],
     "ddps_dia_floor_copy_f32": _DIA_COPY_ARGS,
     "ddps_dia_floor_copy_f64": _DIA_COPY_ARGS,
 })
@@ -465,32 +464,29 @@ _DIA_MAX_DIAGS = 128  # the kernel's parameter block holds this many offsets
 # counts of every DIA level the structured routes build.
 DIA_INSTANCES = (19, 23, 27)
 DIA_BLOCKS = (32, 64, 128, 256)  # the launch shapes the kernel takes
-DIA_ROWS = (1, 2)  # rows per thread
 _DIA_LARGE = 1 << 17  # rows from which a product takes large blocks
 
 
 @dataclasses.dataclass(frozen=True)
 class DiaLaunch:
     """How kernel 4 runs one product: ``instance`` is the compiled diagonal
-    count (0: the run-time loop), ``block`` the threads per block, ``rows``
-    the consecutive rows per thread."""
+    count (0: the run-time loop), ``block`` the threads per block (one row
+    per thread)."""
 
     instance: int
     block: int
-    rows: int
 
 
 def dia_launch_shape(n: int, nd: int, storage: torch.dtype,
                      vector: torch.dtype) -> DiaLaunch:
     """Kernel 4's instance and launch shape for an ``(nd, n)`` operator in
     ``storage`` with ``vector`` vectors: the compiled instance of ``nd``
-    if there is one, else the run-time loop; one row per thread, in blocks
-    of 128 threads below 2^17 rows (a small level spreads over the SMs)
-    and of 256 above.  The rule is the sweep's (``chip_smoke.py`` phase E,
-    PERF.md): no other shape was faster at any measured size and type,
-    and two rows per thread were slower at every one."""
+    if there is one, else the run-time loop; blocks of 128 threads below
+    2^17 rows (a small level spreads over the SMs), of 256 above.  The rule
+    is the sweep's (``chip_smoke.py`` phase E, PERF.md): no block was more
+    than 2 % faster at any measured size and type."""
     instance = nd if nd in DIA_INSTANCES else 0
-    return DiaLaunch(instance, 128 if n < _DIA_LARGE else 256, 1)
+    return DiaLaunch(instance, 128 if n < _DIA_LARGE else 256)
 
 
 def dia_spmv_launch(data: torch.Tensor, offsets, x: torch.Tensor, *,
@@ -520,16 +516,14 @@ def dia_spmv_launch(data: torch.Tensor, offsets, x: torch.Tensor, *,
         )
     if shape is None:
         shape = dia_launch_shape(n, nd, data.dtype, x.dtype)
-    if (shape.block not in DIA_BLOCKS or shape.rows not in DIA_ROWS
-            or shape.instance not in (0, nd)):
+    if shape.block not in DIA_BLOCKS or shape.instance not in (0, nd):
         raise ValueError(f"no launch {shape} for {nd} diagonals")
     offs = np.ascontiguousarray(offsets, dtype=np.int64)
     y = torch.empty(n, dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         DIA_SPMV.launch(
             entry, data.data_ptr(), offs.ctypes.data, nd, x.data_ptr(),
-            y.data_ptr(), n, shape.block, shape.rows, shape.instance,
-            _stream(dev),
+            y.data_ptr(), n, shape.block, shape.instance, _stream(dev),
         )
     return y
 
@@ -540,20 +534,19 @@ def dia_floor_launch(kind: str, x: torch.Tensor, shape: DiaLaunch) -> None:
     writes a new vector of its length), on the grid and block of a product
     of ``x.numel()`` rows in ``shape``.  Counted like any launch."""
     dev = _require_cuda(x, "dia_floor")
-    if shape.block not in DIA_BLOCKS or shape.rows not in DIA_ROWS:
+    if shape.block not in DIA_BLOCKS:
         raise ValueError(f"no launch {shape}")
     n = x.numel()
     with torch.cuda.device(dev):
         if kind == "noop":
-            DIA_SPMV.launch("ddps_dia_floor_noop", n, shape.block, shape.rows,
+            DIA_SPMV.launch("ddps_dia_floor_noop", n, shape.block,
                             _stream(dev))
             return
         if kind != "copy" or x.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"no floor kernel {kind!r} for {x.dtype}")
         y = torch.empty_like(x)
         DIA_SPMV.launch(f"ddps_dia_floor_copy_{_NAME[x.dtype]}", x.data_ptr(),
-                        y.data_ptr(), n, shape.block, shape.rows,
-                        _stream(dev))
+                        y.data_ptr(), n, shape.block, _stream(dev))
 
 
 _PAD_MAX_TAPS = 27  # 3 x 3 x 3 lattice neighbourhood

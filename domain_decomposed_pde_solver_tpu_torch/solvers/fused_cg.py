@@ -62,14 +62,14 @@ CLUSTER_MAX_WINDOW = 1 << 16  # 16-bit local columns
 
 def cluster_smem_bytes(max_slots: int, max_win: int) -> int:
     """Dynamic shared memory of a CTA of the cluster instance (the kernel's
-    ``cluster_smem_bytes``): slot values (4 B) and columns (2 B), three
-    windows (r, p, D^-1; 4 B an entry), 6 x 16 partials and 32 x 3 warp
-    sums (8 B each), 64 B of mbarriers and 16 window starts (4 B), the
-    first four regions each rounded up to 16 B."""
+    ``cluster_smem_bytes``): slot values (4 B) and columns (2 B), two
+    windows (z and p; 4 B an entry), 6 x 16 partials and 32 x 3 warp sums
+    (8 B each), 64 B of mbarriers and 16 window starts (4 B), the first
+    three regions each rounded up to 16 B."""
     def align16(v):
         return -(-v // 16) * 16
 
-    return (align16(6 * max_slots) + 3 * align16(4 * max_win)
+    return (align16(6 * max_slots) + 2 * align16(4 * max_win)
             + 8 * 6 * CLUSTER_MAX_CTAS + 8 * 3 * (CLUSTER_CTA_ROWS // 32)
             + 64 + 4 * CLUSTER_MAX_CTAS)
 

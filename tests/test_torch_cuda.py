@@ -332,8 +332,9 @@ def _dia_case(case, device):
         offs = np.r_[0, rng.choice(np.r_[-80:0, 1:81], 18, replace=False)]
         return _random_dia(40, np.sort(offs), "float32", "float32", device,
                            32), "float32"
-    if case == "loop23":  # no compiled instance: the run-time loop
-        offs = np.sort(rng.choice(np.arange(-700, 701), 23, replace=False))
+    if case in ("inst23", "loop7"):  # 23: an instance; 7: the run-time loop
+        nd = 23 if case == "inst23" else 7
+        offs = np.sort(rng.choice(np.arange(-700, 701), nd, replace=False))
         return _random_dia(5003, offs, "float32", "float64", device,
                            33), "float64"
     # 1M rows, the box's 19 offsets, bf16 storage with f64 vectors
@@ -346,20 +347,20 @@ def _dia_case(case, device):
 
 
 @pytest.mark.parametrize("case", ["level1", "hex8", "pathB", "edge19",
-                                  "loop23", "1M"])
+                                  "inst23", "loop7", "1M"])
 def test_dia_kernel_every_instance_and_shape_bit_identical(cuda_device, case):
-    """Every compiled instance (19, 27), the run-time loop and every launch
-    shape (32 to 256 threads, 1 or 2 rows per thread) add a row's products
-    in the same order: bit-identical to the default launch, and each
-    within the f32/f64 tolerance of the plain version."""
+    """Every compiled instance (19, 23, 27), the run-time loop and every block
+    (32 to 256 threads) add a row's products in the same order:
+    bit-identical to the default launch, and each within the f32/f64
+    tolerance of the plain version."""
     A, name = _dia_case(case, cuda_device)
     x = torch.as_tensor(np.random.default_rng(35).normal(size=A.n_pad),
                         dtype=getattr(torch, name), device=cuda_device)
     default = _kernels.dia_launch_shape(A.n_pad, A.ndiags, A.data.dtype,
                                         x.dtype)
-    assert default.instance == (A.ndiags if A.ndiags in (19, 27) else 0)
+    assert default.instance == (A.ndiags if A.ndiags in (19, 23, 27) else 0)
     assert A.ndiags == {"level1": 19, "hex8": 27, "pathB": 19, "edge19": 19,
-                        "loop23": 23, "1M": 19}[case]
+                        "inst23": 23, "loop7": 7, "1M": 19}[case]
     before = _kernels.DIA_SPMV.launches
     y0 = A.matvec(x)
     assert _kernels.DIA_SPMV.launches == before + 1
@@ -367,23 +368,22 @@ def test_dia_kernel_every_instance_and_shape_bit_identical(cuda_device, case):
     assert _relerr(y0, dia_matvec_plain(A, x)) <= TOL[name]
     for instance in sorted({default.instance, 0}):
         for block in _kernels.DIA_BLOCKS:
-            for rows in _kernels.DIA_ROWS:
-                shape = _kernels.DiaLaunch(instance, block, rows)
-                y = _kernels.dia_spmv_launch(A.data, A.offsets_array, x,
-                                             shape=shape)
-                torch.cuda.synchronize()
-                assert torch.equal(y, y0), shape
+            shape = _kernels.DiaLaunch(instance, block)
+            y = _kernels.dia_spmv_launch(A.data, A.offsets_array, x,
+                                         shape=shape)
+            torch.cuda.synchronize()
+            assert torch.equal(y, y0), shape
 
 
 def test_dia_floor_entries_launch(cuda_device):
     x = torch.ones(4920, device=cuda_device)
     before = _kernels.DIA_SPMV.by_entry["ddps_dia_floor_copy_f32"]
     for kind in ("noop", "copy"):
-        _kernels.dia_floor_launch(kind, x, _kernels.DiaLaunch(0, 64, 1))
+        _kernels.dia_floor_launch(kind, x, _kernels.DiaLaunch(0, 64))
     torch.cuda.synchronize()
     assert _kernels.DIA_SPMV.by_entry["ddps_dia_floor_copy_f32"] == before + 1
     with pytest.raises(ValueError):
-        _kernels.dia_floor_launch("copy", x, _kernels.DiaLaunch(0, 48, 1))
+        _kernels.dia_floor_launch("copy", x, _kernels.DiaLaunch(0, 48))
 
 
 def test_structured_cli_route_on_the_card_matches_the_cpu(cuda_device,

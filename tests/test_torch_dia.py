@@ -243,23 +243,23 @@ def test_wrapper_dispatch_by_device():
 
 
 @pytest.mark.parametrize("n,nd,storage,vector,expect", [
-    (4_920, 19, torch.float32, torch.float32, (19, 128, 1)),  # level 1
-    (216, 23, torch.float32, torch.float32, (23, 128, 1)),  # level 2
-    (8_384, 19, torch.bfloat16, torch.float64, (19, 128, 1)),  # path B
-    (40, 27, torch.float32, torch.float64, (27, 128, 1)),  # HEX8, tiny
-    (1_009_904, 19, torch.bfloat16, torch.float64, (19, 256, 1)),  # 1M
-    (1_009_904, 27, torch.float64, torch.float64, (27, 256, 1)),
-    (5_000, 11, torch.float32, torch.float32, (0, 128, 1)),  # run-time loop
-    (300_000, 7, torch.bfloat16, torch.float32, (0, 256, 1)),
+    (4_920, 19, torch.float32, torch.float32, (19, 128)),  # level 1
+    (216, 23, torch.float32, torch.float32, (23, 128)),  # level 2
+    (8_384, 19, torch.bfloat16, torch.float64, (19, 128)),  # path B
+    (40, 27, torch.float32, torch.float64, (27, 128)),  # HEX8, tiny
+    (1_009_904, 19, torch.bfloat16, torch.float64, (19, 256)),  # 1M
+    (1_009_904, 27, torch.float64, torch.float64, (27, 256)),
+    (5_000, 11, torch.float32, torch.float32, (0, 128)),  # run-time loop
+    (300_000, 7, torch.bfloat16, torch.float32, (0, 256)),
 ])
 def test_dia_launch_shape_rule(n, nd, storage, vector, expect):
     """Kernel 4's launch rule is a pure function of the operator's size and
     types: the compiled instance of 19, 23 or 27 diagonals (the counts of
     the structured routes' DIA levels), else the run-time loop; 128-thread
-    blocks below 2^17 rows, 256 above; one row per thread."""
+    blocks below 2^17 rows, 256 above."""
     shape = _kernels.dia_launch_shape(n, nd, storage, vector)
-    assert (shape.instance, shape.block, shape.rows) == expect
-    assert shape.block in _kernels.DIA_BLOCKS and shape.rows in _kernels.DIA_ROWS
+    assert (shape.instance, shape.block) == expect
+    assert shape.block in _kernels.DIA_BLOCKS
 
 
 def test_dia_offsets_array_is_built_once():
