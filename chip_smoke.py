@@ -62,11 +62,10 @@ D. Every kernel against its plain PyTorch version on the card, on the
    launches).  The DIA kernel at every compiled instance it has for the
    shape, the run-time loop and every block of 32 to 256 threads, all
    bit-identical, on levels 1 and 2 of path A, path B's operator and a
-   random 11-diagonal operator.  The
-   fused CG's cluster instance at 16k and on refined boxes of one and
-   eight CTAs, and an operator of 17 CTAs that must take the grid
-   instance, each bit-identical over two runs.  These launches do not
-   count.
+   random 11-diagonal operator.  The fused CG's cluster instance at 16k
+   and on refined boxes of one and eight CTAs, and an operator of 17 CTAs
+   that must take the grid instance, each bit-identical over two runs.
+   These launches do not count.
 E. Times with CUDA events and the profiler: each kernel on its path's
    shape, its plain version and, as a yardstick the port never calls, one
    PyTorch call computing the same product (cuSPARSE through
@@ -77,8 +76,8 @@ E. Times with CUDA events and the profiler: each kernel on its path's
    A, path B's operator and the 1M fine operator beside its launch floor
    (a kernel that does nothing on the same grid) and one dependent load (a
    copy of n values on the same grid), at every block of ``DIA_BLOCKS`` and
-   with the run-time loop; the fused CG solve against the unfused loop (no single
-   PyTorch call solves CG), beside its synchronisation floor (the same
+   with the run-time loop; the fused CG solve against the unfused loop (no
+   single PyTorch call solves CG), beside its synchronisation floor (the same
    launch with only the barriers and reductions of every iteration) and
    with the matvec but no vector updates, in the instance each size takes
    and, at 16k, in the grid instance too.  Print the kernel record, the
@@ -1239,6 +1238,10 @@ def time_dia(device, card, run_a, run_b, rng) -> dict:
         def launch(sh):
             return lambda: _kernels.dia_spmv_launch(D.data, offs, x, shape=sh)
 
+        # Clocks up after the host-side build of the operator: a few ms of
+        # launches before the first timed one.
+        for _ in range(400):
+            D.matvec(x)
         ms = profile_device(lambda: D.matvec(x))["device_ms"]
         floor = profile_device(lambda: _kernels.dia_floor_launch(
             "noop", x, default))["device_ms"]

@@ -28,19 +28,20 @@
 // with cudaLaunchKernelEx and a cluster dimension (16 is a non-portable
 // size).  At the start each CTA copies its 1024 rows' slots into shared
 // memory with cp.async: values as float, columns as 16-bit indices into a
-// window that covers every column its rows touch (packed on the host,
-// solvers/fused_cg.py::cluster_pack).  x, r, p, b and D^-1 of the thread's
+// window that covers every column its rows touch, widened to multiples of
+// 4 rows (packed on the host, solvers/fused_cg.py::cluster_pack).  x, r, p, b and D^-1 of the thread's
 // row live in registers; the CTA keeps p over its window.  The operator
-// never leaves the chip, and no cluster barrier is left in the loop: a
-// cluster barrier of 16 CTAs of 1024 threads costs about 0.8 us, so the
-// CTAs signal each other through mbarriers instead.  Every value another
+// never leaves the chip, and no cluster barrier is left in the loop: with
+// three cluster barriers per iteration (every thread of 16 CTAs arriving)
+// the first design of this instance was slower than the grid instance, so
+// the CTAs signal each other through mbarriers instead.  Every value another
 // CTA needs is pushed into that CTA's shared memory with st.async, which
 // counts its bytes on the receiver's mbarrier, and the receiver waits for
 // the bytes it expects:
 //   1. Ap = A p from the p window; p.Ap pushed to every CTA;        wait
 //   2. alpha; x += alpha p, r -= alpha Ap; r.z, r.r pushed to every CTA,
-//      then z = D^-1 r pushed into the windows that hold the row, while
-//      the sums travel;                                             wait
+//      then z = D^-1 r pushed into the windows that hold the row (four rows
+//      in one 16-byte store), while the sums travel;                wait
 //   3. beta; wait for the z window; p = z + beta p on the thread's row and
 //      over the window, the same float operation, so every CTA holds its
 //      neighbours' p exactly;                               __syncthreads
@@ -423,14 +424,33 @@ __device__ __forceinline__ void cluster_totals(const double* part,
   }
 }
 
-// Push the thread's row value into the window `win` of every CTA whose
-// window holds the row (the bits of `dest`), counted on that CTA's `bar`.
-__device__ __forceinline__ void push_row(float v, int64_t g, unsigned dest,
-                                         const int* lo, float* win,
-                                         uint64_t* bar) {
-  for (unsigned m = dest; m; m &= m - 1) {
-    const int k = __ffs(m) - 1;
-    push_f32(remote(win + (g - lo[k]), k), v, remote(bar, k));
+__device__ __forceinline__ void push_v4(uint32_t addr, float a, float b,
+                                        float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+      "r"(__float_as_uint(c)), "r"(__float_as_uint(d)), "r"(bar)
+      : "memory");
+}
+
+// Push the rows' values into the window `win` of every CTA whose window
+// holds them (the bits of `dest`), counted on that CTA's `bar`: lane 4q of
+// a warp sends the values of lanes 4q .. 4q + 3 (rows g .. g + 3, g a
+// multiple of 4) as one 16-byte store.  Windows start and end on multiples
+// of 4 rows, so a window holds all four rows or none, and the four lanes
+// share `dest`.  Every thread of the warp calls it.
+__device__ __forceinline__ void push_rows(float v, int64_t g, unsigned dest,
+                                          const int* lo, float* win,
+                                          uint64_t* bar) {
+  const float v1 = __shfl_down_sync(0xffffffffu, v, 1);
+  const float v2 = __shfl_down_sync(0xffffffffu, v, 2);
+  const float v3 = __shfl_down_sync(0xffffffffu, v, 3);
+  if ((threadIdx.x & 3) == 0) {
+    for (unsigned m = dest; m; m &= m - 1) {
+      const int k = __ffs(m) - 1;
+      push_v4(remote(win + (g - lo[k]), k), v, v1, v2, v3, remote(bar, k));
+    }
   }
 }
 
@@ -519,7 +539,7 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
   float ax = 0.f;
   if constexpr (M != kSkeleton) {
     if (tid == 0) bar_expect(bar_x, static_cast<uint32_t>(4 * wn));
-    push_row(xv, row, dest, s_lo, s_pwin, bar_x);
+    push_rows(xv, row, dest, s_lo, s_pwin, bar_x);
     bar_wait(bar_x, 0);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
@@ -534,7 +554,7 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
   }
   if constexpr (M != kSkeleton) {
     if (tid == 0) bar_expect(bar_z, static_cast<uint32_t>(4 * wn));
-    push_row(zv, row, dest, s_lo, s_zwin, bar_z);
+    push_rows(zv, row, dest, s_lo, s_zwin, bar_z);
   }
   double tot3[3];
   cluster_totals<3>(s_part, bar_s, 0, 0, c, tot3);
@@ -575,7 +595,7 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
     }
     if constexpr (M != kSkeleton) {
       if (tid == 0) bar_expect(bar_z, static_cast<uint32_t>(4 * wn));
-      push_row(zv, row, dest, s_lo, s_zwin, bar_z);
+      push_rows(zv, row, dest, s_lo, s_zwin, bar_z);
     }
     double tot2[2];
     cluster_totals<2>(s_part, bar_r, phase, 4, c, tot2);

@@ -33,12 +33,12 @@ import numpy as np
 import torch
 
 __all__ = [
+    "CLUSTER_CTA_ROWS",
+    "CLUSTER_MAX_CTAS",
     "DIA_BLOCKS",
     "DIA_INSTANCES",
     "DIA_SPMV",
     "DiaLaunch",
-    "CLUSTER_CTA_ROWS",
-    "CLUSTER_MAX_CTAS",
     "FUSED_CG",
     "FUSED_CG_MODES",
     "Kernel",
@@ -484,7 +484,8 @@ def dia_launch_shape(n: int, nd: int, storage: torch.dtype,
     if there is one, else the run-time loop; blocks of 128 threads below
     2^17 rows (a small level spreads over the SMs), of 256 above.  The rule
     is the sweep's (``chip_smoke.py`` phase E, PERF.md): no block was more
-    than 2 % faster at any measured size and type."""
+    than 2 % faster at any measured size, and the types did not move the
+    best block."""
     instance = nd if nd in DIA_INSTANCES else 0
     return DiaLaunch(instance, 128 if n < _DIA_LARGE else 256)
 

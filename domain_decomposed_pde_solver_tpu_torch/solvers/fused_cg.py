@@ -93,9 +93,11 @@ class ClusterPack:
     ``k`` owns rows ``[1024 k, 1024 (k + 1))``, i.e. slices ``32 k ..
     32 k + 31`` and their contiguous slots.  Its window is the columns
     ``windows[2k] .. windows[2k] + windows[2k + 1] - 1``, the span of the
-    columns of its nonzero slots; ``lcols`` holds every slot's column
-    minus its CTA's ``lo`` as uint16 bits in an int16 tensor (0 for slots
-    of value 0, whose product is 0 whatever they read)."""
+    columns of its nonzero slots widened to start and end on multiples of
+    4 (the kernel exchanges four rows in one 16-byte store); ``lcols``
+    holds every slot's column minus its CTA's ``lo`` as uint16 bits in an
+    int16 tensor (0 for slots of value 0, whose product is 0 whatever they
+    read)."""
 
     ctas: int
     lcols: torch.Tensor  # (n_slots,) int16: uint16 window columns
@@ -126,6 +128,7 @@ def cluster_pack(A: BSGMatrix) -> ClusterPack:
         c = cols[s0:s1]
         lo, hi = (int(c[used].min()), int(c[used].max())) if used.any() \
             else (0, 0)
+        lo, hi = lo // 4 * 4, hi // 4 * 4 + 3  # n_pad is a multiple of 4
         windows[k] = lo, hi - lo + 1
         lcols[s0:s1] = np.where(used, c - lo, 0)
     return ClusterPack(
@@ -176,10 +179,12 @@ class FusedPlan:
 def fused_cg_plan(A: BSGMatrix) -> FusedPlan:
     """The operator's :class:`FusedPlan`, cached on it: the cluster
     instance when :func:`fused_cg_instance` admits its pack, else the grid
-    instance (operators of more than 16,384 rows are not packed)."""
+    instance (operators of more than 16,384 rows, or of rows padded to
+    other than a multiple of 1024, are not packed)."""
     if A._fused_plan is None:
         pack = None
-        if A.n_pad <= CLUSTER_MAX_CTAS * CLUSTER_CTA_ROWS:
+        if (A.n_pad <= CLUSTER_MAX_CTAS * CLUSTER_CTA_ROWS
+                and A.n_pad % CLUSTER_CTA_ROWS == 0):
             pack = cluster_pack(A)
             if fused_cg_instance(A.n_pad, pack.max_slots,
                                  pack.max_win) != "cluster":

@@ -615,11 +615,21 @@ def test_fused_cg_kernel_matches_plain(cuda_device, n, deg, seed):
 
 
 def test_fused_cg_kernel_maxiter_warm_start_and_zero_rhs(cuda_device):
-    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
-        fused_cg_solve,
-    )
+    """The grid instance, launched directly: ``fused_cg_solve`` sends an
+    operator of 1,024 rows to the cluster instance, whose own checks are
+    ``test_fused_cg_cluster_zero_rhs_maxiter_and_warm_start``."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers.cg import CGResult
 
-    _S, A, _b_host, b, _invd = _fused_case(500, 8, 3, cuda_device, shift=1e-3)
+    _S, A, _b_host, b, invd = _fused_case(500, 8, 3, cuda_device, shift=1e-3)
+
+    def fused_cg_solve(A, b, x0=None, *, tol, maxiter=300):
+        x0 = torch.zeros_like(b) if x0 is None else x0
+        x, stats = _kernels.fused_cg_launch(A.slice_ptr, A.cols, A.vals, b,
+                                            invd, x0, tol, maxiter)
+        k, relres, converged, _rnorm2 = stats.tolist()
+        return CGResult(x=x, iterations=int(k), relres=relres,
+                        converged=converged > 0)
+
     capped = fused_cg_solve(A, b, tol=1e-12, maxiter=7)
     assert capped.iterations == 7 and not capped.converged
     done = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
@@ -669,6 +679,12 @@ def test_fused_cg_cluster_instance_matches_plain(cuda_device, cells, n_pad):
 
 
 def test_fused_cg_cluster_zero_rhs_maxiter_and_warm_start(cuda_device):
+    """The cluster instance on a refined box of 8 CTAs (b = 0, maxiter = 0
+    keeps x0, maxiter caps the solve) and, for the warm start, on the
+    600-node graph of JAX's ``test_fused_warm_start``: a restart from the
+    converged iterate stops at once when the answer's f32 rounding floor
+    lies far below the tolerance (on the refined box, with values near
+    1000, it is about 1e-6 itself)."""
     from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
         fused_cg_plan,
         fused_cg_solve,
@@ -683,12 +699,14 @@ def test_fused_cg_cluster_zero_rhs_maxiter_and_warm_start(cuda_device):
     none = fused_cg_solve(A, b, x0=x0, tol=1e-6, maxiter=0)
     assert none.iterations == 0 and not none.converged
     assert torch.equal(none.x, x0)
-    done = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
-    warm = fused_cg_solve(A, b, x0=done.x, tol=1e-6, maxiter=2000)
-    assert done.converged and warm.iterations == 0 and warm.converged
-    assert torch.equal(warm.x, done.x)
     capped = fused_cg_solve(A, b, tol=1e-12, maxiter=7)
     assert capped.iterations == 7 and not capped.converged
+    _S, G, _b_host, bg, _invd = _fused_case(600, 9, 5, cuda_device)
+    assert fused_cg_plan(G).instance == "cluster"
+    done = fused_cg_solve(G, bg, tol=1e-6, maxiter=2000)
+    warm = fused_cg_solve(G, bg, x0=done.x, tol=1e-6, maxiter=2000)
+    assert done.converged and warm.iterations == 0 and warm.converged
+    assert torch.equal(warm.x, done.x)
 
 
 def test_fused_cg_past_the_cluster_takes_the_grid(cuda_device):

@@ -155,12 +155,14 @@ def test_cluster_pack_windows_cover_every_column(dims):
     for k, (lo, width) in enumerate(lo_w):
         s0, s1 = bounds[k], bounds[k + 1]
         nz = vals[s0:s1] != 0
-        assert nz.any() and width >= 1
+        assert nz.any() and lo % 4 == 0 and width % 4 == 0
+        assert lo + width <= A.n_pad
         # Every nonzero slot's column lies in the window, at its local index.
         np.testing.assert_array_equal(lo + lcols[s0:s1][nz], cols[s0:s1][nz])
         assert (lcols[s0:s1] < width).all()
-        assert cols[s0:s1][nz].min() == lo
-        assert cols[s0:s1][nz].max() == lo + width - 1
+        # The window is the columns' span widened to multiples of 4.
+        assert cols[s0:s1][nz].min() // 4 * 4 == lo
+        assert cols[s0:s1][nz].max() // 4 * 4 + 3 == lo + width - 1
     assert fused_cg_plan(A).instance == "cluster"
     assert fused_cg_plan(A) is fused_cg_plan(A)  # built once per operator
 
@@ -208,6 +210,19 @@ def test_fused_cg_instance_rule(n_pad, max_slots, max_win, expect):
     assert fused_cg_instance(n_pad, max_slots, max_win) == expect
     fits = cluster_smem_bytes(max_slots, max_win) <= CLUSTER_SMEM_BUDGET
     assert (expect == "cluster") <= fits
+
+
+def test_fused_cg_plan_takes_the_grid_off_the_1024_row_grain():
+    """An operator padded to 8 rows (the identity-space sliced ELL of
+    ``choose_operator``) is not packed: the grid instance, as before."""
+    S = random_laplacian(700, 8, 14, shift=0.5)
+    p = csr_from_numpy(S.indptr, S.indices, S.data, S.shape)
+    A = bsg_from_csr(p, reorder=False, row_multiple=8, device="cpu")
+    plan = fused_cg_plan(A)
+    assert A.n_pad == 704 and plan.instance == "grid" and plan.pack is None
+    res = fused_cg_solve(A, A.put_vector(S @ np.ones(700)), tol=1e-6,
+                         maxiter=500)
+    assert res.converged
 
 
 def test_fused_cg_plan_takes_the_grid_past_16k_rows():
