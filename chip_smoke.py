@@ -1041,13 +1041,15 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_device(fn, reps: int = 20) -> dict:
+def profile_device(fn, reps: int = 20, kernel: str = "") -> dict:
     """torch.profiler (CUPTI) over ``reps`` calls after a warm-up: device
     time per call (the sum of its kernels, copies and fills), the union of
     its device intervals per call, the wall per call under the profiler,
     and device time by kernel name.  A trace with no device events at all
-    (CUPTI now and then hands back an empty one) is taken again, up to
-    three times."""
+    (CUPTI now and then hands back an empty one), or, given ``kernel`` (a
+    substring of the name of a kernel each call launches once), with
+    another number of its launches than ``reps`` (CUPTI now and then drops
+    one), is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1062,10 +1064,14 @@ def profile_device(fn, reps: int = 20) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = _device_events(prof)
-        if ev:
+        seen = sum(kernel in name for name, _s, _t in ev) if kernel else reps
+        if ev and seen == reps:
             break
-        log(f"profiler: trace {attempt + 1} recorded no device time")
+        log(f"profiler: trace {attempt + 1} recorded {len(ev)} device "
+            f"events, {seen} launches of {kernel or 'any kernel'}")
     check(bool(ev), "the profiler recorded no device time")
+    check(seen == reps, f"the profiler recorded {seen} of {reps} launches "
+          f"of {kernel}")
     by_name = {}
     for name, s, t in ev:
         d = by_name.setdefault(name, [0, 0.0])
@@ -1242,18 +1248,20 @@ def time_dia(device, card, run_a, run_b, rng) -> dict:
         # launches before the first timed one.
         for _ in range(400):
             D.matvec(x)
-        ms = profile_device(lambda: D.matvec(x))["device_ms"]
+        k4 = "dia_spmv_kernel"
+        ms = profile_device(lambda: D.matvec(x), kernel=k4)["device_ms"]
         floor = profile_device(lambda: _kernels.dia_floor_launch(
-            "noop", x, default))["device_ms"]
+            "noop", x, default), kernel="noop_kernel")["device_ms"]
         # PR 4's launch: 256 threads, one row each.
         floor_256 = profile_device(lambda: _kernels.dia_floor_launch(
-            "noop", x, _kernels.DiaLaunch(0, 256)))["device_ms"]
+            "noop", x, _kernels.DiaLaunch(0, 256)),
+            kernel="noop_kernel")["device_ms"]
         copy = profile_device(lambda: _kernels.dia_floor_launch(
-            "copy", x, default))["device_ms"]
+            "copy", x, default), kernel="copy_kernel")["device_ms"]
         loop = profile_device(launch(_kernels.DiaLaunch(
-            0, default.block)))["device_ms"]
+            0, default.block)), kernel=k4)["device_ms"]
         sweep = {str(blk): profile_device(launch(_kernels.DiaLaunch(
-            default.instance, blk)))["device_ms"]
+            default.instance, blk)), kernel=k4)["device_ms"]
                  for blk in _kernels.DIA_BLOCKS}
         vb = x.element_size()
         nbytes = D.ndiags * D.n_pad * D.data.element_size() + 2 * D.n_pad * vb
@@ -1432,7 +1440,7 @@ def _fused_modes(A, b, plan, instance: str, iters: int) -> dict:
             fn = (lambda m=mode: _kernels.fused_cg_launch(
                 A.slice_ptr, A.cols, A.vals, b, plan.invd, zero, PCG_TOL,
                 iters, mode=m))
-        out[mode] = profile_device(fn, reps=3)["device_ms"]
+        out[mode] = profile_device(fn, reps=3, kernel="fused_cg")["device_ms"]
     return out
 
 
@@ -1476,7 +1484,8 @@ def time_fused(card, run_d1) -> dict:
         walls = {k: [] for k in fns}
         for k in ("unfused", "fused", "plain", "plain", "fused", "unfused"):
             walls[k] += _wall_ms(fns[k], 2 if k == "fused" else 1)
-        prof = {k: profile_device(fns[k], reps=3 if k == "fused" else 1)
+        prof = {k: profile_device(fns[k], reps=3 if k == "fused" else 1,
+                                  kernel="fused_cg" if k == "fused" else "")
                 for k in fns}
         iters = d["fused"].iterations
         modes = _fused_modes(A, b, plan, plan.instance, iters)
