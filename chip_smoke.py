@@ -1252,7 +1252,7 @@ def time_dia(device, card, run_a, run_b, rng) -> dict:
         ms = profile_device(lambda: D.matvec(x), kernel=k4)["device_ms"]
         floor = profile_device(lambda: _kernels.dia_floor_launch(
             "noop", x, default), kernel="noop_kernel")["device_ms"]
-        # PR 4's launch: 256 threads, one row each.
+        # The launch before the size rule: 256 threads, one row each.
         floor_256 = profile_device(lambda: _kernels.dia_floor_launch(
             "noop", x, _kernels.DiaLaunch(0, 256)),
             kernel="noop_kernel")["device_ms"]
