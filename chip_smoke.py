@@ -61,8 +61,8 @@ D. Every kernel against its plain PyTorch version on the card, on the
    its plain recurrence; the chunked kernel also bit-identical over two
    launches).  The DIA kernel at every compiled instance it has for the
    shape, the run-time loop and every block of 32 to 256 threads, all
-   bit-identical, on levels 1 and 2 of path A, path B's operator and a
-   random 11-diagonal operator.  The fused CG's cluster instance at 16k
+   bit-identical, on levels 1 and 2 of path A, path B's operator, a HEX8
+   box (27 diagonals) and a random 11-diagonal operator.  The fused CG's cluster instance at 16k
    and on refined boxes of one and eight CTAs, and an operator of 17 CTAs
    that must take the grid instance, each bit-identical over two runs.
    These launches do not count.
@@ -799,6 +799,7 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
 
     from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
     from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_spmv, spmv_plain
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import dia_from_csr
     from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
         dia_matvec_plain,
     )
@@ -817,10 +818,12 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     A1m = run_a["report"]["operator"]
     pad_cases(f"path A, dims {A1m.dims}, (Z, myp, mxp) = ({A1m.Z}, "
               f"{A1m.myp}, {A1m.mxp})", A1m, run_a["report"]["system"])
+    hex8 = None
     for shape, elem in (((130, 12, 12), "TETRA4"), ((40, 40, 40), "HEX8")):
         sy, A = _pad_operator(shape, elem, device)
         pad_cases(f"box_mesh{shape} {elem} mxp={A.mxp} period={A.period}",
                   A, sy)
+        hex8 = sy.A  # the last: a 27-point stencil for the DIA kernel
 
     def dia_case(label, A, name, tol):
         """The default launch against the plain version; every compiled
@@ -852,6 +855,8 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     dia_case("level 2 of path A", L2, "float32", TOL_F32)
     dia_case("fine operator of the default route", run_b["report"]["operator"],
              "float64", TOL_F64)
+    dia_case("HEX8 box_mesh(40, 40, 40)", dia_from_csr(
+        hex8, dtype=torch.float32, device=device), "float32", TOL_F32)
     wide = _wide_dia(device)
     dia_case("random, offsets +-(mx*my+mx+1)", wide["float32"], "float32",
              TOL_F32)
