@@ -62,10 +62,15 @@ D. Every kernel against its plain PyTorch version on the card, on the
    launches).  The DIA kernel at every compiled instance it has for the
    shape, the run-time loop and every block of 32 to 256 threads, all
    bit-identical, on levels 1 and 2 of path A, path B's operator, a HEX8
-   box (27 diagonals) and a random 11-diagonal operator.  The fused CG's cluster instance at 16k
-   and on refined boxes of one and eight CTAs, and an operator of 17 CTAs
-   that must take the grid instance, each bit-identical over two runs.
-   These launches do not count.
+   box (27 diagonals) and a random 11-diagonal operator.  The fused CG's
+   cluster instance at 16k and on refined boxes of one and eight CTAs, and
+   an operator of 17 CTAs that must take the grid instance, each
+   bit-identical over two runs.  Restarts from a converged iterate (a
+   refined box, two random graphs): the solve, the grid instance and the
+   plain recurrence from the same iterate, beside its host relres and f32
+   floor; the restart converges within one iteration of the plain one's,
+   and stops at once where the iterate lies inside the tolerance by more
+   than four floors.  These launches do not count.
 E. Times with CUDA events and the profiler: each kernel on its path's
    shape, its plain version and, as a yardstick the port never calls, one
    PyTorch call computing the same product (cuSPARSE through
@@ -835,8 +840,7 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
         _compare(f"DIA {label} ({A.ndiags} diagonals, {A.n_pad} rows, "
                  f"{str(A.data.dtype)[6:]} storage)", y,
                  dia_matvec_plain(A, x), tol, errs, "dia_spmv")
-        default = _kernels.dia_launch_shape(A.n_pad, A.ndiags, A.data.dtype,
-                                            x.dtype)
+        default = _kernels.dia_launch_shape(A.n_pad, A.ndiags)
         shapes = [_kernels.DiaLaunch(i, blk)
                   for i in sorted({default.instance, 0})
                   for blk in _kernels.DIA_BLOCKS]
@@ -971,6 +975,69 @@ def compare_path_d(device, run_d1, run_d2, errs, vec) -> None:
         check(again.iterations == rf.iterations and torch.equal(again.x, rf.x),
               f"[D] fused CG {label}: two runs differ")
         errs["fused_cg"] = max(errs.get("fused_cg", 0.0), diff)
+    compare_restarts(device)
+
+
+def compare_restarts(device) -> None:
+    """Kernel 5 restarted from a converged iterate: the solve's own
+    instance, the grid instance and the plain recurrence, each from the
+    same iterate, beside the iterate's host relres and f32 rounding floor.
+    The restart converges within one iteration of the plain one's, and
+    stops at once where the iterate lies inside the tolerance by more than
+    four floors."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_from_csr
+    from domain_decomposed_pde_solver_tpu_torch.ops.csr import CSRMatrix
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        _inverse_diagonal,
+        fused_cg_plain,
+        fused_cg_plan,
+        fused_cg_solve,
+    )
+
+    sy, A = _refined_system(10, device)
+    restarts = {"refined 10^3": (sy.A, sy.b, A)}
+    for n, deg, seed, shift in ((500, 8, 3, 1e-3), (600, 9, 5, 0.5)):
+        S = _random_laplacian(n, deg, seed, shift)
+        csr = CSRMatrix(indptr=S.indptr.astype(np.int64),
+                        indices=S.indices.astype(np.int64), data=S.data,
+                        shape=S.shape)
+        xt = np.random.default_rng(seed + 7).standard_normal(n)
+        restarts[f"graph {n} (shift {shift:g})"] = (
+            csr, (S @ xt).astype(np.float32),
+            bsg_from_csr(csr, reorder=True, device=device))
+    for label, (H, b_host, A) in restarts.items():
+        b = A.put_vector(b_host, dtype=torch.float32)
+        invd = _inverse_diagonal(A)
+        done = fused_cg_solve(A, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
+        warm = fused_cg_solve(A, b, x0=done.x, tol=PCG_TOL,
+                              maxiter=PCG_MAXITER)
+        _xg, stats = _kernels.fused_cg_launch(A.slice_ptr, A.cols, A.vals, b,
+                                              invd, done.x, PCG_TOL,
+                                              PCG_MAXITER)
+        grid_k, _rr, grid_conv, _r2 = stats.tolist()
+        plain = fused_cg_plain(A, b, done.x, invd, tol=PCG_TOL,
+                               maxiter=PCG_MAXITER)
+        u = A.get_vector(done.x)
+        rr = host_relres(H, u, np.asarray(b_host, dtype=np.float64))
+        fl = f32_floor(H, u, np.asarray(b_host, dtype=np.float64))
+        log(f"[D] fused CG restart, {label} ({fused_cg_plan(A).instance} "
+            f"instance): solve {done.iterations} iterations, recursive "
+            f"relres {done.relres:.6e}; iterate's host relres {rr:.6e}, f32 "
+            f"floor {fl:.3e} (tolerance {PCG_TOL:g}); restarted from it: "
+            f"solve {warm.iterations}, grid instance {int(grid_k)}, plain "
+            f"{plain.iterations} iterations")
+        check(done.converged and warm.converged and plain.converged
+              and grid_conv > 0, f"[D] fused CG restart {label}: not converged")
+        check(warm.iterations <= plain.iterations + 1,
+              f"[D] fused CG restart {label}: {warm.iterations} iterations, "
+              f"plain {plain.iterations}")
+        check(rr + 4 * fl > PCG_TOL or warm.iterations == 0,
+              f"[D] fused CG restart {label}: an iterate inside the tolerance "
+              f"did not stop at once")
 
 
 # ---------------------------------------------------------------------------
@@ -1244,7 +1311,7 @@ def time_dia(device, card, run_a, run_b, rng) -> dict:
         dt = getattr(torch, name)
         x = torch.as_tensor(rng.normal(size=D.n_pad), dtype=dt, device=device)
         offs = D.offsets_array
-        default = _kernels.dia_launch_shape(D.n_pad, D.ndiags, D.data.dtype, dt)
+        default = _kernels.dia_launch_shape(D.n_pad, D.ndiags)
 
         def launch(sh):
             return lambda: _kernels.dia_spmv_launch(D.data, offs, x, shape=sh)

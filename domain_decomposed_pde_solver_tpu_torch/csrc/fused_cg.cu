@@ -272,13 +272,24 @@ fused_cg_kernel(const int64_t* __restrict__ slice_ptr,
 // The cluster instance
 // ---------------------------------------------------------------------------
 
-constexpr int kCta = 1024;  // threads, and rows, per CTA
+// The layout's constants come from the build (ops/_kernels.py defines them
+// once, for this source and for the instance rule that admits operators).
+#if !defined(DDPS_CLUSTER_CTA_ROWS) || !defined(DDPS_CLUSTER_MAX_CTAS) ||  \
+    !defined(DDPS_CLUSTER_MAX_WINDOW) || !defined(DDPS_CLUSTER_SMEM_BUDGET) || \
+    !defined(DDPS_CLUSTER_SMEM_TAIL)
+#error "build with -DDDPS_CLUSTER_* (ops/_kernels.py passes them)"
+#endif
+constexpr int kCta = DDPS_CLUSTER_CTA_ROWS;  // threads, and rows, per CTA
 constexpr int kCtaWarps = kCta / 32;  // = the CTA's 32-row slices
-constexpr int kMaxCtas = 16;
-constexpr int kMaxWindow = 1 << 16;  // 16-bit local columns
-constexpr int64_t kSmemBudget = 232448;  // a block's opt-in maximum (227 KB)
+constexpr int kMaxCtas = DDPS_CLUSTER_MAX_CTAS;
+constexpr int kMaxWindow = DDPS_CLUSTER_MAX_WINDOW;  // 16-bit local columns
+constexpr int64_t kSmemBudget = DDPS_CLUSTER_SMEM_BUDGET;  // opt-in maximum
 constexpr int kPartRegions = 6;  // b.b, r.z, r.r (set-up); p.Ap; r.z, r.r
 constexpr int kBars = 5;  // x0 window, r window, set-up, p.Ap, r.z + r.r
+static_assert(kCtaWarps == 32, "warp 0 reduces one sum of each warp");
+static_assert(kMaxCtas <= 32 && (kMaxCtas & (kMaxCtas - 1)) == 0,
+              "lane l of a warp adds the sum of CTA l % kMaxCtas");
+static_assert(kMaxWindow <= 1 << 16, "local columns are 16-bit");
 
 __host__ __device__ constexpr int64_t align16(int64_t bytes) {
   return (bytes + 15) / 16 * 16;
@@ -286,14 +297,16 @@ __host__ __device__ constexpr int64_t align16(int64_t bytes) {
 
 // Dynamic shared memory of a CTA, in this order: slot values (float), slot
 // columns (uint16), two windows (float: z = D^-1 r as pushed by its owners,
-// and p), the partials pushed by the cluster's CTAs (double, kPartRegions x
-// 16), 32 warps x 3 warp sums (double), the mbarriers (8 B each, 64 B),
-// every CTA's window start (int, 64 B).  solvers/fused_cg.py::
-// cluster_smem_bytes computes the same.
+// and p), then the tail: the partials pushed by the cluster's CTAs (double,
+// kPartRegions x kMaxCtas), 32 warps x 3 warp sums (double), the mbarriers
+// (8 B each, 64 B), every CTA's window start (int).
+constexpr int64_t kSmemTail =
+    8 * kPartRegions * kMaxCtas + 8 * 3 * kCtaWarps + 64 + 4 * kMaxCtas;
+static_assert(kSmemTail == DDPS_CLUSTER_SMEM_TAIL,
+              "the shared-memory tail differs from ops/_kernels.py's");
 __host__ __device__ constexpr int64_t cluster_smem_bytes(int64_t max_slots,
                                                          int64_t max_win) {
-  return align16(6 * max_slots) + 2 * align16(4 * max_win) +
-         8 * kPartRegions * kMaxCtas + 8 * 3 * kCtaWarps + 64 + 4 * kMaxCtas;
+  return align16(6 * max_slots) + 2 * align16(4 * max_win) + kSmemTail;
 }
 
 __device__ __forceinline__ void copy16_async(void* dst, const void* src) {

@@ -35,6 +35,9 @@ import torch
 __all__ = [
     "CLUSTER_CTA_ROWS",
     "CLUSTER_MAX_CTAS",
+    "CLUSTER_MAX_WINDOW",
+    "CLUSTER_SMEM_BUDGET",
+    "CLUSTER_SMEM_TAIL",
     "DIA_BLOCKS",
     "DIA_INSTANCES",
     "DIA_SPMV",
@@ -47,6 +50,7 @@ __all__ = [
     "SELL_SPMV",
     "WARP_CHUNKS",
     "build_kernels",
+    "cluster_smem_bytes",
     "dia_floor_launch",
     "dia_launch_shape",
     "dia_spmv_launch",
@@ -211,12 +215,30 @@ SELL_CHUNKED_SPMV = Kernel(
 # measurements only, the port never calls them.
 _GRID_ARGS = [_P] * 10 + [_I64, _P, _I64, _INT, _F32, _P]
 _CLUSTER_ARGS = [_P] * 9 + [_INT] * 4 + [_F32, _P, _P]
+
+# The cluster instance's layout, defined here once: the kernel takes these
+# at build time, and the instance rule (solvers/fused_cg.py) decides from
+# them which operators it admits.
+CLUSTER_CTA_ROWS = 1024  # rows (and threads) of a CTA of the cluster instance
+CLUSTER_MAX_CTAS = 16  # the largest (non-portable) cluster on Hopper
+CLUSTER_MAX_WINDOW = 1 << 16  # 16-bit local columns
+CLUSTER_SMEM_BUDGET = 232_448  # a block's opt-in shared memory on Hopper
+# A CTA's shared memory after its slots and two windows: 6 x 16 pushed
+# partials and 32 x 3 warp sums (8 B each), 64 B of mbarriers and 16 window
+# starts (4 B); the source holds its own layout to this with a static_assert.
+CLUSTER_SMEM_TAIL = (8 * 6 * CLUSTER_MAX_CTAS + 8 * 3 * (CLUSTER_CTA_ROWS // 32)
+                     + 64 + 4 * CLUSTER_MAX_CTAS)
+
 FUSED_CG = Kernel("fused_cg", _PKG / "csrc" / "fused_cg.cu", {
     "ddps_fused_cg_f32": _GRID_ARGS,
     "ddps_fused_cg_cluster_f32": _CLUSTER_ARGS,
     "ddps_fused_cg_study_f32": [_INT] + _GRID_ARGS,
     "ddps_fused_cg_cluster_study_f32": [_INT] + _CLUSTER_ARGS,
-})
+}, defines={"DDPS_CLUSTER_CTA_ROWS": CLUSTER_CTA_ROWS,
+            "DDPS_CLUSTER_MAX_CTAS": CLUSTER_MAX_CTAS,
+            "DDPS_CLUSTER_MAX_WINDOW": CLUSTER_MAX_WINDOW,
+            "DDPS_CLUSTER_SMEM_BUDGET": CLUSTER_SMEM_BUDGET,
+            "DDPS_CLUSTER_SMEM_TAIL": CLUSTER_SMEM_TAIL})
 FUSED_CG_MODES = {"barriers": 0, "matvec": 1, "solve": 2}
 
 KERNELS = (SELL_SPMV, PAD_STENCIL, DIA_SPMV, SELL_CHUNKED_SPMV, FUSED_CG)
@@ -404,8 +426,16 @@ def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
     return x, stats
 
 
-CLUSTER_CTA_ROWS = 1024  # rows (and threads) of a CTA of the cluster instance
-CLUSTER_MAX_CTAS = 16  # the largest (non-portable) cluster on Hopper
+def cluster_smem_bytes(max_slots: int, max_win: int) -> int:
+    """Dynamic shared memory of a CTA of the cluster instance (the source's
+    ``cluster_smem_bytes``): slot values (4 B) and columns (2 B), two
+    windows (z and p; 4 B an entry), each region rounded up to 16 B, and
+    :data:`CLUSTER_SMEM_TAIL`."""
+    def align16(v):
+        return -(-v // 16) * 16
+
+    return (align16(6 * max_slots) + 2 * align16(4 * max_win)
+            + CLUSTER_SMEM_TAIL)
 
 
 def fused_cg_cluster_launch(vals: torch.Tensor, lcols: torch.Tensor,
@@ -477,15 +507,13 @@ class DiaLaunch:
     block: int
 
 
-def dia_launch_shape(n: int, nd: int, storage: torch.dtype,
-                     vector: torch.dtype) -> DiaLaunch:
-    """Kernel 4's instance and launch shape for an ``(nd, n)`` operator in
-    ``storage`` with ``vector`` vectors: the compiled instance of ``nd``
-    if there is one, else the run-time loop; blocks of 128 threads below
-    2^17 rows (a small level spreads over the SMs), of 256 above.  The rule
-    is the sweep's (``chip_smoke.py`` phase E, PERF.md): no block was more
-    than 2 % faster at any measured size, and the types did not move the
-    best block."""
+def dia_launch_shape(n: int, nd: int) -> DiaLaunch:
+    """Kernel 4's instance and launch shape for an ``(nd, n)`` operator:
+    the compiled instance of ``nd`` if there is one, else the run-time
+    loop; blocks of 128 threads below 2^17 rows (a small level spreads over
+    the SMs), of 256 above.  The rule is the sweep's (``chip_smoke.py``
+    phase E, PERF.md): no block was more than 2 % faster at any measured
+    size, and the storage and vector types did not move the best block."""
     instance = nd if nd in DIA_INSTANCES else 0
     return DiaLaunch(instance, 128 if n < _DIA_LARGE else 256)
 
@@ -516,7 +544,7 @@ def dia_spmv_launch(data: torch.Tensor, offsets, x: torch.Tensor, *,
             f"no kernel for {data.dtype} storage with {x.dtype} vectors"
         )
     if shape is None:
-        shape = dia_launch_shape(n, nd, data.dtype, x.dtype)
+        shape = dia_launch_shape(n, nd)
     if shape.block not in DIA_BLOCKS or shape.instance not in (0, nd):
         raise ValueError(f"no launch {shape} for {nd} diagonals")
     offs = np.ascontiguousarray(offsets, dtype=np.int64)

@@ -100,8 +100,6 @@ class BSGMatrix:
     _slot_key: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False
     )
-    # The fused CG's plan for this operator (solvers/fused_cg.py), built once.
-    _fused_plan: Optional[object] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:

@@ -34,45 +34,32 @@ float32 operator, float32 vectors in its internal padded space,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import weakref
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..ops._kernels import CLUSTER_CTA_ROWS, CLUSTER_MAX_CTAS
+from ..ops._kernels import (
+    CLUSTER_CTA_ROWS,
+    CLUSTER_MAX_CTAS,
+    CLUSTER_MAX_WINDOW,
+    CLUSTER_SMEM_BUDGET,
+    cluster_smem_bytes,
+)
 from ..ops.bsg import SLICE, BSGMatrix, spmv_plain
 from .cg import CGResult
 
 __all__ = [
-    "CLUSTER_SMEM_BUDGET",
     "ClusterPack",
     "FusedPlan",
     "cluster_pack",
-    "cluster_smem_bytes",
     "cluster_spmv_plain",
     "fused_cg_instance",
     "fused_cg_plain",
     "fused_cg_plan",
     "fused_cg_solve",
 ]
-
-CLUSTER_SMEM_BUDGET = 232_448  # a block's opt-in shared memory on Hopper
-CLUSTER_MAX_WINDOW = 1 << 16  # 16-bit local columns
-
-
-def cluster_smem_bytes(max_slots: int, max_win: int) -> int:
-    """Dynamic shared memory of a CTA of the cluster instance (the kernel's
-    ``cluster_smem_bytes``): slot values (4 B) and columns (2 B), two
-    windows (z and p; 4 B an entry), 6 x 16 partials and 32 x 3 warp sums
-    (8 B each), 64 B of mbarriers and 16 window starts (4 B), the first
-    three regions each rounded up to 16 B."""
-    def align16(v):
-        return -(-v // 16) * 16
-
-    return (align16(6 * max_slots) + 2 * align16(4 * max_win)
-            + 8 * 6 * CLUSTER_MAX_CTAS + 8 * 3 * (CLUSTER_CTA_ROWS // 32)
-            + 64 + 4 * CLUSTER_MAX_CTAS)
-
 
 def fused_cg_instance(n_pad: int, max_slots: int, max_win: int) -> str:
     """``"cluster"`` when an operator of ``n_pad`` rows fits the cluster
@@ -176,12 +163,18 @@ class FusedPlan:
     pack: Optional[ClusterPack]
 
 
+# id(operator) -> its plan (a BSGMatrix is an unhashable dataclass, so no
+# WeakKeyDictionary); an entry goes with its operator.
+_PLANS: Dict[int, FusedPlan] = {}
+
+
 def fused_cg_plan(A: BSGMatrix) -> FusedPlan:
-    """The operator's :class:`FusedPlan`, cached on it: the cluster
-    instance when :func:`fused_cg_instance` admits its pack, else the grid
-    instance (operators of more than 16,384 rows, or of rows padded to
-    other than a multiple of 1024, are not packed)."""
-    if A._fused_plan is None:
+    """The operator's :class:`FusedPlan`, built once per operator: the
+    cluster instance when :func:`fused_cg_instance` admits its pack, else
+    the grid instance (operators of more than 16,384 rows, or of rows
+    padded to other than a multiple of 1024, are not packed)."""
+    plan = _PLANS.get(id(A))
+    if plan is None:
         pack = None
         if (A.n_pad <= CLUSTER_MAX_CTAS * CLUSTER_CTA_ROWS
                 and A.n_pad % CLUSTER_CTA_ROWS == 0):
@@ -189,10 +182,11 @@ def fused_cg_plan(A: BSGMatrix) -> FusedPlan:
             if fused_cg_instance(A.n_pad, pack.max_slots,
                                  pack.max_win) != "cluster":
                 pack = None
-        A._fused_plan = FusedPlan(invd=_inverse_diagonal(A),
-                                  instance="cluster" if pack else "grid",
-                                  pack=pack)
-    return A._fused_plan
+        plan = FusedPlan(invd=_inverse_diagonal(A),
+                         instance="cluster" if pack else "grid", pack=pack)
+        _PLANS[id(A)] = plan
+        weakref.finalize(A, _PLANS.pop, id(A), None)
+    return plan
 
 
 def _inverse_diagonal(A: BSGMatrix) -> torch.Tensor:
@@ -261,12 +255,13 @@ def fused_cg_solve(
         x0 = x0.to(torch.float32).contiguous()
     if b.numel() != A.n_pad or (x0 is not None and x0.numel() != A.n_pad):
         raise ValueError(f"vectors must have the operator's {A.n_pad} rows")
-    plan = fused_cg_plan(A)
     if b.device.type == "cpu":
         x0 = torch.zeros_like(b) if x0 is None else x0
-        return fused_cg_plain(A, b, x0, plan.invd, tol=tol, maxiter=maxiter)
+        return fused_cg_plain(A, b, x0, _inverse_diagonal(A), tol=tol,
+                              maxiter=maxiter)
     from ..ops._kernels import fused_cg_cluster_launch, fused_cg_launch
 
+    plan = fused_cg_plan(A)
     if plan.instance == "cluster":
         pk = plan.pack
         x, stats, _active = fused_cg_cluster_launch(

@@ -356,8 +356,7 @@ def test_dia_kernel_every_instance_and_shape_bit_identical(cuda_device, case):
     A, name = _dia_case(case, cuda_device)
     x = torch.as_tensor(np.random.default_rng(35).normal(size=A.n_pad),
                         dtype=getattr(torch, name), device=cuda_device)
-    default = _kernels.dia_launch_shape(A.n_pad, A.ndiags, A.data.dtype,
-                                        x.dtype)
+    default = _kernels.dia_launch_shape(A.n_pad, A.ndiags)
     assert default.instance == (A.ndiags if A.ndiags in (19, 23, 27) else 0)
     assert A.ndiags == {"level1": 19, "hex8": 27, "pathB": 19, "edge19": 19,
                         "inst23": 23, "loop7": 7, "1M": 19}[case]
@@ -614,27 +613,48 @@ def test_fused_cg_kernel_matches_plain(cuda_device, n, deg, seed):
     assert torch.equal(again.x, res.x)  # bit-identical
 
 
+def _check_restart(S, b_host, A, b, done, invd):
+    """Restart ``fused_cg_solve`` from its converged iterate ``done.x`` and
+    hold it against the plain recurrence restarted from the same iterate.
+    Both start from the true residual b - A x0 in f32, which the recursive
+    residual that stopped ``done`` never saw: where the iterate's host
+    relres lies at the tolerance, rounding decides whether the restart
+    stops at once, so it converges within one iteration of the plain one;
+    where it lies below the tolerance by more than the f32 rounding floor
+    (eps/2 * || |A| |x| || / ||b||, four times over), it stops at once."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plain,
+        fused_cg_solve,
+    )
+
+    warm = fused_cg_solve(A, b, x0=done.x, tol=1e-6, maxiter=2000)
+    plain = fused_cg_plain(A, b, done.x, invd, tol=1e-6, maxiter=2000)
+    assert done.converged and warm.converged and plain.converged
+    assert warm.iterations <= plain.iterations + 1
+    x = A.get_vector(done.x).astype(np.float64)
+    bh = np.asarray(b_host, dtype=np.float64)
+    host = np.linalg.norm(S @ x - bh) / np.linalg.norm(bh)
+    floor = (np.finfo(np.float32).eps / 2
+             * np.linalg.norm(abs(S) @ np.abs(x)) / np.linalg.norm(bh))
+    assert host < 5e-6
+    if host + 4 * floor <= 1e-6:
+        assert warm.iterations == 0 and torch.equal(warm.x, done.x)
+    return warm
+
+
 def test_fused_cg_kernel_maxiter_warm_start_and_zero_rhs(cuda_device):
-    """The grid instance, launched directly: ``fused_cg_solve`` sends an
-    operator of 1,024 rows to the cluster instance, whose own checks are
-    ``test_fused_cg_cluster_zero_rhs_maxiter_and_warm_start``."""
-    from domain_decomposed_pde_solver_tpu_torch.solvers.cg import CGResult
+    """``fused_cg_solve`` on a 500-node graph of 1,024 padded rows (the
+    cluster instance): capped, restarted from its converged iterate, and
+    on a zero right side."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_solve,
+    )
 
-    _S, A, _b_host, b, invd = _fused_case(500, 8, 3, cuda_device, shift=1e-3)
-
-    def fused_cg_solve(A, b, x0=None, *, tol, maxiter=300):
-        x0 = torch.zeros_like(b) if x0 is None else x0
-        x, stats = _kernels.fused_cg_launch(A.slice_ptr, A.cols, A.vals, b,
-                                            invd, x0, tol, maxiter)
-        k, relres, converged, _rnorm2 = stats.tolist()
-        return CGResult(x=x, iterations=int(k), relres=relres,
-                        converged=converged > 0)
-
+    S, A, b_host, b, invd = _fused_case(500, 8, 3, cuda_device, shift=1e-3)
     capped = fused_cg_solve(A, b, tol=1e-12, maxiter=7)
     assert capped.iterations == 7 and not capped.converged
     done = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
-    warm = fused_cg_solve(A, b, x0=done.x, tol=1e-6, maxiter=2000)
-    assert done.converged and warm.iterations == 0 and warm.converged
+    _check_restart(S, b_host, A, b, done, invd)
     zero = fused_cg_solve(A, torch.zeros_like(b), tol=1e-6)
     assert zero.iterations == 0 and zero.converged and zero.relres == 0.0
     assert not torch.any(zero.x)
@@ -679,18 +699,17 @@ def test_fused_cg_cluster_instance_matches_plain(cuda_device, cells, n_pad):
 
 
 def test_fused_cg_cluster_zero_rhs_maxiter_and_warm_start(cuda_device):
-    """The cluster instance on a refined box of 8 CTAs (b = 0, maxiter = 0
-    keeps x0, maxiter caps the solve) and, for the warm start, on the
-    600-node graph of JAX's ``test_fused_warm_start``: a restart from the
-    converged iterate stops at once when the answer's f32 rounding floor
-    lies far below the tolerance (on the refined box, with values near
-    1000, it is about 1e-6 itself)."""
+    """The cluster instance on a refined box of 8 CTAs: b = 0, maxiter = 0
+    keeps x0, maxiter caps the solve, and a restart from the converged
+    iterate (``_check_restart``); also the restart on the 600-node graph of
+    JAX's ``test_fused_warm_start``."""
     from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        _inverse_diagonal,
         fused_cg_plan,
         fused_cg_solve,
     )
 
-    _sy, A, b = _refined_operator(10, cuda_device)
+    sy, A, b = _refined_operator(10, cuda_device)
     assert fused_cg_plan(A).instance == "cluster"
     zero = fused_cg_solve(A, torch.zeros_like(b), tol=1e-6)
     assert zero.iterations == 0 and zero.converged and zero.relres == 0.0
@@ -699,14 +718,15 @@ def test_fused_cg_cluster_zero_rhs_maxiter_and_warm_start(cuda_device):
     none = fused_cg_solve(A, b, x0=x0, tol=1e-6, maxiter=0)
     assert none.iterations == 0 and not none.converged
     assert torch.equal(none.x, x0)
+    done = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
+    _check_restart(sy.A.to_scipy(), sy.b, A, b, done, _inverse_diagonal(A))
     capped = fused_cg_solve(A, b, tol=1e-12, maxiter=7)
     assert capped.iterations == 7 and not capped.converged
-    _S, G, _b_host, bg, _invd = _fused_case(600, 9, 5, cuda_device)
+    G_host, G, bg_host, bg, invd = _fused_case(600, 9, 5, cuda_device)
     assert fused_cg_plan(G).instance == "cluster"
     done = fused_cg_solve(G, bg, tol=1e-6, maxiter=2000)
-    warm = fused_cg_solve(G, bg, x0=done.x, tol=1e-6, maxiter=2000)
-    assert done.converged and warm.iterations == 0 and warm.converged
-    assert torch.equal(warm.x, done.x)
+    warm = _check_restart(G_host, bg_host, G, bg, done, invd)
+    assert warm.iterations == 0  # its iterate lies far inside the tolerance
 
 
 def test_fused_cg_past_the_cluster_takes_the_grid(cuda_device):

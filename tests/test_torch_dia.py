@@ -242,22 +242,22 @@ def test_wrapper_dispatch_by_device():
         dia_spmv(A, x[:-1])
 
 
-@pytest.mark.parametrize("n,nd,storage,vector,expect", [
-    (4_920, 19, torch.float32, torch.float32, (19, 128)),  # level 1
-    (216, 23, torch.float32, torch.float32, (23, 128)),  # level 2
-    (8_384, 19, torch.bfloat16, torch.float64, (19, 128)),  # path B
-    (40, 27, torch.float32, torch.float64, (27, 128)),  # HEX8, tiny
-    (1_009_904, 19, torch.bfloat16, torch.float64, (19, 256)),  # 1M
-    (1_009_904, 27, torch.float64, torch.float64, (27, 256)),
-    (5_000, 11, torch.float32, torch.float32, (0, 128)),  # run-time loop
-    (300_000, 7, torch.bfloat16, torch.float32, (0, 256)),
+@pytest.mark.parametrize("n,nd,expect", [
+    (4_920, 19, (19, 128)),  # level 1
+    (216, 23, (23, 128)),  # level 2
+    (8_384, 19, (19, 128)),  # path B
+    (40, 27, (27, 128)),  # HEX8, tiny
+    (1_009_904, 19, (19, 256)),  # 1M
+    (1_009_904, 27, (27, 256)),
+    (5_000, 11, (0, 128)),  # run-time loop
+    (300_000, 7, (0, 256)),
 ])
-def test_dia_launch_shape_rule(n, nd, storage, vector, expect):
-    """Kernel 4's launch rule is a pure function of the operator's size and
-    types: the compiled instance of 19, 23 or 27 diagonals (the counts of
-    the structured routes' DIA levels), else the run-time loop; 128-thread
+def test_dia_launch_shape_rule(n, nd, expect):
+    """Kernel 4's launch rule is a pure function of the operator's size:
+    the compiled instance of 19, 23 or 27 diagonals (the counts of the
+    structured routes' DIA levels), else the run-time loop; 128-thread
     blocks below 2^17 rows, 256 above."""
-    shape = _kernels.dia_launch_shape(n, nd, storage, vector)
+    shape = _kernels.dia_launch_shape(n, nd)
     assert (shape.instance, shape.block) == expect
     assert shape.block in _kernels.DIA_BLOCKS
 

@@ -17,6 +17,8 @@ iterations of each other (the JAX file's own bound against the unfused
 solver), and the answer's host f64 relative residual is < 5e-6.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -34,11 +36,10 @@ from domain_decomposed_pde_solver_tpu_torch.solvers import (
     fused_cg_solve,
     jacobi_preconditioner,
 )
+from domain_decomposed_pde_solver_tpu_torch.solvers import fused_cg as fused_cg_mod
 from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
-    CLUSTER_SMEM_BUDGET,
     _inverse_diagonal,
     cluster_pack,
-    cluster_smem_bytes,
     cluster_spmv_plain,
     fused_cg_instance,
     fused_cg_plan,
@@ -208,8 +209,25 @@ def test_cluster_pack_of_a_random_graph_of_one_cta():
 ])
 def test_fused_cg_instance_rule(n_pad, max_slots, max_win, expect):
     assert fused_cg_instance(n_pad, max_slots, max_win) == expect
-    fits = cluster_smem_bytes(max_slots, max_win) <= CLUSTER_SMEM_BUDGET
+    fits = (_kernels.cluster_smem_bytes(max_slots, max_win)
+            <= _kernels.CLUSTER_SMEM_BUDGET)
     assert (expect == "cluster") <= fits
+
+
+def test_fused_cg_solve_on_the_cpu_packs_nothing():
+    """A CPU solve runs the plain recurrence on JAX's inverse diagonal and
+    builds no plan (no cluster pack); a plan goes with its operator."""
+    S = random_laplacian(700, 8, 15, shift=0.5)
+    _Aj, A = _operators(S)
+    res = fused_cg_solve(A, A.put_vector(S @ np.ones(700)), tol=1e-6,
+                         maxiter=500)
+    assert res.converged and id(A) not in fused_cg_mod._PLANS
+    assert fused_cg_plan(A).instance == "cluster"
+    key = id(A)
+    assert key in fused_cg_mod._PLANS
+    del A
+    gc.collect()
+    assert key not in fused_cg_mod._PLANS
 
 
 def test_fused_cg_plan_takes_the_grid_off_the_1024_row_grain():
