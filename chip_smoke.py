@@ -54,6 +54,48 @@ D3. The CLI's reference routes on an unstructured mesh written to Exodus,
    on this numbering (its working row fills to the bandwidth), some 30 min
    at 111,824 DOF.  Each exits 0 with a host relres from the file <= 1.5e-8
    and values in [100, 1000].
+F. This slice's paths, in a process of its own (``--phase-f``: the
+   profiler of a process that has run them loses device records, which
+   phase E needs), each run with every launch counter at 0 just before it
+   and read just after, in about two minutes:
+   F1. On path A's system (1,009,899 DOF) and its f64 DIA operator (bf16
+   storage, the DIA kernel): ``lanczos_extremes(k=40)`` from a
+   ``default_rng(0)`` start: 0 < lmin, lmax <= the host Gershgorin bound and
+   within 1e-8 relative of the same 40 steps in numpy on the host CSR (an
+   independent implementation: modified Gram-Schmidt, scipy products).
+   Then ``transient_heat_solve(dt=0.2, n_steps=40, tol=1e-10)`` as
+   ``examples/04_transient.py`` runs it: the last step's shifted system has
+   a host f64 relres <= 1e-9; every value lies in [0, 1000] (the shifted
+   Laplacian is an M-matrix) within tol * max ||rhs||, the error bound of a
+   step solved to tol; the host ||A u - b|| never rises from step to step.
+   F2. ``cg_solve_resumable`` on F1's operator, Jacobi, 1e-10, a checkpoint
+   every 20 iterations: stopped at 60, then resumed, it takes the unbroken
+   run's iterations and lands on its answer bit for bit.  Then the CLI's
+   ``--checkpoint`` route (f64 CG+AMG to 1e-12, a checkpoint every 5) on
+   ``box_mesh(20, 20, 20, "TETRA4")``: capped at 10 iterations it exits 1,
+   run again it exits 0 with the unbroken run's iterations and answer, and
+   the file's host relres is <= 1.5e-8.
+   F3. ``cli.matrix_test`` on path A's Exodus file (1,030,301 rows, the
+   full-mesh Laplacian as f64 ELL, a plain PyTorch product as JAX's is an
+   XLA one): 500 power iterations at 1e-2, a report every 50; exit 0.
+   F4. P1 finite elements on ``box_mesh(100, 100, 100, "TETRA4")`` with
+   Dirichlet u = 5 on x = 0 and sideset 77 on x = 1
+   (``examples/05_fem_flux_bcs.py``): Neumann g = 3.25, then Robin
+   (alpha, u_env) = (2, 11), each ``choose_operator`` (f64 DIA) plus
+   ``smoothed_aggregation_setup``, f64 CG+AMG to 1e-13; the maximum error
+   against the exact linear solution <= 1e-6.
+   F5. P2 on ``box_mesh(24, 24, 24, "TETRA4")`` and Q2 on
+   ``box_mesh(24, 24, 24, "HEX8")`` (117,649 nodes each; at 1M DOF the
+   host COO assembly alone would hold 75-91 M triplets), f64 CG+AMG to
+   1e-13 on the sliced-ELL kernel; the maximum error against the
+   manufactured quadratic <= 1e-8.
+   F6. ``cli.decompose``, ``cli.assemble_test`` and ``cli.combine`` on F2's
+   box: each exits 0 (four blocks; "OK"; every dumped row merged).
+   Each of F1, F2 and F4 launches the DIA kernel and F5 the sliced-ELL
+   kernel; the ``kernels`` line lists every kernel's launches per run.
+   Then each counted solve runs again under the profiler: device time,
+   busy time, wall and idle share, and the time in the port's kernels
+   (a trace missing one of the counted run's launches is taken again).
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
@@ -686,6 +728,575 @@ def phase_d3(device, kernels, routes=D3_ROUTES, extra_args=()) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# F. Slice 6: transient heat and Lanczos, resumable CG, the matrix test, the
+#    finite-element models and the host drivers
+# ---------------------------------------------------------------------------
+
+QUAD_CELLS = 24  # P2 / Q2 boxes of 24^3 cells: 117,649 nodes each
+
+
+def _host_lanczos(S, z0, k: int) -> float:
+    """lambda_max from k Lanczos steps in numpy on the host CSR, with
+    modified Gram-Schmidt: an implementation independent of the port's."""
+    import numpy as np
+
+    V = np.zeros((k + 1, z0.size))
+    V[0] = z0 / np.linalg.norm(z0)
+    alphas, betas = np.zeros(k), np.zeros(k)
+    for j in range(k):
+        w = S @ V[j]
+        alphas[j] = V[j] @ w
+        w -= alphas[j] * V[j] + (betas[j - 1] * V[j - 1] if j else 0.0)
+        for i in range(j + 1):
+            w -= (V[i] @ w) * V[i]
+        betas[j] = np.linalg.norm(w)
+        V[j + 1] = w / betas[j]
+    T = np.diag(alphas) + np.diag(betas[:-1], 1) + np.diag(betas[:-1], -1)
+    return float(np.linalg.eigvalsh(T)[-1])
+
+
+def _run_counted(kernels, fn):
+    """Run ``fn`` with every launch counter at 0 just before it; returns its
+    result, the counts just after it and its wall time in seconds."""
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    out = fn()
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, read_counts(kernels), time.perf_counter() - t0
+
+
+def _launched(counts) -> str:
+    """The kernels a counted run launched, by C entry, as JSON."""
+    return json.dumps({k: c["by_entry"] for k, c in counts.items()
+                       if c["launches"]})
+
+
+def _want_launched(device, counts, names, tag) -> None:
+    if device.type == "cuda":
+        for name in names:
+            check(counts[name]["launches"] > 0,
+                  f"[{tag}] the {name} kernel was not launched")
+
+
+def phase_f1(device, kernels, sy) -> dict:
+    """Lanczos extremes and 40 implicit-Euler steps on the heat system's
+    f64 DIA operator (kernel 4)."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        transient_heat_solve,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import (
+        DIAMatrix,
+        choose_operator,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        lanczos_extremes,
+    )
+
+    A = choose_operator(sy.A, dtype=torch.float64, device=device)
+    check(isinstance(A, DIAMatrix), f"[F1] operator {type(A).__name__}")
+    S = sy.A.to_scipy().tocsr()
+    z0 = np.random.default_rng(0).standard_normal(sy.n_free)
+    z0_dev = A.put_vector(z0)
+    lan, c_lan, t_lan = _run_counted(
+        kernels, lambda: lanczos_extremes(A, z0_dev, k=40))
+    gersh = float(abs(S).sum(axis=1).max())
+    t0 = time.perf_counter()
+    host_lmax = _host_lanczos(S, z0, 40)
+    t_host = time.perf_counter() - t0
+    log(f"[F1] Lanczos k=40 on {sy.n_free} DOF: lmin {lan.lmin:.10g}, lmax "
+        f"{lan.lmax:.10g} (Gershgorin bound {gersh:g}; the same 40 steps "
+        f"in numpy on the host CSR, modified Gram-Schmidt: {host_lmax:.10g}, "
+        f"{t_host:.2f} s), condition {lan.condition:.6g}, {t_lan:.3f} s, "
+        f"launches {_launched(c_lan)}")
+    check(0.0 < lan.lmin, f"[F1] lmin {lan.lmin} <= 0")
+    check(lan.lmax <= gersh * (1 + 1e-12), f"[F1] lmax {lan.lmax} > {gersh}")
+    check(abs(lan.lmax - host_lmax) <= 1e-8 * host_lmax,
+          f"[F1] lmax {lan.lmax} vs the host's {host_lmax}")
+    _want_launched(device, c_lan, ["dia_spmv"], "F1")
+
+    dt, steps, tol = 0.2, 40, 1e-10
+    last, resid, rhs_norm = [], [], [0.0]
+
+    def keep(step, t, u):
+        prev = last[-1] if last else np.zeros(sy.n_free)
+        rhs_norm[0] = max(rhs_norm[0], float(np.linalg.norm(prev + dt * sy.b)))
+        last.append(u)
+        del last[:-2]
+        resid.append(float(np.linalg.norm(S @ u - sy.b)))
+
+    tr, c_tr, t_tr = _run_counted(kernels, lambda: transient_heat_solve(
+        sy, A, dt=dt, n_steps=steps, tol=tol, callback=keep))
+    u_prev, u = last
+    rhs = u_prev + dt * sy.b
+    step_rr = float(np.linalg.norm(u + dt * (S @ u) - rhs) / np.linalg.norm(rhs))
+    # A step solved to tol leaves ||e|| <= tol ||rhs|| / lambda_min(I + dt A)
+    # and lambda_min >= 1: the slack of the maximum principle's bounds.
+    slack = tol * rhs_norm[0]
+    lo, hi = float(u.min()), float(u.max())
+    rises = float(np.diff(resid).max())
+    log(f"[F1] transient dt={dt}, {steps} steps: {tr.total_cg_iterations} CG "
+        f"iterations in {t_tr:.3f} s (host residual checks included); last "
+        f"step's host f64 relres {step_rr:.3e} (limit 1e-9); values "
+        f"[{lo:.6g}, {hi:.6g}] (limits [0, 1000] -/+ {slack:.3e}); ||A u - "
+        f"b|| {resid[0]:.6g} -> {resid[-1]:.6g}, largest step change "
+        f"{rises:.6g}; launches {_launched(c_tr)}")
+    check(step_rr <= 1e-9, f"[F1] last step's relres {step_rr:.3e} > 1e-9")
+    check(-slack <= lo and hi <= 1000.0 + slack,
+          f"[F1] values [{lo}, {hi}] outside [0, 1000]")
+    check(rises <= 0.0, f"[F1] ||A u - b|| rose by {rises}")
+    _want_launched(device, c_tr, ["dia_spmv"], "F1")
+    replays = {
+        "F1 lanczos": (lambda: lanczos_extremes(A, z0_dev, k=40), c_lan),
+        "F1 transient": (lambda: transient_heat_solve(
+            sy, A, dt=dt, n_steps=steps, tol=tol), c_tr),
+    }
+    return dict(A=A, replays=replays, lmin=lan.lmin, lmax=lan.lmax,
+                host_lmax=host_lmax,
+                gershgorin=gersh, lanczos_s=t_lan,
+                cg_iterations=tr.total_cg_iterations, transient_s=t_tr,
+                step_relres=step_rr, launches={"lanczos": c_lan,
+                                               "transient": c_tr})
+
+
+def phase_f2(device, kernels, sy, A, small_box: int = SMALL_BOX,
+             out=OUT) -> dict:
+    """The resumable CG on F1's operator (Jacobi, 1e-10, a checkpoint every
+    20 iterations), stopped at 60 and resumed; then the CLI's --checkpoint
+    route on a small box."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.cli.solve import main
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        read_nodal_vars,
+        write_exodus,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        cg_solve_resumable,
+        jacobi_preconditioner,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    out.mkdir(parents=True, exist_ok=True)
+    b = A.put_vector(sy.b)
+    M = jacobi_preconditioner(A)
+    paths = {k: out / f"f2_{k}.npz" for k in ("whole", "broken", "cli",
+                                               "cli_whole")}
+    for p in paths.values():
+        p.unlink(missing_ok=True)
+
+    def solve(path, maxiter):
+        return cg_solve_resumable(A, b, torch.zeros_like(b),
+                                  checkpoint_path=str(path),
+                                  checkpoint_every=20, precond=M, tol=1e-10,
+                                  maxiter=maxiter)
+
+    whole, c_whole, t_whole = _run_counted(
+        kernels, lambda: solve(paths["whole"], 20000))
+    # Stopped at 60 iterations, or, on a box too small for that, at the
+    # last checkpoint before the answer.
+    stop = min(60, (whole.iterations - 1) // 20 * 20)
+    first, c_first, _t = _run_counted(
+        kernels, lambda: solve(paths["broken"], stop))
+    saved = load_checkpoint(str(paths["broken"])).iteration
+    rest, c_rest, t_rest = _run_counted(
+        kernels, lambda: solve(paths["broken"], 20000))
+    same = bool(torch.equal(rest.x, whole.x))
+    rr = host_relres(sy.A, A.get_vector(whole.x), sy.b)
+    log(f"[F2] resumable CG+Jacobi to 1e-10 on {sy.n_free} DOF: unbroken "
+        f"{whole.iterations} iterations in {t_whole:.3f} s (host f64 relres "
+        f"{rr:.3e}); stopped at {first.iterations} (checkpoint at {saved}), "
+        f"resumed to {rest.iterations} in {t_rest:.3f} s; x bit-identical: "
+        f"{same}; launches {_launched(c_whole)}")
+    check(whole.converged and rest.converged, "[F2] not converged")
+    check(stop >= 20 and first.iterations == stop and not first.converged
+          and saved == stop,
+          f"[F2] stopped at {first.iterations}, checkpoint at {saved}")
+    check(rest.iterations == whole.iterations,
+          f"[F2] resumed {rest.iterations} vs unbroken {whole.iterations}")
+    check(same, "[F2] the resumed answer is not bit-identical")
+    check(rr <= 1.5e-10, f"[F2] host relres {rr:.3e} > 1.5e-10")
+    for c in (c_whole, c_first, c_rest):
+        _want_launched(device, c, ["dia_spmv"], "F2")
+
+    mesh = out / f"f2_box{small_box}.exo"
+    write_exodus(str(mesh), box_mesh(small_box, small_box, small_box,
+                                     "TETRA4"))
+    base = ["--input", mesh, "--dtype", "float64", "--precond", "amg",
+            "--tolerance", "1e-12", "--checkpoint-every", "5"]
+    if device.type != "cuda":
+        base.append("--cpu")
+    runs = {}
+    for label, extra in (("capped", ["--checkpoint", paths["cli"],
+                                     "--iterations", "10"]),
+                         ("resumed", ["--checkpoint", paths["cli"]]),
+                         ("unbroken", ["--checkpoint", paths["cli_whole"]])):
+        rep = {}
+        sol = out / f"f2_{label}.exo"
+        rc, wall, counts = run_cli(base + extra + ["--solution", sol], rep,
+                                   kernels)
+        runs[label] = dict(rc=rc, wall=wall, counts=counts,
+                           iterations=rep["result"].iterations,
+                           u=read_nodal_vars(str(sol))[2][-1, 0],
+                           system=rep["system"])
+    sy2 = runs["resumed"]["system"]
+    rr2 = host_relres(sy2.A, runs["resumed"]["u"][sy2.free_to_node], sy2.b)
+    log(f"[F2] CLI --checkpoint on box_mesh({small_box}^3), {sy2.n_free} "
+        f"DOF, CG+AMG to 1e-12: capped rc {runs['capped']['rc']} at "
+        f"{runs['capped']['iterations']}, resumed rc {runs['resumed']['rc']} "
+        f"at {runs['resumed']['iterations']}, unbroken "
+        f"{runs['unbroken']['iterations']}; host relres {rr2:.3e} (limit "
+        f"1.5e-8); walls {[round(r['wall'], 3) for r in runs.values()]} s")
+    check(runs["capped"]["rc"] == 1 and runs["capped"]["iterations"] == 10,
+          "[F2] the capped CLI run did not stop at 10 iterations")
+    check(runs["resumed"]["rc"] == 0, "[F2] the resumed CLI run failed")
+    check(runs["resumed"]["iterations"] == runs["unbroken"]["iterations"]
+          and np.array_equal(runs["resumed"]["u"], runs["unbroken"]["u"]),
+          "[F2] the resumed CLI run differs from the unbroken one")
+    check(rr2 <= 1.5e-8, f"[F2] CLI host relres {rr2:.3e} > 1.5e-8")
+    for r in runs.values():
+        _want_launched(device, r["counts"], ["dia_spmv"], "F2")
+    def replay():
+        paths["whole"].unlink()
+        return solve(paths["whole"], 20000)
+
+    return dict(replays={"F2 resumable": (replay, c_whole)},
+                iterations=whole.iterations, whole_s=t_whole,
+                resumed_s=t_rest, host_relres=rr, bit_identical=same,
+                cli_iterations=runs["resumed"]["iterations"],
+                cli_host_relres=rr2,
+                launches={"whole": c_whole, "cli": runs["resumed"]["counts"]})
+
+
+def _captured(fn):
+    """Run ``fn`` with standard output captured; log and return it."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"    | {line}")
+    return rc, text
+
+
+def phase_f3(device, kernels, exo, rows: int) -> dict:
+    """The matrix test (power method, 500 iterations, 1e-2, a report every
+    50) on the full-mesh Laplacian of ``exo``, a mesh of ``rows`` nodes."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.cli.matrix_test import main
+    from domain_decomposed_pde_solver_tpu_torch.solvers import power_method
+
+    rep = {}
+    args = ["--input", str(exo)] + ([] if device.type == "cuda" else ["--cpu"])
+    (rc, text), counts, wall = _run_counted(
+        kernels, lambda: _captured(lambda: main(args, report=rep)))
+    final = text.strip().splitlines()[-1]
+    L, res = rep["laplacian"], rep["result"]
+    log(f"[F3] matrix test on {L.n_rows} rows ({L.nnz} nnz): rc {rc}, wall "
+        f"{wall:.2f} s; final line: {final}")
+    check(rc == 0, f"[F3] the matrix test exited with {rc}")
+    check(L.n_rows == rows, f"[F3] {L.n_rows} rows, want {rows}")
+    check(final.startswith("lambda_max ~= "), f"[F3] final line {final!r}")
+    A = rep["operator"]
+    z0 = A.put_vector(np.random.default_rng(0).uniform(size=L.n_rows))
+    # One call with a check every 50 is the matrix test's chunked loop.
+    replays = {"F3 power": (lambda: power_method(
+        A, z0, maxiter=500, tol=1e-2, check_every=50), counts)}
+    return dict(replays=replays, rows=L.n_rows, eigenvalue=res.eigenvalue,
+                residual=res.residual, converged=res.converged, wall_s=wall,
+                final_line=final, launches=counts)
+
+
+def _plane_sideset(mesh, ss_id: int, xval: float):
+    """All tet faces on the plane x == xval as an Exodus sideset, as
+    ``examples/05_fem_flux_bcs.py`` builds it."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import SideSet, side_local_nodes
+
+    on = np.isclose(mesh.coords[:, 0], xval)
+    elems, sides, off = [], [], 0
+    for blk in mesh.blocks:
+        for s in range(1, 5):
+            hit = on[blk.conn[:, list(side_local_nodes("TETRA4", s))]].all(1)
+            e = np.nonzero(hit)[0]
+            elems.append(e + off)
+            sides.append(np.full(e.size, s))
+        off += blk.conn.shape[0]
+    return SideSet(id=ss_id, elems=np.concatenate(elems),
+                   sides=np.concatenate(sides))
+
+
+def _fem_solve(device, kernels, sy, tol):
+    """f64 CG+AMG on ``choose_operator`` and ``smoothed_aggregation_setup``
+    of an assembled system; returns (answer, result, counts, times, a
+    replay of the solve with its counts)."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import choose_operator
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        cg_solve,
+        smoothed_aggregation_setup,
+    )
+
+    t0 = time.perf_counter()
+    A = choose_operator(sy.A, dtype=torch.float64, device=device)
+    M = smoothed_aggregation_setup(sy.A, dtype=torch.float64, device=device)
+    t_setup = time.perf_counter() - t0
+    b = A.put_vector(sy.b, dtype=torch.float64)
+
+    def solve():
+        return cg_solve(A, b, torch.zeros_like(b), precond=M, tol=tol,
+                        maxiter=1000)
+
+    res, counts, t_solve = _run_counted(kernels, solve)
+    check(res.converged, f"CG+AMG did not converge ({res.iterations})")
+    levels = [(lvl.n_rows, type(lvl.A).__name__) for lvl in M.levels]
+    return A.get_vector(res.x), res, counts, dict(
+        setup_s=t_setup, solve_s=t_solve, operator=type(A).__name__,
+        levels=levels), (solve, counts)
+
+
+def phase_f4(device, kernels, box: int = BOX) -> dict:
+    """P1 FEM with Dirichlet u = 5 on x = 0 and a flux boundary on x = 1:
+    Neumann g = 3.25, then Robin (alpha, u_env) = (2, 11); exact linear."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import NodeSet, box_mesh
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_poisson_fem,
+    )
+
+    t0 = time.perf_counter()
+    mesh = box_mesh(box, box, box, "TETRA4")
+    x0 = np.nonzero(np.isclose(mesh.coords[:, 0], 0.0))[0].astype(np.int64)
+    mesh.node_sets = [NodeSet(id=5, nodes=x0)]
+    mesh.side_sets = [_plane_sideset(mesh, 77, 1.0)]
+    t_mesh = time.perf_counter() - t0
+    g, alpha, u_env = 3.25, 2.0, 11.0
+    replays = {}
+    cases = {"neumann": (dict(neumann={77: g}), g),
+             "robin": (dict(robin={77: (alpha, u_env)}),
+                       alpha * (u_env - 5.0) / (1.0 + alpha))}
+    out = {}
+    for label, (kw, slope) in cases.items():
+        t0 = time.perf_counter()
+        sy = assemble_poisson_fem(mesh, **kw)
+        t_asm = time.perf_counter() - t0
+        u, res, counts, times, replays[f"F4 {label}"] = _fem_solve(
+            device, kernels, sy, tol=1e-13)
+        err = float(np.abs(u - (5.0 + slope * mesh.coords[sy.free_to_node, 0])
+                           ).max())
+        log(f"[F4] P1 {label} on box_mesh({box}^3), {sy.n_free} DOF, "
+            f"{sy.A.nnz} nnz: assembly {t_asm:.2f} s (mesh and sideset "
+            f"{t_mesh:.2f} s), operator {times['operator']}, AMG "
+            f"{times['levels']}, set-up {times['setup_s']:.2f} s; CG+AMG to "
+            f"1e-13: {res.iterations} iterations in {times['solve_s']:.3f} s; "
+            f"max |u - (5 + {slope:g} x)| = {err:.3e} (limit 1e-6); launches "
+            f"{_launched(counts)}")
+        check(err <= 1e-6, f"[F4] {label}: error {err:.3e} > 1e-6")
+        _want_launched(device, counts, ["dia_spmv"], "F4")
+        out[label] = dict(dof=sy.n_free, iterations=res.iterations,
+                          max_err=err, assembly_s=t_asm, launches=counts,
+                          **times)
+    out["replays"] = replays
+    return out
+
+
+def _u_p2(c):
+    return c[:, 0] ** 2 + 2 * c[:, 1] ** 2 - 3 * c[:, 2] ** 2
+
+
+def _u_q2(c):
+    return c[:, 0] ** 2 + 2 * c[:, 1] ** 2 + 3 * c[:, 2] ** 2 - c[:, 0] * c[:, 1]
+
+
+def phase_f5(device, kernels, cells: int = QUAD_CELLS) -> dict:
+    """P2 on a TETRA4 box and Q2 on a HEX8 box against their manufactured
+    quadratics (JAX's tests/test_p2.py:42 and tests/test_q2.py:51)."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import box_mesh
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_poisson_p2,
+        assemble_poisson_q2,
+        elevate_to_p2,
+        elevate_to_q2,
+    )
+
+    cases = {
+        "p2": ("TETRA4", assemble_poisson_p2, elevate_to_p2,
+               dict(dirichlet=_u_p2)),
+        "q2": ("HEX8", assemble_poisson_q2, elevate_to_q2,
+               dict(dirichlet=_u_q2, f=lambda c: np.full(c.shape[0], -12.0))),
+    }
+    out, replays = {}, {}
+    for label, (elem, assemble, elevate, kw) in cases.items():
+        mesh = box_mesh(cells, cells, cells, elem)
+        t0 = time.perf_counter()
+        sy = assemble(mesh, **kw)
+        t_asm = time.perf_counter() - t0
+        coords = elevate(mesh)[0]
+        u, res, counts, times, replays[f"F5 {label}"] = _fem_solve(
+            device, kernels, sy, tol=1e-13)
+        err = float(np.abs(u - kw["dirichlet"](coords[sy.free_to_node])).max())
+        log(f"[F5] {label.upper()} on box_mesh({cells}^3, {elem}), "
+            f"{coords.shape[0]} nodes, {sy.n_free} DOF, {sy.A.nnz} nnz: "
+            f"assembly {t_asm:.2f} s, operator {times['operator']}, AMG "
+            f"{times['levels']}, set-up {times['setup_s']:.2f} s; CG+AMG to "
+            f"1e-13: {res.iterations} iterations in {times['solve_s']:.3f} s; "
+            f"max error against the quadratic {err:.3e} (limit 1e-8); "
+            f"launches {_launched(counts)}")
+        check(err <= 1e-8, f"[F5] {label}: error {err:.3e} > 1e-8")
+        _want_launched(device, counts, ["sell_spmv"], "F5")
+        out[label] = dict(nodes=int(coords.shape[0]), dof=sy.n_free,
+                          nnz=sy.A.nnz, iterations=res.iterations,
+                          max_err=err, assembly_s=t_asm, launches=counts,
+                          **times)
+    out["replays"] = replays
+    return out
+
+
+def phase_f6(exo, out=OUT) -> dict:
+    """The reference's other three drivers on a small box, host only."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.cli import (
+        assemble_test,
+        combine,
+        decompose,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.io import read_exodus
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        partition_mesh_elements,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.utils import (
+        print_csr_matrix,
+        print_vector,
+    )
+
+    dec = out / "f6_decomposed.exo"
+    rc_dec, _t = _captured(lambda: decompose.main(
+        ["--input", str(exo), "--output", str(dec), "--partitions", "4"]))
+    blocks = len(read_exodus(str(dec)).blocks)
+    rc_asm, text_asm = _captured(lambda: assemble_test.main(
+        ["--input", str(exo), "--verbose"]))
+    sy = assemble_heat_system(read_exodus(str(exo)))
+    prefix = str(out / "f6-proc-")
+    for p in out.glob("f6-proc-*.out"):
+        p.unlink()
+    parts = np.arange(sy.n_free) % 2
+    print_csr_matrix(sy.A, "Laplacian: A", prefix, parts=parts, nparts=2)
+    print_vector(sy.b, "RHS: B", prefix, parts=parts, nparts=2)
+    merged = out / "f6_combined.out"
+    rc_comb, _t = _captured(lambda: combine.main(
+        ["--prefix", prefix, "--output", str(merged)]))
+    lines = merged.read_text().splitlines()
+    log(f"[F6] decompose rc {rc_dec} ({blocks} blocks), assemble_test rc "
+        f"{rc_asm}, combine rc {rc_comb} ({len(lines)} lines for "
+        f"{sy.n_free} rows)")
+    check(rc_dec == 0 and blocks == 4, "[F6] decompose failed")
+    check(rc_asm == 0 and text_asm.strip().endswith("OK"),
+          "[F6] assemble_test failed")
+    check(rc_comb == 0 and len(lines) == 2 + 2 * sy.n_free,
+          "[F6] combine failed")
+    return dict(decompose_blocks=blocks, rc=[rc_dec, rc_asm, rc_comb])
+
+
+def phase_f(device, kernels, system, exo, box: int = BOX,
+            small_box: int = SMALL_BOX, quad_cells: int = QUAD_CELLS,
+            out=OUT) -> dict:
+    """F1-F6 in order; ``system`` is the heat system of ``exo`` (path A's
+    1M box).  ``replays`` holds, per counted solve, a function that runs it
+    again and the launch counts of its run, for :func:`time_phase_f`."""
+    t0 = time.perf_counter()
+    f1 = phase_f1(device, kernels, system)
+    f2 = phase_f2(device, kernels, system, f1.pop("A"), small_box, out)
+    f3 = phase_f3(device, kernels, exo, system.mesh.num_nodes)
+    f4 = phase_f4(device, kernels, box)
+    f5 = phase_f5(device, kernels, quad_cells)
+    f6 = phase_f6(out / f"f2_box{small_box}.exo", out)
+    wall = time.perf_counter() - t0
+    log(f"[F] wall {wall:.1f} s")
+    replays = {}
+    for f in (f1, f2, f3, f4, f5):
+        replays.update(f.pop("replays"))
+    return dict(F1=f1, F2=f2, F3=f3, F4=f4, F5=f5, F6=f6, wall_s=wall,
+                replays=replays)
+
+
+def phase_f_process(result: str) -> int:
+    """Phase F in a process of its own (``python3 chip_smoke.py --phase-f
+    RESULT``, started by :func:`run_phase_f`): load the kernels the parent
+    built, assemble path A's system from its Exodus file, run F1-F6 with
+    the launch counters at 0 before each counted run, profile each counted
+    solve again (:func:`time_phase_f`) and write the record to ``RESULT``
+    as JSON.  Its own process, because the profiler (CUPTI) of a process
+    that has run phase F loses device records: a 20-launch trace of one
+    product held all 20 before phase F, 12-19 after it, and phase E's
+    traces of path B none at all (NVIDIA H100 80GB HBM3, 700 W)."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.io import read_exodus
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = _kernels.build_kernels()
+    exo = OUT / f"box{BOX}.exo"
+    sy = assemble_heat_system(read_exodus(str(exo)))
+    run = phase_f(torch.device("cuda", 0), kernels, sy, exo)
+    run["times"] = time_phase_f(card_line(), run.pop("replays"))
+    pathlib.Path(result).write_text(json.dumps(run))
+    return 0
+
+
+def run_phase_f(timeout: float = 900.0) -> dict:
+    """Run :func:`phase_f_process` in a child process on the same card and
+    return its record; fails if the child does."""
+    result = OUT / "phase_f.json"
+    result.unlink(missing_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                           "--phase-f", str(result)], cwd=REPO,
+                          timeout=timeout)
+    check(proc.returncode == 0 and result.exists(),
+          f"[F] the phase F process exited with {proc.returncode}")
+    return json.loads(result.read_text())
+
+
+def phase_f_launches(run_f: dict, name: str) -> dict:
+    """One kernel's launches in each counted run of phase F."""
+    runs = {f"F1 {k}": c for k, c in run_f["F1"]["launches"].items()}
+    runs.update({f"F2 {k}": c for k, c in run_f["F2"]["launches"].items()})
+    runs["F3"] = run_f["F3"]["launches"]
+    for sub in ("F4", "F5"):
+        runs.update({f"{sub} {k}": r["launches"]
+                     for k, r in run_f[sub].items()})
+    return {k: c[name]["launches"] for k, c in runs.items()}
+
+
+# ---------------------------------------------------------------------------
 # D. Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1113,15 +1724,16 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_device(fn, reps: int = 20, kernel: str = "") -> dict:
+def profile_device(fn, reps: int = 20, kernel: str = "",
+                   per_call: int = 1) -> dict:
     """torch.profiler (CUPTI) over ``reps`` calls after a warm-up: device
     time per call (the sum of its kernels, copies and fills), the union of
     its device intervals per call, the wall per call under the profiler,
     and device time by kernel name.  A trace with no device events at all
     (CUPTI now and then hands back an empty one), or, given ``kernel`` (a
-    substring of the name of a kernel each call launches once), with
-    another number of its launches than ``reps`` (CUPTI now and then drops
-    one), is taken again, up to three times."""
+    substring of the name of a kernel each call launches ``per_call``
+    times), with another number of its launches than ``reps * per_call``
+    (CUPTI now and then drops one), is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1136,13 +1748,14 @@ def profile_device(fn, reps: int = 20, kernel: str = "") -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = _device_events(prof)
-        seen = sum(kernel in name for name, _s, _t in ev) if kernel else reps
-        if ev and seen == reps:
+        want = reps * per_call
+        seen = sum(kernel in name for name, _s, _t in ev) if kernel else want
+        if ev and seen == want:
             break
         log(f"profiler: trace {attempt + 1} recorded {len(ev)} device "
             f"events, {seen} launches of {kernel or 'any kernel'}")
     check(bool(ev), "the profiler recorded no device time")
-    check(seen == reps, f"the profiler recorded {seen} of {reps} launches "
+    check(seen == want, f"the profiler recorded {seen} of {want} launches "
           f"of {kernel}")
     by_name = {}
     for name, s, t in ev:
@@ -1613,6 +2226,40 @@ def time_fused(card, run_d1) -> dict:
     return rec
 
 
+# Profiled calls per replay of phase F: one for the second-long loops.
+F_REPS = {"F1 transient": 1, "F2 resumable": 1, "F3 power": 1}
+
+
+def time_phase_f(card, replays) -> dict:
+    """Device time of each counted solve of phase F, run again under the
+    profiler: the sum of its kernels, copies and fills, their union (busy),
+    the wall under the profiler, the idle share 1 - busy / wall, and the
+    time in the port's kernels (the DIA and sliced-ELL products).  A trace
+    missing a launch of the port's kernel that the counted run made is
+    taken again."""
+    out = {}
+    for label, (fn, counts) in replays.items():
+        kernel, per_call = "", 1
+        for name in ("dia_spmv", "sell_spmv"):
+            if counts[name]["launches"]:
+                kernel, per_call = f"{name}_kernel", counts[name]["launches"]
+                break
+        p = profile_device(fn, reps=F_REPS.get(label, 3), kernel=kernel,
+                           per_call=per_call)
+        ours = {k: v for k, v in p["kernels"].items()
+                if "dia_spmv_kernel" in k or "sell_spmv_kernel" in k}
+        rec = dict(device_ms=p["device_ms"], busy_ms=p["busy_ms"],
+                   wall_ms=p["wall_ms"],
+                   idle_share=1.0 - p["busy_ms"] / p["wall_ms"],
+                   port_kernels={k[:80]: v for k, v in ours.items()})
+        log(f"[E] {label}: device {p['device_ms']:.3f} ms, busy "
+            f"{p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms wall (idle "
+            f"share {rec['idle_share']:.3f}); port kernels (launches, ms) "
+            f"{json.dumps(rec['port_kernels'])} [{card}]")
+        out[label] = rec
+    return out
+
+
 def warm_solve_breakdown(card, run_a) -> dict:
     """Path A's refinement solve again, warm (operator and hierarchy
     reused, same x0): wall of three runs, then one run under the profiler
@@ -1696,6 +2343,8 @@ def main() -> int:
     log(f"[D2] done at {time.perf_counter() - t_start:.1f} s")
     run_d3 = phase_d3(device, kernels)
     log(f"[D3] done at {time.perf_counter() - t_start:.1f} s")
+    run_f = run_phase_f()
+    log(f"[F] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
     errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
@@ -1747,6 +2396,7 @@ def main() -> int:
             "launches": run_d2["launches"],
         },
         "cli_routes": run_d3,
+        "slice6": run_f,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
@@ -1778,6 +2428,7 @@ def main() -> int:
                  if f in r}
         if k.name in instances:
             extra["instances"] = instances[k.name]
+        extra["phase_f_launches"] = phase_f_launches(run_f, k.name)
         records.append({
             "name": k.name,
             "route": "cuda",
@@ -1804,6 +2455,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--phase-f"]:
+            sys.exit(phase_f_process(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -8,16 +8,19 @@ kernels written by hand for Hopper (``csrc/``).
 
 Subpackages mirror the JAX package's module paths:
 
-- ``io``: Exodus-II reader/writer, box meshes and uniform refinement.
-- ``models``: steady-state heat assembly.
+- ``io``: Exodus-II reader/writer, box meshes, uniform refinement and
+  sideset resolution.
+- ``models``: steady-state heat, the full-mesh Laplacian, P1/P2/Q2 finite
+  elements with flux boundaries, transient heat flow.
 - ``ops``: host CSR, the sliced-ELL, DIA and lattice-stencil (padded 3-D)
   operators and their CUDA kernels, ELL, operator choice.
-- ``solvers``: CG (with per-iteration snapshots), Jacobi and
-  smoothed-aggregation AMG preconditioning, mixed-precision iterative
-  refinement.
+- ``solvers``: CG (with per-iteration snapshots, or checkpointed and
+  resumable), GMRES, BiCGStab, the fused Jacobi-PCG, Jacobi, Chebyshev,
+  ILU and smoothed-aggregation AMG preconditioning, mixed-precision
+  iterative refinement, the power method and Lanczos.
 - ``parallel``: the element partitioner and the block-per-partition mesh
   writer.
-- ``cli``: the solve driver.
+- ``cli``: the solve driver and the reference's other executables.
 - ``utils``: device resolution (the card unless the CPU is asked for), the
   native host library, phase timers, configuration, debug dumps, adoption
   of the JAX package's arrays.
@@ -25,4 +28,5 @@ Subpackages mirror the JAX package's module paths:
 
 __version__ = "0.1.0"
 
+from . import io, models, ops, parallel, solvers, utils  # noqa: E402,F401
 from .api import SteadyHeatSolver  # noqa: E402,F401

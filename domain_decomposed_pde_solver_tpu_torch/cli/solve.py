@@ -9,7 +9,9 @@ dump X.  The solve routes, chosen as JAX chooses them:
   operator): mixed-precision iterative refinement — f32 CG+AMG sweeps with
   the f64 residual on the device; on a structured box the operator is the
   pad-stencil one and AMG takes it as its fine level;
-- otherwise a Krylov solve: ``--solver cg`` (a snapshot per iteration),
+- otherwise a Krylov solve: ``--solver cg`` (a snapshot per iteration; with
+  ``--checkpoint`` the resumable CG, which saves its state every
+  ``--checkpoint-every`` iterations and continues from the file),
   ``gmres`` (a snapshot per restart cycle, or with
   ``--snapshot-every-iteration`` the reference's one-step
   solve/write/reset loop) or ``bicgstab``, preconditioned by
@@ -17,9 +19,11 @@ dump X.  The solve routes, chosen as JAX chooses them:
   ilu0/ilut (the reference's GMRES+ILUT, ``BelosMueLuSolver.cpp:92-106``)
   on an identity-layout operator.
 
-The solve runs on the card; ``--cpu`` runs it on the CPU.  Routes not
-ported (``--partitions > 1``, ``--checkpoint``) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+The solve runs on the card; ``--cpu`` runs it on the CPU.  ``--x64`` is
+accepted for JAX's command lines and changes nothing (``--dtype`` sets the
+precision); ``--debug-nans`` checks the answer and its reported residual
+for NaN and Inf.  The route not ported (``--partitions > 1``) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 
 Usage::
 
@@ -38,7 +42,6 @@ import numpy as np
 
 _NOT_PORTED = {
     "partitions": "multi-device solves (ROADMAP.md, Queue 1, item 9)",
-    "checkpoint": "resumable CG checkpoints (ROADMAP.md, Queue 1, item 8)",
 }
 
 
@@ -46,8 +49,17 @@ def _check_ported(cfg) -> None:
     if cfg.partitions > 1:
         raise NotImplementedError(f"--partitions {cfg.partitions}: "
                                   f"{_NOT_PORTED['partitions']}")
-    if cfg.checkpoint:
-        raise NotImplementedError(f"--checkpoint: {_NOT_PORTED['checkpoint']}")
+
+
+def _check_finite(x_host, relres) -> None:
+    """``--debug-nans``: raise on NaN or Inf in the answer or its residual."""
+    if not np.isfinite(float(relres)):
+        raise FloatingPointError(f"--debug-nans: the solve reported a "
+                                 f"residual of {float(relres)}")
+    bad = int(np.count_nonzero(~np.isfinite(np.asarray(x_host))))
+    if bad:
+        raise FloatingPointError(f"--debug-nans: {bad} NaN or Inf values in "
+                                 "the solve's answer")
 
 
 def main(argv=None, report: Optional[dict] = None) -> int:
@@ -63,6 +75,12 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     add_solve_args(ap)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA card)")
+    ap.add_argument("--x64", action="store_true",
+                    help="accepted for the JAX package's command lines; "
+                    "changes nothing here: --dtype sets the precision")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="check the answer and its reported residual for "
+                    "NaN and Inf; raise FloatingPointError on one")
     args = ap.parse_args(argv)
     cfg = config_from_args(args)
     _check_ported(cfg)
@@ -141,6 +159,7 @@ def main(argv=None, report: Optional[dict] = None) -> int:
             and cfg.precond == "amg"
             and cfg.solver == "cg"
             and not cfg.snapshots
+            and not cfg.checkpoint
             and np.all(
                 system.A.data.astype(np.float32).astype(np.float64)
                 == system.A.data
@@ -188,6 +207,8 @@ def main(argv=None, report: Optional[dict] = None) -> int:
                                            op_dims, device, out_mesh, timer,
                                            out)
     out["result"] = result
+    if args.debug_nans:
+        _check_finite(x_host, result.relres)
 
     conv = bool(result.converged)
     # Convergence reporting parity (``BelosMueLuSolver.cpp:118-130``).
@@ -205,7 +226,8 @@ def main(argv=None, report: Optional[dict] = None) -> int:
 
 def _solve_krylov(cfg, system, x0_host, dtype, op_dims, device, out_mesh,
                   timer, out):
-    """The Krylov routes: cg, gmres or bicgstab with any preconditioner."""
+    """The Krylov routes: cg (resumable with ``--checkpoint``), gmres or
+    bicgstab with any preconditioner."""
     from ..io import ExodusSolutionWriter
     from ..ops.dia import choose_operator
 
@@ -246,6 +268,15 @@ def _solve_krylov(cfg, system, x0_host, dtype, op_dims, device, out_mesh,
                 result = bicgstab_solve(A, b, x0, precond=precond,
                                         tol=cfg.tolerance,
                                         maxiter=cfg.iterations)
+                write(result.x, result.iterations)
+            elif cfg.checkpoint:
+                from ..solvers.cg import cg_solve_resumable
+
+                result = cg_solve_resumable(
+                    A, b, x0, checkpoint_path=cfg.checkpoint,
+                    checkpoint_every=cfg.checkpoint_every, precond=precond,
+                    tol=cfg.tolerance, maxiter=cfg.iterations,
+                )
                 write(result.x, result.iterations)
             else:
                 from ..solvers.cg import cg_solve_snapshots

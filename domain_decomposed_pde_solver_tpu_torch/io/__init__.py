@@ -10,6 +10,7 @@ from .exodus import (
 )
 from .boxmesh import box_mesh
 from .refine import refine_uniform
+from .sides import nodesets_from_sidesets, side_local_nodes, sideset_nodes
 
 __all__ = [
     "ElemBlock",
@@ -24,4 +25,7 @@ __all__ = [
     "write_exodus",
     "box_mesh",
     "refine_uniform",
+    "nodesets_from_sidesets",
+    "side_local_nodes",
+    "sideset_nodes",
 ]

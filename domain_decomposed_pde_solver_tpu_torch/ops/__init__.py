@@ -6,7 +6,13 @@ from .csr import CSRMatrix, coo_to_csr
 from .bsg import BSGMatrix, bsg_from_coo, bsg_from_csr, bsg_spmv, spmv_plain
 from .ell import ELLMatrix, ell_from_csr, pad_to, pad_vector, unpad_vector
 from .dia import DIAMatrix, choose_operator, dia_from_csr, operator_bytes
-from .stencil import StencilOperator, stencil_from_csr
+from .stencil import (
+    StencilOperator,
+    stencil_from_csr,
+    stencil_from_packed,
+    stencil_from_parts,
+    stencil_parts_from_packed,
+)
 from .stencil_kernel import PadStencilOperator, pad_stencil_from_parts
 
 __all__ = [
@@ -28,6 +34,9 @@ __all__ = [
     "operator_bytes",
     "StencilOperator",
     "stencil_from_csr",
+    "stencil_from_packed",
+    "stencil_from_parts",
+    "stencil_parts_from_packed",
     "PadStencilOperator",
     "pad_stencil_from_parts",
 ]

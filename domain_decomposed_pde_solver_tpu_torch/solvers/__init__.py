@@ -1,15 +1,19 @@
-"""Krylov solvers and preconditioners."""
+"""Krylov solvers, eigen utilities and preconditioners."""
 
 from .bicgstab import BiCGStabResult, bicgstab_solve
 from .cg import (
     CGResult,
     IdentityPrecond,
     cg_solve,
+    cg_solve_resumable,
     cg_solve_snapshots,
     cg_solve_with_state,
 )
 from .fused_cg import fused_cg_solve
 from .gmres import GMRESResult, gmres_solve
+from .lanczos import LanczosResult, lanczos_extremes
+from .mixed import MixedSolveResult, iterative_refinement_solve
+from .power import PowerResult, power_method
 from .precond import (
     AMGPreconditioner,
     ChebyshevPreconditioner,
@@ -29,11 +33,18 @@ __all__ = [
     "CGResult",
     "IdentityPrecond",
     "cg_solve",
+    "cg_solve_resumable",
     "cg_solve_snapshots",
     "cg_solve_with_state",
     "fused_cg_solve",
     "GMRESResult",
     "gmres_solve",
+    "LanczosResult",
+    "lanczos_extremes",
+    "MixedSolveResult",
+    "iterative_refinement_solve",
+    "PowerResult",
+    "power_method",
     "AMGPreconditioner",
     "ChebyshevPreconditioner",
     "DiagonalPreconditioner",

@@ -14,7 +14,13 @@ from .ilu import (
     ilu0_preconditioner,
     ilut_preconditioner,
 )
-from .amg import AMGLevel, AMGPreconditioner, smoothed_aggregation_setup
+from .amg import (
+    AMGLevel,
+    AMGPreconditioner,
+    aggregate_greedy,
+    infer_free_grid,
+    smoothed_aggregation_setup,
+)
 
 __all__ = [
     "DiagonalPreconditioner",
@@ -29,5 +35,7 @@ __all__ = [
     "ilut_preconditioner",
     "AMGLevel",
     "AMGPreconditioner",
+    "aggregate_greedy",
+    "infer_free_grid",
     "smoothed_aggregation_setup",
 ]

@@ -12,6 +12,9 @@ run a preconditioner that differs in rounding from JAX's by design: ILU
 own power-method start vector); there the iteration counts may differ by
 one and the answers, each solved to 1e-10, agree to 1e-8.  Host pieces
 (the decomposed mesh, the debug dumps, the configuration) must be equal.
+JAX's ``--x64`` and ``--debug-nans`` are accepted; the second raises on a
+NaN in the answer or its residual.  The ``--checkpoint`` route is held to
+JAX's in ``test_torch_checkpoint.py``.
 """
 
 import re
@@ -161,13 +164,57 @@ def test_config_matches_jax():
     "extra,match",
     [
         (["--partitions", "2"], "item 9"),
-        (["--checkpoint", "ck.npz"], "item 8"),
     ],
 )
 def test_routes_not_ported_raise(box_file, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         p_main(["--input", str(box_file), "--solution",
                 str(tmp_path / "s.exo"), "--cpu"] + extra)
+
+
+@pytest.mark.parametrize("route", [
+    ["--precond", "jacobi"],
+    ["--precond", "amg", "--no-snapshots"],
+], ids=["cg-jacobi", "refinement"])
+def test_jax_flags_are_accepted(box_file, tmp_path, capsys, route):
+    """JAX's ``--x64`` and ``--debug-nans`` on a converging solve: the same
+    run, line for line, as without them."""
+    base = ["--input", str(box_file), "--cpu", "--dtype", "float64",
+            "--tolerance", "1e-8"] + route
+    texts = []
+    for extra in ([], ["--x64", "--debug-nans"]):
+        rc = p_main(base + ["--solution", str(tmp_path / "s.exo")] + extra)
+        assert rc == 0
+        texts.append(capsys.readouterr().out)
+    assert texts[0] == texts[1]
+
+
+@pytest.mark.parametrize("what", ["answer", "residual"])
+def test_debug_nans_raises_on_a_nan(box_file, tmp_path, monkeypatch, what):
+    """``--debug-nans`` checks the solve's answer and the residual it
+    reports: a NaN in either raises ``FloatingPointError``; without the
+    flag the run ends, unconverged."""
+    import dataclasses
+
+    from domain_decomposed_pde_solver_tpu_torch.solvers import cg as p_cg
+
+    real = p_cg.cg_solve_snapshots
+
+    def poisoned(*args, **kwargs):
+        res = real(*args, **kwargs)
+        if what == "answer":
+            x = res.x.clone()
+            x[3] = float("nan")
+            return dataclasses.replace(res, x=x)
+        return dataclasses.replace(res, relres=float("nan"), converged=False)
+
+    monkeypatch.setattr(p_cg, "cg_solve_snapshots", poisoned)
+    args = ["--input", str(box_file), "--solution", str(tmp_path / "s.exo"),
+            "--cpu", "--dtype", "float64", "--precond", "jacobi",
+            "--tolerance", "1e-8"]
+    with pytest.raises(FloatingPointError, match="debug-nans"):
+        p_main(args + ["--debug-nans"])
+    assert p_main(args) in (0, 1)
 
 
 def test_missing_input_returns_1(tmp_path, capsys):

@@ -742,3 +742,59 @@ def test_fused_cg_past_the_cluster_takes_the_grid(cuda_device):
     res = fused_cg_solve(A, b, tol=1e-6, maxiter=2000)
     assert _entries() == (before[0], before[1] + 1)
     assert res.converged
+
+
+def test_resumed_cg_on_the_card_is_bit_identical(cuda_device, tmp_path):
+    """The resumable CG on the card's DIA kernel (bf16 storage, f64
+    vectors): stopped at 30 iterations and resumed from its checkpoint, it
+    takes the unbroken run's iterations and lands on its answer bit for
+    bit; both answers agree with the same solve on the CPU to 1e-10."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        cg_solve_resumable,
+        jacobi_preconditioner,
+    )
+
+    sy = assemble_heat_system(box_mesh(14, 13, 12, elem_type="TETRA4"))
+
+    def solve(device, path, maxiter=2000):
+        A = choose_operator(sy.A, dtype=torch.float64, device=device)
+        b = A.put_vector(sy.b)
+        return cg_solve_resumable(
+            A, b, torch.zeros_like(b), checkpoint_path=str(path),
+            checkpoint_every=10, precond=jacobi_preconditioner(A), tol=1e-10,
+            maxiter=maxiter)
+
+    before = _kernels.DIA_SPMV.by_entry["ddps_dia_spmv_bf16_f64"]
+    whole = solve(cuda_device, tmp_path / "whole.npz")
+    assert _kernels.DIA_SPMV.by_entry["ddps_dia_spmv_bf16_f64"] > before
+    first = solve(cuda_device, tmp_path / "broken.npz", maxiter=30)
+    assert first.iterations == 30 and not first.converged
+    rest = solve(cuda_device, tmp_path / "broken.npz")
+    assert whole.converged and rest.iterations == whole.iterations
+    assert torch.equal(rest.x, whole.x)
+    cpu = solve("cpu", tmp_path / "cpu.npz")
+    assert abs(cpu.iterations - whole.iterations) <= 1
+    assert _relerr(whole.x, cpu.x) <= 1e-10
+
+
+def test_transient_step_on_the_card_matches_plain(cuda_device):
+    """One implicit-Euler step of the transient model on the DIA kernel
+    against the same step through the kernel's plain version (the CPU):
+    CG to 1e-12 on both, iterations within one, states within 1e-10."""
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        transient_heat_solve,
+    )
+
+    sy = assemble_heat_system(box_mesh(16, 16, 16, elem_type="TETRA4"))
+    u0 = np.random.default_rng(6).uniform(0.0, 1000.0, size=sy.n_free)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        A = choose_operator(sy.A, dtype=torch.float64, device=dev)
+        before = _kernels.DIA_SPMV.launches
+        out[str(dev)] = transient_heat_solve(sy, A, dt=0.2, n_steps=1, u0=u0,
+                                             tol=1e-12)
+        launched = _kernels.DIA_SPMV.launches - before
+        assert (launched > 0) == (A.device.type == "cuda")
+    g, c = out[str(cuda_device)], out["cpu"]
+    assert abs(g.total_cg_iterations - c.total_cg_iterations) <= 1
+    assert np.abs(g.u - c.u).max() <= 1e-10 * np.abs(c.u).max()

@@ -163,6 +163,11 @@ def test_port_import_leaves_jax_out():
         "import domain_decomposed_pde_solver_tpu_torch.parallel\n"
         "import domain_decomposed_pde_solver_tpu_torch.solvers.mixed\n"
         "import domain_decomposed_pde_solver_tpu_torch.utils.timers\n"
+        "import domain_decomposed_pde_solver_tpu_torch.utils.checkpoint\n"
+        "import domain_decomposed_pde_solver_tpu_torch.cli.matrix_test\n"
+        "import domain_decomposed_pde_solver_tpu_torch.cli.decompose\n"
+        "import domain_decomposed_pde_solver_tpu_torch.cli.assemble_test\n"
+        "import domain_decomposed_pde_solver_tpu_torch.cli.combine\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'domain_decomposed_pde_solver_tpu.')) or m == "

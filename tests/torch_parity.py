@@ -67,3 +67,23 @@ def random_laplacian(n: int, deg: int, seed: int, shift: float = 0.0):
     M = M.tocsr()
     M.sort_indices()
     return M
+
+
+def plane_sides(mesh, axis: int, value: float, side_local_nodes):
+    """``(elems, sides)`` of every element side lying on the plane
+    ``coords[:, axis] == value``, as an Exodus sideset lists them (global
+    element index, 1-based side), as ``examples/05_fem_flux_bcs.py`` builds
+    them; ``side_local_nodes`` is either package's."""
+    on = np.isclose(mesh.coords[:, axis], value)
+    elems, sides = [], []
+    off = 0
+    for blk in mesh.blocks:
+        n_sides = 6 if blk.elem_type.upper().startswith("HEX") else 4
+        for s in range(1, n_sides + 1):
+            idx = list(side_local_nodes(blk.elem_type, s))
+            e = np.nonzero(on[blk.conn[:, idx]].all(axis=1))[0]
+            elems.append(e + off)
+            sides.append(np.full(e.size, s))
+        off += blk.conn.shape[0]
+    return (np.concatenate(elems).astype(np.int64),
+            np.concatenate(sides).astype(np.int64))
