@@ -43,12 +43,6 @@ class TransientResult:
     total_cg_iterations: int
 
 
-def _vector_dtype(A) -> torch.dtype:
-    """The dtype of an operator's vectors (the sliced-ELL operator has no
-    ``dtype``: its vectors take its storage's)."""
-    return A.dtype if hasattr(A, "dtype") else A.vals.dtype
-
-
 @dataclasses.dataclass
 class ShiftedOperator:
     """``(I + dt A)`` over any operator of the port (``matvec``,
@@ -88,7 +82,7 @@ def transient_heat_solve(
     step); the state is fetched to the host only when ``record`` or
     ``callback`` asks for it."""
     n = system.n_free
-    dtype = _vector_dtype(operator)
+    dtype = operator.dtype
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     shifted = ShiftedOperator(A=operator, dt=dt)
     M = DiagonalPreconditioner(1.0 / shifted.diagonal_padded())

@@ -110,6 +110,12 @@ class BSGMatrix:
         return str(self.vals.dtype).replace("torch.", "")
 
     @property
+    def dtype(self) -> torch.dtype:
+        """The dtype of its vectors by default: its storage's (the kernel
+        also takes f64 vectors on f32 storage)."""
+        return self.vals.dtype
+
+    @property
     def shape(self) -> Tuple[int, int]:
         return (self.n_rows, self.n_cols)
 

@@ -24,12 +24,6 @@ __all__ = [
 ]
 
 
-def _op_dtype(A) -> torch.dtype:
-    """The operator's vector dtype (the sliced-ELL operator has no fixed
-    one; it computes in its values' type by default)."""
-    return getattr(A, "dtype", None) or A.vals.dtype
-
-
 def estimate_lmax_dinv_a(A: Any, iters: int = 20, seed: int = 0,
                          q0: Optional[torch.Tensor] = None,
                          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -40,7 +34,7 @@ def estimate_lmax_dinv_a(A: Any, iters: int = 20, seed: int = 0,
     ``q0``: the start vector (padded space); by default uniform [0, 1)
     from ``torch.Generator().manual_seed(seed)``.  Padding rows are zeroed
     so they never contribute."""
-    dtype = dtype or _op_dtype(A)
+    dtype = dtype or A.dtype
     dev = A.device
     inv_diag = 1.0 / A.diagonal_padded(fill=1.0).to(dtype)
     if q0 is None:
@@ -94,7 +88,7 @@ def chebyshev_preconditioner(A: Any, lmax, degree: int = 4,
     operator's): the recurrence's scalars are computed in that dtype, as in
     JAX, on the host (PyTorch takes a 0-d CPU tensor as a scalar next to
     CUDA tensors), so they cost no launches."""
-    dtype = dtype or _op_dtype(A)
+    dtype = dtype or A.dtype
     if isinstance(lmax, torch.Tensor):
         lmax = lmax.to(device="cpu", dtype=dtype)
     else:

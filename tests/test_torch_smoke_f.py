@@ -58,8 +58,13 @@ def run_f(tmp_path_factory):
 def test_phase_f_passes_its_checks_on_the_cpu(run_f):
     run, _exo = run_f
     assert set(run) == {"F1", "F2", "F3", "F4", "F5", "F6", "wall_s",
-                        "replays"}
+                        "replays", "errs"}
     assert run["F2"]["bit_identical"]
+    # F4's and F5's operators went through the kernel comparisons (on the
+    # CPU the wrappers run their plain versions, so they agree exactly).
+    assert run["errs"] == {"dia_spmv": 0.0, "sell_spmv": 0.0}
+    assert abs(run["F3"]["eigenvalue"] - run["F3"]["host_eigenvalue"]) <= (
+        1e-10 * run["F3"]["host_eigenvalue"])
     # What the smoke's record line prints of it.
     json.dumps({k: v for k, v in run.items() if k != "replays"})
     # Phase E profiles each counted solve again: every replay runs.
