@@ -28,7 +28,9 @@ B. The CLI's default route at smaller depth: ``box_mesh(20, 20, 20,
 C. Slice 1's unstructured path as it was: the 833,048-DOF refined tet box
    (``refine_uniform(box_mesh(49, 49, 49, "TETRA4"), 1)``) through
    ``SteadyHeatSolver(..., dtype=float32, precond="amg")``, two solves, on
-   the sliced-ELL kernel; answers checked as before.
+   the sliced-ELL kernel; answers checked as before.  The fine operator
+   stores its values as int8 (JAX's ``storage="auto"`` for the graph
+   Laplacian), so kernel 1 runs its int8 instance here.
 D1. Jacobi-PCG in one launch (the fused CG kernel) against the unfused
    ``cg_solve`` with the Jacobi preconditioner on the sliced-ELL kernel, on
    path C's 833,048-DOF operator and on the 16,028-DOF
@@ -107,6 +109,25 @@ F. This slice's paths, in a process of its own (``--phase-f``: the
    Then each counted solve runs again under the profiler: device time,
    busy time, wall and idle share, and the time in the port's kernels
    (a trace missing one of the counted run's launches is taken again).
+G. The BASELINE's 10M box, in a process of its own as F (``--phase-g``),
+   by ``bench10m.py``'s route through the port's public functions:
+   ``structured_box_system(217, 217, 217, "TETRA4")`` (10,265,184 free
+   DOF, one native pass, no mesh), ``structured_box_parts`` built on the
+   card, ``pad_stencil_from_parts`` (kernel 3 in a 222 x 224 x 256 padded
+   space), brick AMG with the pad-stencil level 0, a DIA level 1 (kernel
+   4) and sliced-ELL levels 2 and 3 (kernel 1), CG+AMG to 1e-6 in f32,
+   then ``iterative_refinement_solve`` to 1e-8
+   with the staged f64 right-hand side and the residual on the card, the
+   launch counters at 0 just before the two solves.  The device-built b
+   and degree equal the assembled ones; both converge; the host f64
+   relres of the answer <= 1.5e-8; 2-3 sweeps (JAX's record of the route:
+   2); every value within [100, 1000]; kernel 3 ran in f32 and f64 and
+   kernels 4 and 1 ran.  Then kernel 3 (f32, f64) on the 10M operator,
+   kernel 4 on the DIA level and kernel 1 on the sliced-ELL levels against
+   their plain versions (kernel 4 at every instance and block,
+   bit-identical), the two solves under the profiler,
+   kernel 3 at every z-depth and with L2 flushed, beside cuSPARSE on the
+   CSR, and kernel 4 on level 1 beside its launch floor.
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
@@ -123,14 +144,22 @@ D. Every kernel against its plain PyTorch version on the card, on the
    plain recurrence from the same iterate, beside its host relres and f32
    floor; the restart converges within one iteration of the plain one's,
    and stops at once where the iterate lies inside the tolerance by more
-   than four floors.  These launches do not count.
+   than four floors.  The value storages: kernels 1 and 2 on path C's
+   operator (int8-exact), a random bfloat16-exact Laplacian and a matrix
+   of neither (200,000 rows each), in every storage that holds the values
+   exactly, with f32 and f64 vectors, each within the limit of its plain
+   version and bit-identical to the float32-storage launch; kernel 5 at
+   833k (grid) and 16k (cluster) with int8, bfloat16 and float32 values:
+   the same instance, iterations and answer bit for bit.  These launches
+   do not count.
 E. Times with CUDA events and the profiler: each kernel on its path's
    shape, its plain version and, as a yardstick the port never calls, one
    PyTorch call computing the same product (cuSPARSE through
    ``torch.sparse_csr_tensor @ x``); the pad-stencil product also with L2
    flushed between calls, at every z-depth of ``PAD_DEPTHS`` (each
-   bit-identical to the launch's own choice) and on a 10M-DOF space of
-   the same stencil (mxp = 256); the DIA kernel on levels 1 and 2 of path
+   bit-identical to the launch's own choice; the 10M operator's in phase
+   G); kernels 1, 2 and 5 in the storage ``storage="auto"`` keeps (int8)
+   beside the same slots with float32 values; the DIA kernel on levels 1 and 2 of path
    A, path B's operator and the 1M fine operator beside its launch floor
    (a kernel that does nothing on the same grid) and one dependent load (a
    copy of n values on the same grid), at every block of ``DIA_BLOCKS`` and
@@ -451,7 +480,11 @@ def phase_c(device, kernels, cells: int = MESH_CELLS) -> dict:
         f"{tuple(M.coarse_inv.shape)}; level ops "
         f"{[type(lvl.A).__name__ for lvl in M.levels]}, transfers "
         f"{[type(lvl.P).__name__ for lvl in M.levels]}")
-    log(f"[C] setup (assembly + operator + AMG): {t_setup:.3f} s")
+    log(f"[C] setup (assembly + operator + AMG): {t_setup:.3f} s; fine "
+        f"operator values stored as {solver.operator.storage} (JAX's "
+        f"storage='auto' for the graph Laplacian)")
+    check(solver.operator.storage == "int8",
+          f"[C] the fine operator stores {solver.operator.storage}, not int8")
     log(f"[C] solve 1: {res1.iterations} iters, relres {res1.relres:.3e}, "
         f"{t_solve1 * 1e3:.1f} ms")
     log(f"[C] solve 2 (warm, bc {BC2}): {res2.iterations} iters, relres "
@@ -533,6 +566,14 @@ def _refined_system(cells: int, device):
     return sy, bsg_from_csr(sy.A, device=device)
 
 
+def _fused_entry_name(instance: str, A) -> str:
+    """The C entry of kernel 5 that a solve on ``A`` launches."""
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    base = "_cluster" if instance == "cluster" else ""
+    return f"ddps_fused_cg{base}_{_kernels._NAME[A.vals.dtype]}"
+
+
 def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
     """Fused Jacobi-PCG against the unfused loop at 833k and 16k DOF."""
     import torch
@@ -588,8 +629,7 @@ def phase_d1(device, kernels, run_c, small_cells: int = SMALL_CELLS) -> dict:
               f"[D1] {label}: iterations {rf.iterations} vs {ru.iterations}")
         check(max(rr) <= limit, f"[D1] {label}: host relres {rr}")
         if device.type == "cuda":
-            want = ("ddps_fused_cg_cluster_f32" if label == "16k"
-                    else "ddps_fused_cg_f32")
+            want = _fused_entry_name(plan.instance, A)
             check(ef == {want: 1} and sum(df.values()) == 1,
                   f"[D1] {label}: launches in the fused solve {ef}, want "
                   f"one of {want}")
@@ -1342,6 +1382,331 @@ def phase_f_launches(run_f: dict, name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# G. The BASELINE's 10M box: scan-free structured assembly, brick AMG over
+#    the pad-stencil operator, refinement to 1e-8 (bench10m.py's route)
+# ---------------------------------------------------------------------------
+
+G_BOX = 217  # bench10m.py's N: free grid 216 x 218 x 218, 10,265,184 DOF
+G_SWEEPS = (2, 3)  # JAX's record of this route (BENCH10M.json): 2 sweeps
+
+
+def phase_g(device, kernels, n: int = G_BOX) -> dict:
+    """``bench10m.py:95-230`` through the port's public functions at
+    ``box_mesh(n, n, n, "TETRA4")``'s size: ``structured_box_system`` (one
+    native pass, no mesh), ``structured_box_parts`` built on ``device``,
+    ``pad_stencil_from_parts`` (kernel 3), brick AMG with the pad-stencil
+    level 0, a DIA level 1 (kernel 4) and, at full size, sliced-ELL levels
+    below it (kernel 1), CG+AMG to 1e-6 in f32, then
+    ``iterative_refinement_solve`` to 1e-8 with the staged f64 right-hand
+    side and the f64 residual on the card.  The launch counters are 0
+    just before the two solves and read just after.  Checks: the
+    device-built b and degree equal the assembled ones; both solves
+    converge; the host f64 relres of the refined answer <= 1.5e-8 (one
+    SciPy product over the CSR); G_SWEEPS sweeps; every value within
+    [100, 1000]; on the card, kernel 3 in f32 and f64, kernel 4 and (for
+    sliced-ELL levels) kernel 1 ran."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.models.structured import (
+        structured_box_parts,
+        structured_box_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import DIAMatrix
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        PadStencilOperator,
+        pad_stencil_from_parts,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        cg_solve,
+        smoothed_aggregation_setup,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers.mixed import (
+        iterative_refinement_solve,
+    )
+
+    times = {}
+    t0 = time.perf_counter()
+    sy = structured_box_system(n, n, n, "TETRA4")
+    times["assembly_s"] = time.perf_counter() - t0
+    check(sy.mesh is None, "[G] structured_box_system took the mesh path")
+    nf, dims = sy.n_free, (n - 1, n + 1, n + 1)
+    t0 = time.perf_counter()
+    po = structured_box_parts(n, n, n, "TETRA4", device=device)
+    sync(device)
+    times["parts_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = pad_stencil_from_parts(po["parts"], device=device)
+    sync(device)
+    times["operator_s"] = time.perf_counter() - t0
+    check(np.array_equal(po["b"][:nf].cpu().numpy(), sy.b.astype(np.float32))
+          and np.array_equal(po["degree"][:nf].cpu().numpy(),
+                             sy.degree.astype(np.float32)),
+          "[G] the device-built b or degree differs from the assembled one")
+    del po
+    log(f"[G] box_mesh({n}^3) TETRA4: {nf} free DOF, {sy.A.nnz} nnz, free "
+        f"grid {dims}, padded space (Z, myp, mxp) = ({A.Z}, {A.myp}, "
+        f"{A.mxp}), {A.n_pad} slots, correction in {str(A.corr.dtype)[6:]}; "
+        f"assembly {times['assembly_s']:.2f} s, parts on {device} "
+        f"{times['parts_s']:.2f} s, operator {times['operator_s']:.2f} s")
+    ph = {}
+    t0 = time.perf_counter()
+    M = smoothed_aggregation_setup(sy.A, dtype=torch.float32, grid_dims=dims,
+                                   fine_operator=A, timings_out=ph,
+                                   device=device)
+    sync(device)
+    times["amg_setup_s"] = time.perf_counter() - t0
+    times["amg_setup_phases_s"] = ph
+    levels = [dict(rows=lvl.n_rows, operator=type(lvl.A).__name__,
+                   transfer=type(lvl.P).__name__,
+                   diagonals=getattr(lvl.A, "ndiags", None),
+                   n_pad=lvl.A.n_pad) for lvl in M.levels]
+    log(f"[G] AMG set-up {times['amg_setup_s']:.2f} s, phases "
+        f"{json.dumps({k: round(v, 3) for k, v in ph.items()})}; levels "
+        f"{json.dumps(levels)} + coarse {tuple(M.coarse_inv.shape)}")
+    check(isinstance(M.levels[0].A, PadStencilOperator)
+          and levels[0]["transfer"] == "PadBrickProlongator",
+          f"[G] level 0 is {levels[0]}")
+    check(len(M.levels) >= 2 and isinstance(M.levels[1].A, DIAMatrix),
+          f"[G] level 1 is not DIA: {levels}")
+
+    bscale = float(np.abs(sy.b).max())
+    b = A.put_vector_sparse((sy.b / bscale).astype(np.float32))
+    zero = torch.zeros_like(b)
+    b64 = np.asarray(sy.b, dtype=np.float64)
+    b64dev = A.put_vector_sparse(b64, dtype=torch.float64)
+
+    def cg():
+        return cg_solve(A, b, zero, precond=M, tol=1e-6, maxiter=100)
+
+    def refine():
+        return iterative_refinement_solve(
+            sy.A, b64, tol=1e-8, inner_tol=1e-6, inner_maxiter=100,
+            precond=M, operator=A, b_device=b64dev, device_residual=True)
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    r, d_cg = launch_delta(kernels, cg)
+    times["cg_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mr, d_ref = launch_delta(kernels, refine)
+    times["refine_first_s"] = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    times["cg_ms"] = _wall_ms(cg, 2)
+    times["refine_ms"] = _wall_ms(refine, 2)
+    u = mr.x
+    t0 = time.perf_counter()
+    rr = host_relres(sy.A, u, b64)
+    times["host_check_s"] = time.perf_counter() - t0
+    log(f"[G] CG+AMG to 1e-6 (f32): {r.iterations} iterations, relres "
+        f"{r.relres:.3e}, first {times['cg_first_s']:.3f} s, warm "
+        f"{times['cg_ms']} ms; launches {json.dumps(d_cg)}")
+    log(f"[G] refinement to 1e-8: {mr.refinements} sweeps, "
+        f"{mr.inner_iterations} inner iterations, relres {mr.relres:.3e}, "
+        f"timings {json.dumps(mr.timings)}, first "
+        f"{times['refine_first_s']:.3f} s, warm {times['refine_ms']} ms; "
+        f"host f64 relres {rr:.3e} (limit 1.5e-8, {times['host_check_s']:.2f}"
+        f" s); values [{float(u.min())}, {float(u.max())}]; launches "
+        f"{json.dumps(d_ref)}")
+    log(f"[G] launches by entry: {_launched(counts)}")
+    check(r.converged, "[G] CG+AMG to 1e-6 did not converge")
+    check(mr.converged, "[G] the refinement did not converge")
+    check(rr <= 1.5e-8, f"[G] host relres {rr:.3e} > 1.5e-8")
+    check(G_SWEEPS[0] <= mr.refinements <= G_SWEEPS[1],
+          f"[G] {mr.refinements} sweeps, not within {G_SWEEPS}")
+    check(u.shape == (nf,) and bool(np.isfinite(u).all()),
+          "[G] the answer has another shape or non-finite values")
+    check(100.0 <= float(u.min()) and float(u.max()) <= 1000.0,
+          f"[G] values [{u.min()}, {u.max()}] outside [100, 1000]")
+    if device.type == "cuda":
+        by = counts["pad_stencil"]["by_entry"]
+        check(any(k.startswith("ddps_pad_stencil_f32") for k in by)
+              and any(k.startswith("ddps_pad_stencil_f64") for k in by),
+              f"[G] kernel 3 did not run in f32 and f64: {by}")
+        check(counts["dia_spmv"]["launches"] > 0, "[G] kernel 4 did not run")
+        sell = any(lvl["operator"] == "BSGMatrix" for lvl in levels)
+        check(not sell or counts["sell_spmv"]["launches"] > 0,
+              "[G] kernel 1 did not run on the sliced-ELL levels")
+    return dict(sy=sy, A=A, M=M, b=b, cg=r, refine=mr, counts=counts,
+                launches=dict(cg=d_cg, refine=d_ref), host_relres=rr,
+                times=times, levels=levels,
+                u_range=(float(u.min()), float(u.max())),
+                replays={"G cg": (cg, d_cg), "G refine": (refine, d_ref)})
+
+
+def compare_phase_g(device, run_g) -> dict:
+    """Kernel 3 in f32 and f64 on the 10M operator, kernel 4 on every DIA
+    level of its hierarchy (at every compiled instance and block of the
+    shape, bit-identical to the default launch) and kernel 1 on every
+    sliced-ELL level, against their plain versions; these launches do not
+    count.  Returns the errors."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import DIAMatrix
+
+    rng = np.random.default_rng(7)
+    errs = {}
+    A, sy = run_g["A"], run_g["sy"]
+    mask = A.pad_mask() == 0
+    for name, tol in (("float32", TOL_F32), ("float64", TOL_F64)):
+        x = A.put_vector(rng.normal(size=sy.n_free), dtype=getattr(torch, name))
+        _compare(f"pad-stencil 10M box, dims {A.dims}, (Z, myp, mxp) = "
+                 f"({A.Z}, {A.myp}, {A.mxp}) ({name} vectors)", A.matvec(x),
+                 A.matvec_reference(x), tol, errs, "pad_stencil", mask,
+                 tag="G")
+        del x
+    for i, lvl in enumerate(run_g["M"].levels[1:], 1):
+        D = lvl.A
+        if not isinstance(D, DIAMatrix):
+            for name, tol in (("float32", TOL_F32), ("float64", TOL_F64)):
+                sell_compare(device, rng, errs, f"level {i} of the 10M box",
+                             D, tol, tag="G", dtype=getattr(torch, name))
+            continue
+        shape = _kernels.dia_launch_shape(D.n_pad, D.ndiags)
+        log(f"[G] level {i}: {D.n_rows} rows, {D.ndiags} diagonals, "
+            f"{str(D.data.dtype)[6:]} storage: kernel 4 takes {shape}")
+        for name, tol in (("float32", TOL_F32), ("float64", TOL_F64)):
+            dia_compare(device, rng, errs, f"level {i} of the 10M box", D,
+                        name, tol, tag="G")
+    return errs
+
+
+def time_phase_g(device, card, run_g) -> dict:
+    """Phase G on the card: each counted solve again under the profiler
+    (device time, busy time, wall, idle share, the port's kernels);
+    kernel 3 on the 10M operator at every z-depth, with L2 flushed, in
+    f64, beside its plain version, cuSPARSE on the CSR and its bound (the
+    10M space of phase E, now the real operator); kernel 4 on level 1
+    beside its plain version, launch floor and bound."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
+        dia_matvec_plain,
+    )
+
+    out = {}
+    for label, (fn, d) in run_g["replays"].items():
+        per = {k: v for k, v in d.items() if v}
+        p = profile_device(fn, reps=1, kernel="pad_stencil_kernel",
+                           per_call=per.get("pad_stencil", 0))
+        rec = dict(device_ms=p["device_ms"], busy_ms=p["busy_ms"],
+                   wall_ms=p["wall_ms"],
+                   idle_share=1.0 - p["busy_ms"] / p["wall_ms"],
+                   port_kernels={k[:80]: v for k, v in p["kernels"].items()
+                                 if "pad_stencil_kernel" in k
+                                 or "dia_spmv_kernel" in k})
+        log(f"[G] {label}: device {p['device_ms']:.3f} ms, busy "
+            f"{p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms wall (idle share "
+            f"{rec['idle_share']:.3f}); port kernels (launches, ms) "
+            f"{json.dumps(rec['port_kernels'])} [{card}]")
+        out[label] = rec
+    A, sy = run_g["A"], run_g["sy"]
+    rng = np.random.default_rng(8)
+    scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
+    out["pad_depths"] = time_pad_depths(device, card, {"10M": A}, rng, scrub)
+    S = sy.A
+    k3 = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        x = A.put_vector(rng.normal(size=sy.n_free), dtype=dt)
+        xi = A.extract_device(x).contiguous()
+        Acsr = _csr_tensor(S.indptr, S.indices, S.data, S.shape[1], dt, device)
+        t = _measure({"kernel": lambda: A.matvec(x),
+                      "plain": lambda: A.matvec_reference(x),
+                      "library": lambda: Acsr @ xi}, reps=20)
+        b_ms, b_by, nbytes = _pad_bound(A, x)
+        k3[name] = dict(ms=t["kernel"]["device_ms"],
+                        plain_ms=t["plain"]["device_ms"],
+                        library_ms=t["library"]["device_ms"], bound_ms=b_ms,
+                        bound_by=b_by)
+        log(f"[G] kernel 3 on the 10M operator ({name} vectors): device ms "
+            f"per call kernel {t['kernel']['device_ms']}, plain "
+            f"{t['plain']['device_ms']}, cuSPARSE CSR ({S.nnz} nnz) "
+            f"{t['library']['device_ms']}; bound {b_ms} ms by {b_by} "
+            f"({nbytes / 1e6:.2f} MB) [{card}]")
+        del Acsr, x, xi
+    out["pad_stencil"] = k3
+    D = run_g["M"].levels[1].A
+    x = torch.as_tensor(rng.normal(size=D.n_pad), dtype=torch.float32,
+                        device=device)
+    shape = _kernels.dia_launch_shape(D.n_pad, D.ndiags)
+    t = _measure({"kernel": lambda: D.matvec(x),
+                  "plain": lambda: dia_matvec_plain(D, x)})
+    floor = profile_device(lambda: _kernels.dia_floor_launch(
+        "noop", x, shape))["device_ms"]
+    nbytes = D.ndiags * D.n_pad * D.data.element_size() + 2 * D.n_pad * 4
+    b_ms, b_by = bound(nbytes, 2 * D.ndiags * D.n_pad)
+    log(f"[G] kernel 4 on level 1 ({D.n_rows} rows, {D.ndiags} diagonals, "
+        f"{shape}): device ms per call kernel {t['kernel']['device_ms']}, "
+        f"plain {t['plain']['device_ms']}, launch floor {floor}; bound "
+        f"{b_ms} ms by {b_by} [{card}]")
+    out["dia_level1"] = dict(ms=t["kernel"]["device_ms"],
+                             plain_ms=t["plain"]["device_ms"],
+                             launch_floor_ms=floor, bound_ms=b_ms,
+                             bound_by=b_by, rows=D.n_rows,
+                             diagonals=D.ndiags, instance=shape.instance,
+                             block=shape.block)
+    return out
+
+
+def phase_g_record(run_g) -> dict:
+    """What the smoke's record keeps of phase G (numbers only)."""
+    sy, A, mr, r = run_g["sy"], run_g["A"], run_g["refine"], run_g["cg"]
+    return dict(dof=sy.n_free, nnz=int(sy.A.nnz), dims=list(A.dims),
+                padded=[A.Z, A.myp, A.mxp], n_pad=A.n_pad,
+                levels=run_g["levels"], times=run_g["times"],
+                cg=dict(iterations=r.iterations, relres=r.relres),
+                refine=dict(sweeps=mr.refinements,
+                            inner_iterations=mr.inner_iterations,
+                            relres=mr.relres, timings=mr.timings),
+                host_relres=run_g["host_relres"], u_range=run_g["u_range"],
+                launches=run_g["launches"], counts=run_g["counts"])
+
+
+def phase_g_process(result: str) -> int:
+    """Phase G in a process of its own (``python3 chip_smoke.py --phase-g
+    RESULT``, started by :func:`run_phase_g`), as phase F: load the
+    kernels the parent built, run :func:`phase_g`, its comparisons and its
+    timing, and write the record to ``RESULT`` as JSON."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = _kernels.build_kernels()
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    run = phase_g(device, kernels)
+    rec = phase_g_record(run)
+    rec["errs"] = compare_phase_g(device, run)
+    rec["timing"] = time_phase_g(device, card_line(), run)
+    rec["wall_s"] = time.perf_counter() - t0
+    pathlib.Path(result).write_text(json.dumps(rec))
+    return 0
+
+
+def run_phase_g(timeout: float = 900.0) -> dict:
+    """Run :func:`phase_g_process` in a child process on the same card and
+    return its record; fails if the child does."""
+    result = OUT / "phase_g.json"
+    result.unlink(missing_ok=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                           "--phase-g", str(result)], cwd=REPO,
+                          timeout=timeout)
+    check(proc.returncode == 0 and result.exists(),
+          f"[G] the phase G process exited with {proc.returncode}")
+    return json.loads(result.read_text())
+
+
+# ---------------------------------------------------------------------------
 # D. Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1394,14 +1759,16 @@ def dia_compare(device, rng, errs, label, A, name, tol, tag="D") -> None:
         f"bit-identical to the default {default}")
 
 
-def sell_compare(device, rng, errs, label, op, tol, tag="D") -> None:
+def sell_compare(device, rng, errs, label, op, tol, tag="D",
+                 dtype=None) -> None:
     """Kernel 1 on the sliced-ELL ``op`` against its plain version, with
-    vectors of the operator's storage type."""
+    vectors of ``dtype``, by default the operator's vector type (float64
+    for float64 storage, else float32)."""
     import torch
 
     from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_spmv, spmv_plain
 
-    x = torch.as_tensor(rng.normal(size=op.x_len), dtype=op.vals.dtype,
+    x = torch.as_tensor(rng.normal(size=op.x_len), dtype=dtype or op.dtype,
                         device=device)
     _compare(f"sliced ELL {label} ({op.n_pad} rows, {op.n_slots} slots, "
              f"{op.storage} storage)", bsg_spmv(op, x), spmv_plain(op, x),
@@ -1590,6 +1957,7 @@ def compare_phase(device, run_a, run_b, run_c, run_d1, run_d2) -> dict:
         _compare(f"sliced ELL {label} ({op.n_pad} rows, {op.n_slots} slots)",
                  bsg_spmv(op, x), spmv_plain(op, x), tol, errs, "sell_spmv")
     compare_path_d(device, run_d1, run_d2, errs, vec)
+    compare_values(device, run_c, run_d1, run_d2, errs, vec)
     return errs
 
 
@@ -1656,22 +2024,23 @@ def compare_path_d(device, run_d1, run_d2, errs, vec) -> None:
     xt = np.random.default_rng(5).standard_normal(S.shape[0])
     cases[f"random graph, {A.n_pad} rows"] = (
         A, A.put_vector(S @ xt, dtype=torch.float32), "grid")
-    entry = {"cluster": "ddps_fused_cg_cluster_f32", "grid": "ddps_fused_cg_f32"}
     for label, (A, b, want) in cases.items():
         check(fused_cg_plan(A).instance == want,
               f"[D] fused CG {label}: not the {want} instance")
-        before = _kernels.FUSED_CG.by_entry[entry[want]]
+        entry = _fused_entry_name(want, A)
+        before = _kernels.FUSED_CG.by_entry[entry]
         rf = fused_cg_solve(A, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
         again = fused_cg_solve(A, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
         rp = fused_cg_plain(A, b, torch.zeros_like(b), _inverse_diagonal(A),
                             tol=PCG_TOL, maxiter=PCG_MAXITER)
         sync(device)
         if device.type == "cuda":
-            check(_kernels.FUSED_CG.by_entry[entry[want]] == before + 2,
-                  f"[D] fused CG {label}: the {want} entry was not launched")
+            check(_kernels.FUSED_CG.by_entry[entry] == before + 2,
+                  f"[D] fused CG {label}: {entry} was not launched")
         diff = (rf.x.double() - rp.x.double()).abs().max().item()
         rel = diff / rp.x.double().abs().max().item()
-        log(f"[D] fused CG {label} ({want} instance): kernel {rf.iterations} "
+        log(f"[D] fused CG {label} ({want} instance, {A.storage} values): "
+            f"kernel {rf.iterations} "
             f"iterations, plain {rp.iterations}; max rel diff of x {rel:.3e} "
             f"(limit 1e-4); two runs bit-identical: "
             f"{torch.equal(again.x, rf.x)}")
@@ -1682,6 +2051,143 @@ def compare_path_d(device, run_d1, run_d2, errs, vec) -> None:
               f"[D] fused CG {label}: two runs differ")
         errs["fused_cg"] = max(errs.get("fused_cg", 0.0), diff)
     compare_restarts(device)
+
+
+def with_storage(A, dtype):
+    """The sliced-ELL operator ``A`` with its values stored as ``dtype``:
+    the same slots and numbering, each value converted (exactly, where it
+    fits the type)."""
+    import dataclasses
+
+    return dataclasses.replace(A, vals=A.vals.to(dtype), _slot_key=None)
+
+
+def _csr_of(S):
+    """A port CSR matrix from SciPy CSR."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.csr import CSRMatrix
+
+    return CSRMatrix(indptr=S.indptr.astype(np.int64),
+                     indices=S.indices.astype(np.int64),
+                     data=S.data.astype(np.float64), shape=S.shape)
+
+
+def _general_matrix(n: int, seed: int):
+    """SPD, values neither integers nor bfloat16: a random Laplacian with
+    its entries scaled by 1 + U(0, 0.01), symmetrised."""
+    import numpy as np
+
+    S = _random_laplacian(n, 8, seed)
+    S.data = S.data * (1.0 + 0.01 * np.random.default_rng(seed).random(
+        S.data.size))
+    S = ((S + S.T) * 0.5).tocsr()
+    S.sort_indices()
+    return S
+
+
+# The value storages that hold each operator's values exactly.
+EXACT_STORAGES = {"int8": ("float32", "bfloat16", "int8"),
+                  "bfloat16": ("float32", "bfloat16"),
+                  "float32": ("float32",)}
+
+
+def compare_values(device, run_c, run_d1, run_d2, errs, vec) -> None:
+    """Kernels 1, 2 and 5 with int8 and bfloat16 values (adds to ``errs``).
+
+    Kernels 1 and 2 on path C's operator (the graph Laplacian: int8 by
+    ``storage="auto"``), a random bfloat16-exact Laplacian and a matrix of
+    neither, in every storage that holds its values exactly, with f32 and
+    f64 vectors: each launch within the tolerance of its plain version and
+    bit-identical to the float32-storage launch (the same products in the
+    same order).  Kernel 5 on path D1's int8 operators at 833k (grid
+    instance) and 16k (cluster): the float32 and bfloat16 copies take the
+    same instance, the same iterations and the same answer bit for bit."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
+        _STORAGE,
+        bsg_from_csr,
+        bsg_spmv,
+        spmv_plain,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plan,
+        fused_cg_solve,
+    )
+
+    A, R = run_c["solver"].operator, run_d2["R"]
+    check(A.storage == R.storage == "int8",
+          f"[D] path C's operators store {A.storage} / {R.storage}")
+    cases = [("path C", A, R)]
+    for label, S in (("random bf16-exact Laplacian", _random_laplacian(
+            200_000, 8, 11)), ("random f32-only", _general_matrix(200_000, 12))):
+        csr = _csr_of(S)
+        D = bsg_from_csr(csr, device=device)
+        cases.append((label, D, bsg_from_csr(
+            csr, perm=D.perm.cpu().numpy(), layout="ragged", chunk=16,
+            device=device)))
+    check([c[1].storage for c in cases] == ["int8", "bfloat16", "float32"],
+          f"[D] storage='auto' gave {[c[1].storage for c in cases]}")
+    for label, dense, ragged in cases:
+        for name, tol in (("float32", TOL_F32), ("float64", TOL_F64)):
+            x = vec(dense.n_pad, getattr(np, name))
+            for layout, op0, kernel in (
+                    ("dense", dense, _kernels.SELL_SPMV),
+                    ("ragged", ragged, _kernels.SELL_CHUNKED_SPMV)):
+                ref = None
+                for s in EXACT_STORAGES[dense.storage]:
+                    op = with_storage(op0, _STORAGE[s])
+                    entry = (f"ddps_{kernel.name}_{_kernels._NAME[op.vals.dtype]}"
+                             f"_{_kernels._NAME[x.dtype]}")
+                    before = kernel.by_entry[entry]
+                    y = bsg_spmv(op, x)
+                    _compare(f"{kernel.name} {label} ({layout}, {s} values, "
+                             f"{op.n_slots} slots)", y, spmv_plain(op, x),
+                             tol, errs, kernel.name)
+                    if device.type == "cuda":
+                        check(kernel.by_entry[entry] == before + 1,
+                              f"[D] {entry} was not launched")
+                    if ref is None:
+                        ref = y
+                    check(torch.equal(y, ref), f"[D] {kernel.name} {label} "
+                          f"({layout}, {s} values, {name} vectors): not "
+                          f"bit-identical to the float32-storage launch")
+            log(f"[D] {label}, {name} vectors: kernels 1 and 2 bit-identical "
+                f"across the storages {EXACT_STORAGES[dense.storage]}")
+    for label in ("833k", "16k"):
+        d = run_d1[label]
+        Ai, b = d["A"], d["b"]
+        check(Ai.storage == "int8", f"[D] fused CG {label}: {Ai.storage}")
+        ri = d["fused"]
+        plan = fused_cg_plan(Ai)
+        for s in ("float32", "bfloat16"):
+            F = with_storage(Ai, _STORAGE[s])
+            check(fused_cg_plan(F).instance == plan.instance,
+                  f"[D] fused CG {label}: {s} values take another instance")
+            entry = _fused_entry_name(plan.instance, F)
+            before = _kernels.FUSED_CG.by_entry[entry]
+            rf = fused_cg_solve(F, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
+            sync(device)
+            if device.type == "cuda":
+                check(_kernels.FUSED_CG.by_entry[entry] == before + 1,
+                      f"[D] fused CG {label}: {entry} was not launched")
+            check(rf.iterations == ri.iterations and torch.equal(rf.x, ri.x),
+                  f"[D] fused CG {label}: {s} values give {rf.iterations} "
+                  f"iterations, int8 {ri.iterations}, or another answer")
+        smem = ""
+        if plan.instance == "cluster":
+            ms, mw = plan.pack.max_slots, plan.pack.max_win
+            smem = (f"; shared memory per CTA: int8 "
+                    f"{_kernels.cluster_smem_bytes(ms, mw, 1)} B, bfloat16 "
+                    f"{_kernels.cluster_smem_bytes(ms, mw, 2)} B, float32 "
+                    f"{_kernels.cluster_smem_bytes(ms, mw, 4)} B of "
+                    f"{_kernels.CLUSTER_SMEM_BUDGET} ({ms} slots, window {mw})")
+        log(f"[D] fused CG {label} ({plan.instance} instance): int8, "
+            f"bfloat16 and float32 values, {ri.iterations} iterations each, "
+            f"answers bit-identical{smem}")
 
 
 def compare_restarts(device) -> None:
@@ -1909,6 +2415,14 @@ def _dia_csr(A):
     return S.indptr, S.indices, S.data
 
 
+def sell_bytes(A) -> int:
+    """Compulsory bytes of one sliced-ELL product in f32 vectors: every
+    slot's column (4 B) and value read once, the slice pointers, x read
+    once and y written once."""
+    return (A.n_slots * (4 + A.vals.element_size())
+            + A.slice_ptr.numel() * 8 + A.x_len * 4 + A.n_pad * 4)
+
+
 def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     import numpy as np
     import torch
@@ -1951,14 +2465,16 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     k3 = rec["pad_stencil/float32"]
     k3["f64_ms"] = rec["pad_stencil/float64"]["ms"]
     k3["f64_cold_ms"] = rec["pad_stencil/float64"]["cold_ms"]
-    k3["depths"] = time_pad_depths(device, card, A, sy, rng, scrub)
+    k3["depths"] = time_pad_depths(device, card, {"1M": A}, rng, scrub)
     del scrub
 
     rec.update(time_dia(device, card, run_a, run_b, rng))
 
-    # Kernel 1: slice 1's fine operator.
+    # Kernel 1: slice 1's fine operator, in the storage storage="auto"
+    # keeps (int8), beside the same slots with float32 values.
     solver = run_c["solver"]
     Af = solver.operator
+    F32 = with_storage(Af, torch.float32)
     csr = solver.system.A
     x = torch.from_numpy(rng.normal(size=Af.n_pad).astype(np.float32)).to(device)
     perm = Af.perm
@@ -1967,21 +2483,26 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
                        torch.float32, device)
     t = _measure({
         "kernel": lambda: bsg_spmv(Af, x),
+        "f32_values": lambda: bsg_spmv(F32, x),
         "plain": lambda: spmv_plain(Af, x),
         "library": lambda: Acsr @ xo,
     })
-    nbytes = (Af.n_slots * 8 + Af.slice_ptr.numel() * 8 + Af.x_len * 4
-              + Af.n_pad * 4)
+    nbytes = sell_bytes(Af)
     b_ms, b_by = bound(nbytes, 2 * Af.n_slots)
-    log(f"[E] sliced ELL fine ({Af.n_pad} rows, {Af.n_slots} slots, f32), "
-        f"device ms per call: kernel {t['kernel']['device_ms']}, plain "
-        f"{t['plain']['device_ms']}, cuSPARSE CSR ({csr.nnz} nnz) "
-        f"{t['library']['device_ms']}; events back to back: "
-        f"{json.dumps({k: v['events_ms'] for k, v in t.items()})}; bound "
-        f"{b_ms} ms by {b_by} [{card}]")
+    f32_ms, _ = bound(sell_bytes(F32), 2 * Af.n_slots)
+    log(f"[E] sliced ELL fine ({Af.n_pad} rows, {Af.n_slots} slots, "
+        f"{Af.storage} values, f32 vectors), device ms per call: kernel "
+        f"{t['kernel']['device_ms']}, the same slots with f32 values "
+        f"{t['f32_values']['device_ms']} (bound {f32_ms} ms, "
+        f"{sell_bytes(F32) / 1e6:.2f} MB), plain {t['plain']['device_ms']}, "
+        f"cuSPARSE CSR ({csr.nnz} nnz) {t['library']['device_ms']}; events "
+        f"back to back: {json.dumps({k: v['events_ms'] for k, v in t.items()})}"
+        f"; bound {b_ms} ms by {b_by} ({nbytes / 1e6:.2f} MB) [{card}]")
     rec["sell_spmv"] = dict(
         ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
         library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
+        storage=Af.storage, f32_values_ms=t["f32_values"]["device_ms"],
+        f32_values_bound_ms=f32_ms,
         events_ms={k: v["events_ms"] for k, v in t.items()})
     rec["solve_a_warm"] = warm_solve_breakdown(card, run_a)
     rec.update(time_chunked(device, card, run_c, run_d2, rec["sell_spmv"],
@@ -2092,30 +2613,19 @@ def _pad_bound(A, x) -> tuple:
 
 # Kernel 3's z-layers per block, timed beside the launch's own choice (0).
 PAD_DEPTHS = (0, 1, 2, 4, 8, 16)
-BIG_CELLS = 216  # a 10M-DOF box's free grid: 215 x 217 x 217, mxp = 256
 
 
-def time_pad_depths(device, card, A, sy, rng, scrub) -> dict:
-    """Kernel 3 in f32 at every z-depth of PAD_DEPTHS, on path A's
-    operator and on a 10M-DOF space of the same stencil (mxp = 256), each
-    against the plain version; device ms per call, and with L2 flushed
-    for the launch's own choice.  Launches here do not count."""
-    import numpy as np
+def time_pad_depths(device, card, ops, rng, scrub) -> dict:
+    """Kernel 3 in f32 at every z-depth of PAD_DEPTHS on each pad-stencil
+    operator of ``ops`` (label -> operator: path A's, phase G's 10M box),
+    each against the plain version; device ms per call, and with L2
+    flushed for the launch's own choice.  Launches here do not count."""
     import torch
 
     from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
-    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
-        pad_stencil_from_parts,
-    )
 
-    n = BIG_CELLS - 1, BIG_CELLS + 1, BIG_CELLS + 1
-    parts = dict(pats=A.pats.cpu().numpy(), const_vals=A.const_vals.cpu().numpy(),
-                 corr_pad=np.zeros(n[0] * n[1] * n[2], np.float32),
-                 taps=A.taps, groups=A.groups, group_const=A.group_const,
-                 dims=n, period=A.period)
-    big = pad_stencil_from_parts(parts, device=device)
     out = {}
-    for label, op in (("1M", A), ("10M", big)):
+    for label, op in ops.items():
         x = op.put_vector(rng.normal(size=op.n_rows), dtype=torch.float32)
         y_ref = op.matvec_reference(x)
         b_ms, b_by, nbytes = _pad_bound(op, x)
@@ -2157,6 +2667,7 @@ def time_chunked(device, card, run_c, run_d2, k1, k1_bytes) -> dict:
     from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_spmv, spmv_plain
 
     R = run_d2["R"]
+    R32 = with_storage(R, torch.float32)
     csr = run_c["solver"].system.A
     x = torch.from_numpy(np.random.default_rng(2).normal(
         size=R.n_pad).astype(np.float32)).to(device)
@@ -2165,6 +2676,7 @@ def time_chunked(device, card, run_c, run_d2, k1, k1_bytes) -> dict:
                        torch.float32, device)
     t = _measure({
         "kernel": lambda: bsg_spmv(R, x),
+        "f32_values": lambda: bsg_spmv(R32, x),
         "plain": lambda: spmv_plain(R, x),
         "library": lambda: Acsr @ xo,
     })
@@ -2173,7 +2685,9 @@ def time_chunked(device, card, run_c, run_d2, k1, k1_bytes) -> dict:
     ms = t["kernel"]["device_ms"]
     log(f"[E] chunked ELL fine ({R.n_pad} rows, {R.n_chunks} chunks of 16, "
         f"{R.wide.numel()} spread one per warp, {R.n_slots} slots, slot "
-        f"ratio {ratio:.4f}, f32), device ms per call: kernel {ms} (kernel 1 "
+        f"ratio {ratio:.4f}, {R.storage} values, f32 vectors), device ms per "
+        f"call: kernel {ms} (the same slots with f32 values "
+        f"{t['f32_values']['device_ms']}; kernel 1 "
         f"on the dense layout {k1['ms']}: {ms / k1['ms']:.3f}x), plain "
         f"{t['plain']['device_ms']}, cuSPARSE CSR "
         f"{t['library']['device_ms']} ({ms / t['library']['device_ms']:.3f}x)"
@@ -2183,18 +2697,21 @@ def time_chunked(device, card, run_c, run_d2, k1, k1_bytes) -> dict:
     return {"sell_chunked_spmv": dict(
         ms=ms, plain_ms=t["plain"]["device_ms"],
         library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
-        slot_ratio=ratio, vs_kernel_1=ms / k1["ms"],
+        slot_ratio=ratio, vs_kernel_1=ms / k1["ms"], storage=R.storage,
+        f32_values_ms=t["f32_values"]["device_ms"],
         events_ms={k: v["events_ms"] for k, v in t.items()})}
 
 
 def _wall_ms(fn, reps: int) -> list:
+    """Host ms of each of ``reps`` calls, each ended by a synchronise."""
     import torch
 
     out = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return out
 
@@ -2203,22 +2720,26 @@ def _fused_modes(A, b, plan, instance: str, iters: int) -> dict:
     """Device ms of one launch of ``instance`` in each measurement mode,
     ``iters`` iterations: ``barriers`` (the synchronisation floor: the
     launch, barriers and reductions of every iteration), ``matvec`` (and
-    the matvec, with the cluster's window fills), ``solve``."""
+    the matvec, with the cluster's window fills), ``solve``.  The
+    measurement modes run on float32 values (their entries take no other;
+    the same slots), the solve on the operator's own."""
     import torch
 
     from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
 
     zero = torch.zeros_like(b)
+    f32 = with_storage(A, torch.float32).vals
     out = {}
     for mode in _kernels.FUSED_CG_MODES:
+        vals = A.vals if mode == "solve" else f32
         if instance == "cluster":
             pk = plan.pack
-            fn = (lambda m=mode: _kernels.fused_cg_cluster_launch(
-                A.vals, pk.lcols, A.slice_ptr, pk.windows, pk.max_slots,
+            fn = (lambda m=mode, v=vals: _kernels.fused_cg_cluster_launch(
+                v, pk.lcols, A.slice_ptr, pk.windows, pk.max_slots,
                 pk.max_win, b, plan.invd, None, PCG_TOL, iters, mode=m))
         else:
-            fn = (lambda m=mode: _kernels.fused_cg_launch(
-                A.slice_ptr, A.cols, A.vals, b, plan.invd, zero, PCG_TOL,
+            fn = (lambda m=mode, v=vals: _kernels.fused_cg_launch(
+                A.slice_ptr, A.cols, v, b, plan.invd, zero, PCG_TOL,
                 iters, mode=m))
         out[mode] = profile_device(fn, reps=3, kernel="fused_cg")["device_ms"]
     return out
@@ -2281,19 +2802,27 @@ def time_fused(card, run_d1) -> dict:
             extra.update(active_clusters=active, ctas=plan.pack.ctas,
                          max_slots=plan.pack.max_slots,
                          max_window=plan.pack.max_win)
-        per_iter = (A.n_slots * 8 + A.slice_ptr.numel() * 8
+        slot_b = 4 + A.vals.element_size()  # column and value
+        per_iter = (A.n_slots * slot_b + A.slice_ptr.numel() * 8
                     + (A.x_len + VECTOR_PASSES * A.n_pad) * 4)
-        setup = (A.n_slots * 8 + 5 * A.n_pad * 4)  # A x0, b, x0, D^-1, r, p
+        setup = (A.n_slots * slot_b + 5 * A.n_pad * 4)  # A x0, b, x0, D^-1, r, p
         flops = iters * (2 * A.n_slots + 12 * A.n_pad)
         s_ms, _s_by = bound(iters * per_iter + setup, flops)
-        once = (A.n_slots * 8 + A.slice_ptr.numel() * 8 + 4 * A.n_pad * 4)
+        once = (A.n_slots * slot_b + A.slice_ptr.numel() * 8
+                + 4 * A.n_pad * 4)
+        F32 = with_storage(A, torch.float32)
+        f32_dev = profile_device(
+            lambda: fused_cg_solve(F32, b, tol=PCG_TOL, maxiter=PCG_MAXITER),
+            reps=3, kernel="fused_cg")["device_ms"]
         b_ms, b_by = bound(once, flops)
         dev = prof["fused"]["device_ms"]
         unf = prof["unfused"]
         idle = 1.0 - unf["busy_ms"] / unf["wall_ms"]
         us = dev * 1e3 / iters
         log(f"[E] fused CG {label} ({A.n_pad} rows, {plan.instance} instance, "
-            f"{iters} iterations; unfused {d['unfused'].iterations}): wall ms "
+            f"{A.storage} values, {iters} iterations; unfused "
+            f"{d['unfused'].iterations}; the same slots with f32 values "
+            f"{f32_dev} ms of device time): wall ms "
             f"per solve fused {walls['fused']}, unfused {walls['unfused']}, "
             f"plain {walls['plain']}; device ms per solve fused {dev} "
             f"({us:.2f} us per iteration), unfused {unf['device_ms']} (busy "
@@ -2309,6 +2838,7 @@ def time_fused(card, run_d1) -> dict:
             ms=dev, plain_ms=prof["plain"]["device_ms"], bound_ms=b_ms,
             bound_by=b_by, streaming_bound_ms=s_ms, library_ms=None,
             instance=plan.instance, iterations=iters, us_per_iteration=us,
+            storage=A.storage, f32_values_ms=f32_dev,
             floor_ms=modes["barriers"], matvec_mode_ms=modes["matvec"],
             solve_mode_ms=modes["solve"], wall_ms=walls["fused"],
             plain_wall_ms=walls["plain"],
@@ -2440,14 +2970,18 @@ def main() -> int:
     log(f"[D3] done at {time.perf_counter() - t_start:.1f} s")
     run_f = run_phase_f()
     log(f"[F] done at {time.perf_counter() - t_start:.1f} s")
+    run_g = run_phase_g()
+    log(f"[G] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
     errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
-    for key, e in run_f.pop("errs").items():
+    for key, e in [*run_f.pop("errs").items(), *run_g.pop("errs").items()]:
         errs[key] = max(errs.get(key, 0.0), e)
 
     # ---- E. timing and records --------------------------------------------
     rec = timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2)
+    g_time = run_g["timing"]
+    rec["pad_stencil/float32"]["depths"].update(g_time.pop("pad_depths"))
     res1, res2 = run_c["res"]
     mr = run_a["report"]["mixed"]
     log("smoke: " + json.dumps({
@@ -2494,6 +3028,7 @@ def main() -> int:
         },
         "cli_routes": run_d3,
         "slice6": run_f,
+        "box10m": run_g,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
@@ -2526,6 +3061,8 @@ def main() -> int:
         if k.name in instances:
             extra["instances"] = instances[k.name]
         extra["phase_f_launches"] = phase_f_launches(run_f, k.name)
+        extra["phase_g_launches"] = {
+            run: c.get(k.name, 0) for run, c in run_g["launches"].items()}
         records.append({
             "name": k.name,
             "route": "cuda",
@@ -2554,6 +3091,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--phase-f"]:
             sys.exit(phase_f_process(sys.argv[2]))
+        if sys.argv[1:2] == ["--phase-g"]:
+            sys.exit(phase_g_process(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -9,17 +9,20 @@
 //
 // The grid instance (any size).  A persistent cooperative kernel:
 // cudaLaunchCooperativeKernel puts every block of the grid on the card at
-// once (the grid is sized from the occupancy calculator, never larger), and
-// the blocks meet at grid-wide barriers (cooperative_groups::this_grid()
-// .sync()).  One iteration, three barriers (z = D^-1 r is never stored):
+// once (the grid is sized from the occupancy calculator, never larger, and
+// is the same for every value storage), and the blocks meet at grid-wide
+// barriers (cooperative_groups::this_grid().sync()).  One iteration, three
+// barriers (z = D^-1 r is never stored):
 //   1. Ap = A p (sliced ELL, one thread per row, grid-stride over rows) and
 //      the block's share of p.Ap;                                   barrier
 //   2. every block sums the shares -> alpha = rz / pAp; x += alpha p,
 //      r -= alpha Ap, and the shares of r.z and r.r;                 barrier
 //   3. every block sums them -> rz', rnorm2, beta = rz' / rz;
 //      p = D^-1 r + beta p;                                          barrier
-// Bound: bytes.  Each iteration streams the operator once (slots x 8 B, 129
-// MB at 833k rows) plus about nine vector passes.
+// Bound: bytes.  Each iteration streams the operator once (slots x (4 B
+// column + value bytes): 129 MB at 833k rows with float values, 80 MB with
+// the int8 values JAX stores for the graph Laplacian) plus about nine vector
+// passes.
 //
 // The cluster instance (operators that fit on chip: at most 16 x 1024
 // rows).  What plays VMEM's part on Hopper for an operator of the size of
@@ -27,7 +30,7 @@
 // c = n / 1024 <= 16 CTAs of 1024 threads, one row per thread, launched
 // with cudaLaunchKernelEx and a cluster dimension (16 is a non-portable
 // size).  At the start each CTA copies its 1024 rows' slots into shared
-// memory with cp.async: values as float, columns as 16-bit indices into a
+// memory with cp.async: values as stored, columns as 16-bit indices into a
 // window that covers every column its rows touch, widened to multiples of
 // 4 rows (packed on the host, solvers/fused_cg.py::cluster_pack).  x, r, p, b and D^-1 of the thread's
 // row live in registers; the CTA keeps p over its window.  The operator
@@ -71,10 +74,14 @@
 // writes of one step before the reads of the next.  The operator, b and
 // D^-1 go through __ldg.
 //
-// Contract.  float storage, float vectors (the JAX kernel's f32 contract),
-// square operator with every column < n.  Grid: the caller passes x holding
-// x0 (updated in place), r, p and Ap of n floats, the partials (6 doubles
-// for each of up to max_blocks blocks; SMs x 2048 / kBlock always suffices).
+// Contract.  Values stored as int8, bfloat16 or float (the JAX kernel's
+// storages; each converts to float before its product, values.cuh, as the
+// TPU kernel converts it at fused_cg.py:50, so an exact narrow storage gives
+// the float storage's solve bit for bit), float vectors (the JAX kernel's
+// f32 contract), square operator with every column < n.  Grid: the caller
+// passes x holding x0 (updated in place), r, p and Ap of n floats, the
+// partials (6 doubles for each of up to max_blocks blocks; SMs x 2048 /
+// kBlock always suffices).
 // Cluster: n = 1024 c, x0 (or null for 0) and x may differ; the slots of
 // CTA k are slice_ptr[32k] .. slice_ptr[32k + 32], win holds (lo, width) of
 // each CTA's window.  Both write a stats buffer of 4 doubles: iterations,
@@ -92,6 +99,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "values.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -100,17 +109,21 @@ enum Mode : int { kSkeleton = 0, kMatvec = 1, kFull = 2 };
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
+// int8 values convert through the float bias (values.cuh): this kernel ran
+// 15 % faster with it at 833k rows on the H100.
+constexpr bool kBias = true;
 
+template <typename V>
 __device__ __forceinline__ float row_dot(const int64_t* __restrict__ slice_ptr,
                                          const int32_t* __restrict__ cols,
-                                         const float* __restrict__ vals,
+                                         const V* __restrict__ vals,
                                          const float* v, int64_t row) {
   const int64_t s = row >> 5;
   const int lane = static_cast<int>(row & 31);
   const int64_t end = __ldg(slice_ptr + s + 1);
   float acc = 0.f;
   for (int64_t k = __ldg(slice_ptr + s) + lane; k < end; k += 32) {
-    acc += __ldg(vals + k) * v[__ldg(cols + k)];
+    acc += ddps::load_value<float, kBias>(vals + k) * v[__ldg(cols + k)];
   }
   return acc;
 }
@@ -170,11 +183,11 @@ __device__ __forceinline__ void grid_totals(const double* part, int n_blocks,
   __syncthreads();
 }
 
-template <int M>
+template <int M, typename V>
 __global__ void __launch_bounds__(kBlock)
 fused_cg_kernel(const int64_t* __restrict__ slice_ptr,
                 const int32_t* __restrict__ cols,
-                const float* __restrict__ vals,
+                const V* __restrict__ vals,
                 const float* __restrict__ b,
                 const float* __restrict__ invd,
                 float* x, float* r, float* p, float* ap,
@@ -295,18 +308,20 @@ __host__ __device__ constexpr int64_t align16(int64_t bytes) {
   return (bytes + 15) / 16 * 16;
 }
 
-// Dynamic shared memory of a CTA, in this order: slot values (float), slot
-// columns (uint16), two windows (float: z = D^-1 r as pushed by its owners,
-// and p), then the tail: the partials pushed by the cluster's CTAs (double,
-// kPartRegions x kMaxCtas), 32 warps x 3 warp sums (double), the mbarriers
-// (8 B each, 64 B), every CTA's window start (int).
+// Dynamic shared memory of a CTA, in this order: slot values (as stored: 1,
+// 2 or 4 bytes), slot columns (uint16), two windows (float: z = D^-1 r as
+// pushed by its owners, and p), then the tail: the partials pushed by the
+// cluster's CTAs (double, kPartRegions x kMaxCtas), 32 warps x 3 warp sums
+// (double), the mbarriers (8 B each, 64 B), every CTA's window start (int).
 constexpr int64_t kSmemTail =
     8 * kPartRegions * kMaxCtas + 8 * 3 * kCtaWarps + 64 + 4 * kMaxCtas;
 static_assert(kSmemTail == DDPS_CLUSTER_SMEM_TAIL,
               "the shared-memory tail differs from ops/_kernels.py's");
+template <typename V>
 __host__ __device__ constexpr int64_t cluster_smem_bytes(int64_t max_slots,
                                                          int64_t max_win) {
-  return align16(6 * max_slots) + 2 * align16(4 * max_win) + kSmemTail;
+  return align16((static_cast<int64_t>(sizeof(V)) + 2) * max_slots) +
+         2 * align16(4 * max_win) + kSmemTail;
 }
 
 __device__ __forceinline__ void copy16_async(void* dst, const void* src) {
@@ -467,9 +482,9 @@ __device__ __forceinline__ void push_rows(float v, int64_t g, unsigned dest,
   }
 }
 
-template <int M>
+template <int M, typename V>
 __global__ void __launch_bounds__(kCta, 1)
-fused_cg_cluster_kernel(const float* __restrict__ vals,
+fused_cg_cluster_kernel(const V* __restrict__ vals,
                         const uint16_t* __restrict__ lcols,
                         const int64_t* __restrict__ slice_ptr,
                         const int32_t* __restrict__ windows,
@@ -486,9 +501,10 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int64_t wbytes = align16(4 * max_win);
-  float* s_vals = reinterpret_cast<float*>(smem);
-  uint16_t* s_cols = reinterpret_cast<uint16_t*>(smem + 4 * max_slots);
-  unsigned char* w0 = smem + align16(6 * max_slots);
+  constexpr int kVb = static_cast<int>(sizeof(V));
+  V* s_vals = reinterpret_cast<V*>(smem);
+  uint16_t* s_cols = reinterpret_cast<uint16_t*>(smem + kVb * max_slots);
+  unsigned char* w0 = smem + align16((kVb + 2) * max_slots);
   float* s_zwin = reinterpret_cast<float*>(w0);
   float* s_pwin = reinterpret_cast<float*>(w0 + wbytes);
   double* s_part = reinterpret_cast<double*>(w0 + 2 * wbytes);
@@ -513,8 +529,12 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
   const int n_slots = static_cast<int>(__ldg(slice_ptr + slice0 + kCtaWarps) - slot0);
   const int wn = __ldg(windows + 2 * rank + 1);
   if constexpr (M != kSkeleton) {
-    for (int k = tid; k < n_slots / 4; k += kCta) {
-      copy16_async(s_vals + 4 * k, vals + slot0 + 4 * k);
+    // n_slots is a multiple of 32, so the values are whole 16-byte pieces.
+    const unsigned char* g_vals =
+        reinterpret_cast<const unsigned char*>(vals + slot0);
+    for (int k = tid; k < n_slots * kVb / 16; k += kCta) {
+      copy16_async(reinterpret_cast<unsigned char*>(s_vals) + 16 * k,
+                   g_vals + 16 * k);
     }
     for (int k = tid; k < n_slots / 8; k += kCta) {
       copy16_async(s_cols + 8 * k, lcols + slot0 + 8 * k);
@@ -543,7 +563,7 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
 #pragma unroll 4
     for (int j = 0; j < width; ++j) {
       const int k = my0 + 32 * j + lane;
-      acc += s_vals[k] * win[s_cols[k]];
+      acc += ddps::widen<float, kBias>(s_vals[k]) * win[s_cols[k]];
     }
     return acc;
   };
@@ -642,7 +662,31 @@ fused_cg_cluster_kernel(const float* __restrict__ vals,
   cluster.sync();
 }
 
+// Resident blocks per SM of the grid instance: the least over the value
+// storages, so every storage runs the same grid.  The grid fixes the order
+// in which the blocks' partial dots add up; with one grid for all, exact
+// int8 or bfloat16 values give the float solve bit for bit (the
+// instantiations differ in registers: 48 for float, 40 for int8 and
+// bfloat16 on sm_90a, so each alone would fill the SMs differently).
 template <int M>
+cudaError_t grid_blocks_per_sm(int* per_sm) {
+  int counts[3] = {0, 0, 0};
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &counts[0], fused_cg_kernel<M, float>, kBlock, 0);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &counts[1], fused_cg_kernel<M, int8_t>, kBlock, 0);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &counts[2], fused_cg_kernel<M, __nv_bfloat16>, kBlock, 0);
+  }
+  *per_sm = counts[0] < counts[1] ? counts[0] : counts[1];
+  if (counts[2] < *per_sm) *per_sm = counts[2];
+  return err;
+}
+
+template <int M, typename V>
 int launch_grid(const void* slice_ptr, const void* cols, const void* vals,
                 const void* b, const void* invd, void* x, void* r, void* p,
                 void* ap, void* part, int64_t max_blocks, void* stats,
@@ -658,8 +702,7 @@ int launch_grid(const void* slice_ptr, const void* cols, const void* vals,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_cg_kernel<M>, kBlock, 0);
+  err = grid_blocks_per_sm<M>(&per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   int64_t grid = static_cast<int64_t>(per_sm) * sms;
@@ -670,7 +713,7 @@ int launch_grid(const void* slice_ptr, const void* cols, const void* vals,
 
   const int64_t* a_slice_ptr = static_cast<const int64_t*>(slice_ptr);
   const int32_t* a_cols = static_cast<const int32_t*>(cols);
-  const float* a_vals = static_cast<const float*>(vals);
+  const V* a_vals = static_cast<const V*>(vals);
   const float* a_b = static_cast<const float*>(b);
   const float* a_invd = static_cast<const float*>(invd);
   float* a_x = static_cast<float*>(x);
@@ -682,14 +725,14 @@ int launch_grid(const void* slice_ptr, const void* cols, const void* vals,
   void* args[] = {&a_slice_ptr, &a_cols, &a_vals, &a_b, &a_invd, &a_x,
                   &a_r, &a_p, &a_ap, &a_part, &a_stats, &n, &maxiter, &tol2};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_cg_kernel<M>),
+      reinterpret_cast<const void*>(fused_cg_kernel<M, V>),
       dim3(static_cast<unsigned>(grid)), dim3(kBlock), args, 0,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int M>
+template <int M, typename V>
 int launch_cluster(const void* vals, const void* lcols, const void* slice_ptr,
                    const void* windows, const void* b, const void* invd,
                    const void* x0, void* x, void* stats, int ctas,
@@ -697,13 +740,14 @@ int launch_cluster(const void* vals, const void* lcols, const void* slice_ptr,
                    void* active_out, void* stream) {
   if (ctas < 1 || ctas > kMaxCtas || max_slots < 0 || max_slots % 32 ||
       max_win < 1 || max_win > kMaxWindow ||
-      cluster_smem_bytes(max_slots, max_win) > kSmemBudget ||
+      cluster_smem_bytes<V>(max_slots, max_win) > kSmemBudget ||
       reinterpret_cast<uintptr_t>(vals) % 16 ||
       reinterpret_cast<uintptr_t>(lcols) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = static_cast<int>(cluster_smem_bytes(max_slots, max_win));
-  auto kernel = fused_cg_cluster_kernel<M>;
+  const int smem =
+      static_cast<int>(cluster_smem_bytes<V>(max_slots, max_win));
+  auto kernel = fused_cg_cluster_kernel<M, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -728,7 +772,7 @@ int launch_cluster(const void* vals, const void* lcols, const void* slice_ptr,
   if (active_out) *static_cast<int*>(active_out) = active;
   if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const float*>(vals),
+      &cfg, kernel, static_cast<const V*>(vals),
       static_cast<const uint16_t*>(lcols),
       static_cast<const int64_t*>(slice_ptr),
       static_cast<const int32_t*>(windows), static_cast<const float*>(b),
@@ -752,8 +796,29 @@ int ddps_fused_cg_f32(const void* slice_ptr, const void* cols,
                       void* x, void* r, void* p, void* ap, void* part,
                       int64_t max_blocks, void* stats, int64_t n, int maxiter,
                       float tol2, void* stream) {
-  return launch_grid<kFull>(slice_ptr, cols, vals, b, invd, x, r, p, ap, part,
-                            max_blocks, stats, n, maxiter, tol2, stream);
+  return launch_grid<kFull, float>(slice_ptr, cols, vals, b, invd, x, r, p,
+                                   ap, part, max_blocks, stats, n, maxiter,
+                                   tol2, stream);
+}
+
+// The same solve on int8 or bfloat16 values (float vectors).
+int ddps_fused_cg_i8(const void* slice_ptr, const void* cols, const void* vals,
+                     const void* b, const void* invd, void* x, void* r,
+                     void* p, void* ap, void* part, int64_t max_blocks,
+                     void* stats, int64_t n, int maxiter, float tol2,
+                     void* stream) {
+  return launch_grid<kFull, int8_t>(slice_ptr, cols, vals, b, invd, x, r, p,
+                                    ap, part, max_blocks, stats, n, maxiter,
+                                    tol2, stream);
+}
+int ddps_fused_cg_bf16(const void* slice_ptr, const void* cols,
+                       const void* vals, const void* b, const void* invd,
+                       void* x, void* r, void* p, void* ap, void* part,
+                       int64_t max_blocks, void* stats, int64_t n, int maxiter,
+                       float tol2, void* stream) {
+  return launch_grid<kFull, __nv_bfloat16>(slice_ptr, cols, vals, b, invd, x,
+                                           r, p, ap, part, max_blocks, stats,
+                                           n, maxiter, tol2, stream);
 }
 
 // A cluster of ctas CTAs (1 to 16) of 1024 rows; lcols the slots' 16-bit
@@ -767,9 +832,34 @@ int ddps_fused_cg_cluster_f32(const void* vals, const void* lcols,
                               void* x, void* stats, int ctas, int max_slots,
                               int max_win, int maxiter, float tol2,
                               void* active_out, void* stream) {
-  return launch_cluster<kFull>(vals, lcols, slice_ptr, windows, b, invd, x0,
-                               x, stats, ctas, max_slots, max_win, maxiter,
-                               tol2, active_out, stream);
+  return launch_cluster<kFull, float>(vals, lcols, slice_ptr, windows, b,
+                                      invd, x0, x, stats, ctas, max_slots,
+                                      max_win, maxiter, tol2, active_out,
+                                      stream);
+}
+
+// The same solve on int8 or bfloat16 values: the slots take 3 or 4 bytes of
+// shared memory instead of 6.
+int ddps_fused_cg_cluster_i8(const void* vals, const void* lcols,
+                             const void* slice_ptr, const void* windows,
+                             const void* b, const void* invd, const void* x0,
+                             void* x, void* stats, int ctas, int max_slots,
+                             int max_win, int maxiter, float tol2,
+                             void* active_out, void* stream) {
+  return launch_cluster<kFull, int8_t>(vals, lcols, slice_ptr, windows, b,
+                                       invd, x0, x, stats, ctas, max_slots,
+                                       max_win, maxiter, tol2, active_out,
+                                       stream);
+}
+int ddps_fused_cg_cluster_bf16(const void* vals, const void* lcols,
+                               const void* slice_ptr, const void* windows,
+                               const void* b, const void* invd,
+                               const void* x0, void* x, void* stats, int ctas,
+                               int max_slots, int max_win, int maxiter,
+                               float tol2, void* active_out, void* stream) {
+  return launch_cluster<kFull, __nv_bfloat16>(
+      vals, lcols, slice_ptr, windows, b, invd, x0, x, stats, ctas, max_slots,
+      max_win, maxiter, tol2, active_out, stream);
 }
 
 // Measurement entries: the same launches in mode 0 (barriers and
@@ -781,17 +871,17 @@ int ddps_fused_cg_study_f32(int mode, const void* slice_ptr, const void* cols,
                             int maxiter, float tol2, void* stream) {
   switch (mode) {
     case kSkeleton:
-      return launch_grid<kSkeleton>(slice_ptr, cols, vals, b, invd, x, r, p,
-                                    ap, part, max_blocks, stats, n, maxiter,
-                                    tol2, stream);
+      return launch_grid<kSkeleton, float>(slice_ptr, cols, vals, b, invd, x,
+                                           r, p, ap, part, max_blocks, stats,
+                                           n, maxiter, tol2, stream);
     case kMatvec:
-      return launch_grid<kMatvec>(slice_ptr, cols, vals, b, invd, x, r, p, ap,
-                                  part, max_blocks, stats, n, maxiter, tol2,
-                                  stream);
+      return launch_grid<kMatvec, float>(slice_ptr, cols, vals, b, invd, x, r,
+                                         p, ap, part, max_blocks, stats, n,
+                                         maxiter, tol2, stream);
     case kFull:
-      return launch_grid<kFull>(slice_ptr, cols, vals, b, invd, x, r, p, ap,
-                                part, max_blocks, stats, n, maxiter, tol2,
-                                stream);
+      return launch_grid<kFull, float>(slice_ptr, cols, vals, b, invd, x, r,
+                                       p, ap, part, max_blocks, stats, n,
+                                       maxiter, tol2, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -805,18 +895,17 @@ int ddps_fused_cg_cluster_study_f32(int mode, const void* vals,
                                     void* active_out, void* stream) {
   switch (mode) {
     case kSkeleton:
-      return launch_cluster<kSkeleton>(vals, lcols, slice_ptr, windows, b,
-                                       invd, x0, x, stats, ctas, max_slots,
-                                       max_win, maxiter, tol2, active_out,
-                                       stream);
+      return launch_cluster<kSkeleton, float>(
+          vals, lcols, slice_ptr, windows, b, invd, x0, x, stats, ctas,
+          max_slots, max_win, maxiter, tol2, active_out, stream);
     case kMatvec:
-      return launch_cluster<kMatvec>(vals, lcols, slice_ptr, windows, b, invd,
-                                     x0, x, stats, ctas, max_slots, max_win,
-                                     maxiter, tol2, active_out, stream);
+      return launch_cluster<kMatvec, float>(
+          vals, lcols, slice_ptr, windows, b, invd, x0, x, stats, ctas,
+          max_slots, max_win, maxiter, tol2, active_out, stream);
     case kFull:
-      return launch_cluster<kFull>(vals, lcols, slice_ptr, windows, b, invd,
-                                   x0, x, stats, ctas, max_slots, max_win,
-                                   maxiter, tol2, active_out, stream);
+      return launch_cluster<kFull, float>(
+          vals, lcols, slice_ptr, windows, b, invd, x0, x, stats, ctas,
+          max_slots, max_win, maxiter, tol2, active_out, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -51,8 +51,9 @@
 // torch.profiler (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase E).
 //
 // Contract.  Columns are int32, slice_ptr int64, chunk_ptr, tmap and wide
-// int32.  Values are V (float or double), x, y and the accumulators T
-// (float or double) with sizeof(V) <= sizeof(T).  A column >= n_x reads x
+// int32.  Values are V (int8, bfloat16, float or double: the dense layout's
+// storages, converted to T before each product as in csrc/spmv.cu), x, y
+// and the accumulators T (float or double) with sizeof(V) <= sizeof(T).  A column >= n_x reads x
 // as 0.  Pad rows and rows of slices without chunks give 0.  The caller
 // passes the scratch: n_wide * 32 entries of T and n_wide int32 arrival
 // counters set to 0 (both may be null when n_wide = 0).  The launch
@@ -61,6 +62,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "values.cuh"
 
 namespace {
 
@@ -84,7 +87,7 @@ __device__ __forceinline__ T chunk_partial(const int32_t* __restrict__ cols,
   for (int j = 0; j < width; ++j) {
     const int32_t c = __ldg(cols + slot);
     const T xv = (c < n_x) ? __ldg(x + c) : T(0);
-    part += static_cast<T>(__ldg(vals + slot)) * xv;
+    part += ddps::load_value<T>(vals + slot) * xv;
     slot += kSlice;
   }
   return part;
@@ -196,11 +199,15 @@ extern "C" {
                         n_out, n_x, stream);                                 \
   }
 
-// Storage float, vectors float; storage float, vectors double; storage
-// double, vectors double (the three instantiations of csrc/spmv.cu).
+// The instantiations of csrc/spmv.cu: storage float with float or double
+// vectors, double with double, int8 and bfloat16 with float or double.
 DDPS_CHUNKED_ENTRY(ddps_sell_chunked_spmv_f32_f32, float, float)
 DDPS_CHUNKED_ENTRY(ddps_sell_chunked_spmv_f32_f64, float, double)
 DDPS_CHUNKED_ENTRY(ddps_sell_chunked_spmv_f64_f64, double, double)
+DDPS_CHUNKED_ENTRY(ddps_sell_chunked_spmv_i8_f32, int8_t, float)
+DDPS_CHUNKED_ENTRY(ddps_sell_chunked_spmv_i8_f64, int8_t, double)
+DDPS_CHUNKED_ENTRY(ddps_sell_chunked_spmv_bf16_f32, __nv_bfloat16, float)
+DDPS_CHUNKED_ENTRY(ddps_sell_chunked_spmv_bf16_f64, __nv_bfloat16, double)
 
 #undef DDPS_CHUNKED_ENTRY
 

@@ -13,23 +13,28 @@
 //
 // Bound.  On this card the kernel is bound by bytes, not operations: it reads
 // slots x (4 B column + value bytes), gathers x once per slot, and writes y
-// once per row, at two flops per slot.  The 32-row slice is the design's answer
-// to that bound: each warp reads its slice's column and value arrays as
-// contiguous 128-byte lines (neighbouring threads, neighbouring slots), and
-// padding grows only to the widest row of 32 neighbours, not of the whole
-// matrix.  RCM ordering keeps a slice's columns close, so the gathers of x hit
-// few cache lines.
+// once per row, at two flops per slot.  Narrow values (int8: 1 B, bfloat16:
+// 2 B, as the JAX packer stores the graph Laplacian) cut the value bytes.
+// The 32-row slice is the design's answer to that bound: each warp reads its
+// slice's column and value arrays as contiguous lines (neighbouring threads,
+// neighbouring slots), and padding grows only to the widest row of 32
+// neighbours, not of the whole matrix.  RCM ordering keeps a slice's columns
+// close, so the gathers of x hit few cache lines.
 //
 // Contract.  One thread per row, for rows [0, n_out).  Columns are int32.
-// Values are stored as V (float, or double for operators that keep the
-// compute precision); x, y and the accumulator are T (float or double), with
-// sizeof(V) <= sizeof(T).  A column >= n_x reads x as 0, so an input shorter
+// Values are stored as V (int8, bfloat16 or float, as the TPU kernel stores
+// them, or double for operators that keep the compute precision); x, y and
+// the accumulator are T (float or double), with sizeof(V) <= sizeof(T).  A
+// value converts to T before its product (values.cuh), as the TPU kernel
+// converts it to float32.  A column >= n_x reads x as 0, so an input shorter
 // than the operator's input space is zero-extended.  Empty and padding rows
 // give y = 0.  The launch allocates nothing, runs on the caller's stream and
 // does not synchronise; each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "values.cuh"
 
 namespace {
 
@@ -54,7 +59,7 @@ sell_spmv_kernel(const int64_t* __restrict__ slice_ptr,
   for (int64_t k = __ldg(slice_ptr + s) + lane; k < end; k += kSlice) {
     const int32_t c = __ldg(cols + k);
     const T xv = (c < n_x) ? __ldg(x + c) : T(0);
-    acc += static_cast<T>(__ldg(vals + k)) * xv;
+    acc += ddps::load_value<T>(vals + k) * xv;
   }
   y[row] = acc;
 }
@@ -97,6 +102,33 @@ int ddps_sell_spmv_f64_f64(const void* slice_ptr, const void* cols,
                            int64_t n_out, int64_t n_x, void* stream) {
   return launch<double, double>(slice_ptr, cols, vals, x, y, n_out, n_x,
                                 stream);
+}
+
+// Storage int8 or bfloat16 (JAX's storage="auto" for integer-valued and
+// bfloat16-exact operators), vectors float or double.
+int ddps_sell_spmv_i8_f32(const void* slice_ptr, const void* cols,
+                          const void* vals, const void* x, void* y,
+                          int64_t n_out, int64_t n_x, void* stream) {
+  return launch<int8_t, float>(slice_ptr, cols, vals, x, y, n_out, n_x,
+                               stream);
+}
+int ddps_sell_spmv_i8_f64(const void* slice_ptr, const void* cols,
+                          const void* vals, const void* x, void* y,
+                          int64_t n_out, int64_t n_x, void* stream) {
+  return launch<int8_t, double>(slice_ptr, cols, vals, x, y, n_out, n_x,
+                                stream);
+}
+int ddps_sell_spmv_bf16_f32(const void* slice_ptr, const void* cols,
+                            const void* vals, const void* x, void* y,
+                            int64_t n_out, int64_t n_x, void* stream) {
+  return launch<__nv_bfloat16, float>(slice_ptr, cols, vals, x, y, n_out,
+                                      n_x, stream);
+}
+int ddps_sell_spmv_bf16_f64(const void* slice_ptr, const void* cols,
+                            const void* vals, const void* x, void* y,
+                            int64_t n_out, int64_t n_x, void* stream) {
+  return launch<__nv_bfloat16, double>(slice_ptr, cols, vals, x, y, n_out,
+                                       n_x, stream);
 }
 
 // A launch that cannot run (bad configuration) is reported here rather than

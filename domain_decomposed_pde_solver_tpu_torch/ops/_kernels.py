@@ -3,11 +3,11 @@
 The sources live in ``csrc/`` and are compiled at first use with ``nvcc``
 into shared libraries with a plain C interface, loaded through ``ctypes``
 (no PyTorch headers, so a build takes seconds).  The libraries go to the
-repository's ``build/kernels/`` under names derived from each source's
-hash, so an edited source never loads a stale build.  Nothing is compiled
-or loaded when this module is imported: the CPU tests import it on machines
-without ``nvcc``.  :func:`build_kernels` starts one ``nvcc`` per source,
-all at once.
+repository's ``build/kernels/`` under names derived from a hash of each
+source and the shared headers (``csrc/*.cuh``), so an edited source never
+loads a stale build.  Nothing is compiled or loaded when this module is
+imported: the CPU tests import it on machines without ``nvcc``.
+:func:`build_kernels` starts one ``nvcc`` per source, all at once.
 
 Each launch function checks what the kernel cannot check itself (device,
 dtype, shape, contiguity), launches on ``torch.cuda.current_stream()``,
@@ -118,7 +118,9 @@ class Kernel:
             return self._lib
 
     def _build_and_load(self) -> ctypes.CDLL:
-        digest = hashlib.sha256(self.src.read_bytes() + " ".join(
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(self.src.parent.glob("*.cuh")))
+        digest = hashlib.sha256(self.src.read_bytes() + headers + " ".join(
             self.flags).encode()).hexdigest()[:16]
         out_dir = kernel_build_dir()
         so = out_dir / f"lib{self.name}-{digest}.so"
@@ -159,11 +161,12 @@ class Kernel:
 
 
 _SELL_ARGS = [_P] * 5 + [_I64, _I64, _P]
+# Storage x vectors: int8, bf16 and f32 values (JAX's storages) with f32 or
+# f64 vectors, f64 values with f64 vectors.
+_SELL_TYPES = ("i8_f32", "i8_f64", "bf16_f32", "bf16_f64", "f32_f32",
+               "f32_f64", "f64_f64")
 SELL_SPMV = Kernel("sell_spmv", _PKG / "csrc" / "spmv.cu", {
-    "ddps_sell_spmv_f32_f32": _SELL_ARGS,
-    "ddps_sell_spmv_f32_f64": _SELL_ARGS,
-    "ddps_sell_spmv_f64_f64": _SELL_ARGS,
-})
+    f"ddps_sell_spmv_{t}": _SELL_ARGS for t in _SELL_TYPES})
 
 # data, offsets (host int64), ndiags, x, y, n, block, instance, stream
 _DIA_ARGS = [_P, _P, _INT, _P, _P, _I64, _INT, _INT, _P]
@@ -202,17 +205,17 @@ WARP_CHUNKS = 4
 _CHUNKED_ARGS = [_P] * 10 + [_I64, _I64, _INT, _I64, _I64, _P]
 SELL_CHUNKED_SPMV = Kernel(
     "sell_chunked_spmv", _PKG / "csrc" / "sell_chunked_spmv.cu", {
-        "ddps_sell_chunked_spmv_f32_f32": _CHUNKED_ARGS,
-        "ddps_sell_chunked_spmv_f32_f64": _CHUNKED_ARGS,
-        "ddps_sell_chunked_spmv_f64_f64": _CHUNKED_ARGS,
+        f"ddps_sell_chunked_spmv_{t}": _CHUNKED_ARGS for t in _SELL_TYPES
     }, defines={"DDPS_WARP_CHUNKS": WARP_CHUNKS})
 
 # Grid instance: slice_ptr, cols, vals, b, invd, x, r, p, ap, part,
 # max_blocks, stats, n, maxiter, tol2, stream.  Cluster instance: vals,
 # lcols, slice_ptr, windows, b, invd, x0, x, stats, ctas, max_slots,
-# max_win, maxiter, tol2, active_out, stream.  The study entries take a mode
-# first (0: barriers and reductions only, 1: and the matvec, 2: the solve);
-# measurements only, the port never calls them.
+# max_win, maxiter, tol2, active_out, stream.  Each instance has an entry per
+# value storage (f32, i8, bf16; the vectors are always f32).  The study
+# entries (f32 storage) take a mode first (0: barriers and reductions only,
+# 1: and the matvec, 2: the solve); measurements only, the port never calls
+# them.
 _GRID_ARGS = [_P] * 10 + [_I64, _P, _I64, _INT, _F32, _P]
 _CLUSTER_ARGS = [_P] * 9 + [_INT] * 4 + [_F32, _P, _P]
 
@@ -230,8 +233,9 @@ CLUSTER_SMEM_TAIL = (8 * 6 * CLUSTER_MAX_CTAS + 8 * 3 * (CLUSTER_CTA_ROWS // 32)
                      + 64 + 4 * CLUSTER_MAX_CTAS)
 
 FUSED_CG = Kernel("fused_cg", _PKG / "csrc" / "fused_cg.cu", {
-    "ddps_fused_cg_f32": _GRID_ARGS,
-    "ddps_fused_cg_cluster_f32": _CLUSTER_ARGS,
+    **{f"ddps_fused_cg_{v}": _GRID_ARGS for v in ("f32", "i8", "bf16")},
+    **{f"ddps_fused_cg_cluster_{v}": _CLUSTER_ARGS
+       for v in ("f32", "i8", "bf16")},
     "ddps_fused_cg_study_f32": [_INT] + _GRID_ARGS,
     "ddps_fused_cg_cluster_study_f32": [_INT] + _CLUSTER_ARGS,
 }, defines={"DDPS_CLUSTER_CTA_ROWS": CLUSTER_CTA_ROWS,
@@ -243,7 +247,8 @@ FUSED_CG_MODES = {"barriers": 0, "matvec": 1, "solve": 2}
 
 KERNELS = (SELL_SPMV, PAD_STENCIL, DIA_SPMV, SELL_CHUNKED_SPMV, FUSED_CG)
 
-_NAME = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
+_NAME = {torch.int8: "i8", torch.bfloat16: "bf16", torch.float32: "f32",
+         torch.float64: "f64"}
 
 
 def build_kernels() -> List[Kernel]:
@@ -360,8 +365,13 @@ def sell_chunked_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
     return y
 
 
+# Value storages of the fused CG kernel (its vectors are float32).
+_FUSED_VALUES = (torch.int8, torch.bfloat16, torch.float32)
+
+
 def _fused_checks(b: torch.Tensor, named) -> torch.device:
-    """Device, shape and float32 checks shared by both instances."""
+    """Device, shape and type checks shared by both instances: int8, bf16
+    or f32 values, f32 vectors."""
     dev = _require_cuda(b, "fused_cg")
     for name, t in named:
         if t.device != dev:
@@ -369,18 +379,25 @@ def _fused_checks(b: torch.Tensor, named) -> torch.device:
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D tensor")
     if any(t.dtype != torch.float32 for name, t in (("b", b), *named)
-           if name in ("b", "vals", "invd", "x0")):
-        raise TypeError("the fused CG kernel takes float32 storage and vectors")
+           if name in ("b", "invd", "x0")):
+        raise TypeError("the fused CG kernel takes float32 vectors")
+    vals = dict(named)["vals"]
+    if vals.dtype not in _FUSED_VALUES:
+        raise TypeError(f"no fused CG kernel for {vals.dtype} storage (it "
+                        "takes int8, bfloat16 or float32)")
     return dev
 
 
-def _fused_entry(base: str, mode: str):
+def _fused_entry(base: str, mode: str, vals: torch.Tensor):
     """The C entry and its leading arguments for ``mode``: the solve's own
-    entry, or the study entry of a measurement mode."""
+    entry for the values' storage, or the study entry of a measurement mode
+    (float32 storage only)."""
     if mode not in FUSED_CG_MODES:
         raise ValueError(f"mode must be one of {sorted(FUSED_CG_MODES)}")
     if mode == "solve":
-        return f"ddps_fused_cg{base}_f32", ()
+        return f"ddps_fused_cg{base}_{_NAME[vals.dtype]}", ()
+    if vals.dtype != torch.float32:
+        raise TypeError("the study entries take float32 storage")
     return f"ddps_fused_cg{base}_study_f32", (FUSED_CG_MODES[mode],)
 
 
@@ -391,11 +408,12 @@ def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
     """Launch the whole Jacobi-PCG solve on CUDA tensors, once: the grid
     instance (a cooperative grid, any size).
 
-    A square float32 sliced-ELL operator of ``n = b.numel()`` rows
-    (``slice_ptr`` int64 of ``ceil(n / 32) + 1``, ``cols`` int32), float32
-    ``b``, ``invd`` and ``x0`` of ``n`` entries.  Returns ``(x, stats)``:
-    ``stats`` a float64 device tensor ``[iterations, relres, converged,
-    rnorm2]``, for the caller to read once.  ``mode`` other than
+    A square sliced-ELL operator of ``n = b.numel()`` rows with int8,
+    bfloat16 or float32 values (``slice_ptr`` int64 of ``ceil(n / 32) +
+    1``, ``cols`` int32), float32 ``b``, ``invd`` and ``x0`` of ``n``
+    entries.  Returns ``(x, stats)``: ``stats`` a float64 device tensor
+    ``[iterations, relres, converged, rnorm2]``, for the caller to read
+    once.  ``mode`` other than
     ``"solve"`` runs a measurement entry (:data:`FUSED_CG_MODES`)."""
     n = b.numel()
     dev = _fused_checks(b, (("slice_ptr", slice_ptr), ("cols", cols),
@@ -406,7 +424,7 @@ def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
             or slice_ptr.numel() != -(-n // 32) + 1
             or cols.numel() != vals.numel()):
         raise ValueError(f"inconsistent operator or vectors for {n} rows")
-    entry, lead = _fused_entry("", mode)
+    entry, lead = _fused_entry("", mode, vals)
     # The kernel sizes its grid from the occupancy calculator; no SM holds
     # more than 2048 threads, so 2048 / 256 blocks per SM bound it.
     max_blocks = (torch.cuda.get_device_properties(dev).multi_processor_count
@@ -426,15 +444,17 @@ def fused_cg_launch(slice_ptr: torch.Tensor, cols: torch.Tensor,
     return x, stats
 
 
-def cluster_smem_bytes(max_slots: int, max_win: int) -> int:
+def cluster_smem_bytes(max_slots: int, max_win: int,
+                       value_bytes: int = 4) -> int:
     """Dynamic shared memory of a CTA of the cluster instance (the source's
-    ``cluster_smem_bytes``): slot values (4 B) and columns (2 B), two
-    windows (z and p; 4 B an entry), each region rounded up to 16 B, and
+    ``cluster_smem_bytes``): slot values (``value_bytes``: 4 for float32,
+    2 for bfloat16, 1 for int8) and columns (2 B), two windows (z and p;
+    4 B an entry), each region rounded up to 16 B, and
     :data:`CLUSTER_SMEM_TAIL`."""
     def align16(v):
         return -(-v // 16) * 16
 
-    return (align16(6 * max_slots) + 2 * align16(4 * max_win)
+    return (align16((value_bytes + 2) * max_slots) + 2 * align16(4 * max_win)
             + CLUSTER_SMEM_TAIL)
 
 
@@ -447,10 +467,11 @@ def fused_cg_cluster_launch(vals: torch.Tensor, lcols: torch.Tensor,
     instance, ``n / 1024`` CTAs of 1024 rows with the operator in shared
     memory.
 
-    The operator's float32 ``vals`` and int64 ``slice_ptr`` (sliced ELL),
-    its slots' 16-bit window columns ``lcols`` (int16 bits), ``windows``
-    int32 ``(lo, width)`` per CTA and the largest CTA's slots and window:
-    a :class:`..solvers.fused_cg.ClusterPack`.  ``x0`` may be None (0).
+    The operator's ``vals`` (int8, bfloat16 or float32) and int64
+    ``slice_ptr`` (sliced ELL), its slots' 16-bit window columns ``lcols``
+    (int16 bits), ``windows`` int32 ``(lo, width)`` per CTA and the
+    largest CTA's slots and window: a
+    :class:`..solvers.fused_cg.ClusterPack`.  ``x0`` may be None (0).
     Returns ``(x, stats, active)``: ``stats`` as :func:`fused_cg_launch`'s,
     ``active`` the launch's ``cudaOccupancyMaxActiveClusters``."""
     n = b.numel()
@@ -472,7 +493,7 @@ def fused_cg_cluster_launch(vals: torch.Tensor, lcols: torch.Tensor,
     if vals.data_ptr() % 16 or lcols.data_ptr() % 16:
         raise ValueError("vals and lcols must be 16-byte aligned (the "
                          "kernel copies them in 16-byte vectors)")
-    entry, lead = _fused_entry("_cluster", mode)
+    entry, lead = _fused_entry("_cluster", mode, vals)
     active = ctypes.c_int(0)
     with torch.cuda.device(dev):
         x = torch.empty_like(b)

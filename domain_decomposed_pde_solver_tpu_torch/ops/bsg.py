@@ -8,11 +8,16 @@ the GPU:
 
 - **sliced ELL** with 32-row slices (one warp), each slice padded only to
   its own widest row, column-major inside a slice, int32 columns;
-- values stored as float32 (the widest type the JAX BSG stores), or as
-  float64 for operators that keep f64 coefficients
-  (:func:`..dia.choose_operator` at ``dtype=float64``);
+- values stored as JAX stores them: int8 when every value is an integer
+  in [-127, 127] (the graph Laplacian), else bfloat16 when every value
+  survives a round trip through it, else float32 (``storage="auto"``,
+  JAX's rule, ``bsg.py:79-90, :422-434`` there); or float64 for operators
+  that keep f64 coefficients;
 - ``x``, ``y`` and the accumulator in the compute dtype of the vector
-  passed to :meth:`BSGMatrix.matvec`.
+  passed to :meth:`BSGMatrix.matvec` (float32 or float64); a narrow value
+  is converted to it before its product, as the TPU kernel converts
+  (``vals.astype(float32)``, ``bsg.py:822`` there), so an exact narrow
+  storage gives the float32 storage's result bit for bit.
 
 The vector-space contract is the JAX one: vectors live in the *internal*
 (RCM-permuted, padded) space of length ``n_pad`` (a multiple of 1024 for
@@ -45,6 +50,7 @@ import torch
 from ..utils.device import resolve_device
 from ._kernels import WARP_CHUNKS
 from .csr import CSRMatrix
+from .reorder import rcm_order
 
 __all__ = [
     "WARP_CHUNKS",
@@ -59,7 +65,12 @@ __all__ = [
 TILE = 1024  # padded-length granule of the JAX BSG layout (8 x 128 rows)
 SLICE = 32  # rows per sliced-ELL slice: one warp
 
-_STORAGE = {"float32": torch.float32, "float64": torch.float64}
+_STORAGE = {"int8": torch.int8, "bfloat16": torch.bfloat16,
+            "float32": torch.float32, "float64": torch.float64}
+# Host packing type of each storage (numpy has no bfloat16: such values
+# pack as float32 and narrow on the upload).
+_PACK_NP = {"int8": np.int8, "bfloat16": np.float32, "float32": np.float32,
+            "float64": np.float64}
 
 
 @dataclasses.dataclass
@@ -86,7 +97,7 @@ class BSGMatrix:
 
     slice_ptr: torch.Tensor  # (n_slices + 1,) int64
     cols: torch.Tensor  # (n_slots,) int32, 0 on padding slots
-    vals: torch.Tensor  # (n_slots,) float32 or float64, 0 on padding slots
+    vals: torch.Tensor  # (n_slots,) int8, bf16, f32 or f64; 0 on padding slots
     diag: torch.Tensor  # (n_pad,) float32 diagonal (internal order), 0-padded
     perm: Optional[torch.Tensor]  # (n_rows,) int64 original -> internal row
     n_rows: int  # logical output rows
@@ -107,13 +118,18 @@ class BSGMatrix:
 
     @property
     def storage(self) -> str:
+        """``"int8"``, ``"bfloat16"``, ``"float32"`` (JAX's strings) or
+        ``"float64"``."""
         return str(self.vals.dtype).replace("torch.", "")
 
     @property
     def dtype(self) -> torch.dtype:
-        """The dtype of its vectors by default: its storage's (the kernel
-        also takes f64 vectors on f32 storage)."""
-        return self.vals.dtype
+        """The dtype of its vectors by default: float64 for float64
+        storage, float32 for every other (the kernels also take f64
+        vectors on narrower storage)."""
+        if self.vals.dtype == torch.float64:
+            return torch.float64
+        return torch.float32
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -281,26 +297,42 @@ def sell_pack(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
 
 def _rcm_perm(csr: CSRMatrix) -> np.ndarray:
     """``perm[i]`` = internal row of original row ``i`` — the JAX packer's
-    RCM (``bsg.py:220-234`` there), so both packages number alike."""
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-
-    S = sp.csr_matrix(
-        (np.asarray(csr.data), np.asarray(csr.indices), np.asarray(csr.indptr)),
-        shape=csr.shape,
-    )
-    order = np.asarray(reverse_cuthill_mckee(S, symmetric_mode=True))
+    RCM (scipy's, ``bsg.py:220-234`` there), so both packages number
+    alike."""
+    order = rcm_order(csr, native=False)
     perm = np.empty(csr.n_rows, dtype=np.int64)
     perm[order] = np.arange(csr.n_rows)
     return perm
 
 
-def _storage_dtype(storage: str) -> torch.dtype:
+def _int8_exact(vals: np.ndarray) -> bool:
+    """True iff every value is an integer in [-127, 127] (JAX's gate,
+    ``bsg.py:79`` there): the graph Laplacian's degrees and -1s qualify,
+    so its values store as int8, 1 byte a slot instead of 4."""
+    if not vals.size:
+        return True
+    m = float(np.abs(vals).max())
+    return m <= 127 and bool(np.all(vals == np.rint(vals)))
+
+
+def _resolve_storage(storage: str, data: np.ndarray) -> str:
+    """The storage string for ``data``: ``"auto"`` takes JAX's rule -- int8
+    when :func:`_int8_exact`, else bfloat16 when every value survives
+    bfloat16, else float32; a named storage is kept (values are cast to
+    it, as JAX casts them)."""
     if storage == "auto":
-        storage = "float32"
+        from .dia import _bf16_exact
+
+        data = np.asarray(data)
+        if _int8_exact(data):
+            return "int8"
+        if _bf16_exact(data):
+            return "bfloat16"
+        return "float32"
     if storage not in _STORAGE:
-        raise ValueError(f"storage must be auto|float32|float64, got {storage!r}")
-    return _STORAGE[storage]
+        raise ValueError("storage must be auto|int8|bfloat16|float32|float64, "
+                         f"got {storage!r}")
+    return storage
 
 
 def _chunk_maps(slice_ptr: np.ndarray, chunk: int):
@@ -316,8 +348,8 @@ def _chunk_maps(slice_ptr: np.ndarray, chunk: int):
     return tmap, chunk_ptr, wide
 
 
-def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
-            device, chunk: int = 0) -> BSGMatrix:
+def _upload(slice_ptr, cols, vals, storage, diag, perm, n_rows, n_cols, n_pad,
+            x_len, device, chunk: int = 0) -> BSGMatrix:
     dev = resolve_device(device)
     maps = {}
     if chunk:
@@ -328,7 +360,7 @@ def _upload(slice_ptr, cols, vals, diag, perm, n_rows, n_cols, n_pad, x_len,
     return BSGMatrix(
         slice_ptr=torch.from_numpy(slice_ptr).to(dev),
         cols=torch.from_numpy(cols).to(dev),
-        vals=torch.from_numpy(vals).to(dev),
+        vals=torch.from_numpy(vals).to(_STORAGE[storage]).to(dev),
         diag=torch.from_numpy(diag).to(dev),
         perm=torch.from_numpy(perm).to(dev) if perm is not None else None,
         n_rows=int(n_rows),
@@ -355,8 +387,10 @@ def bsg_from_csr(
     ``reorder=True`` applies the RCM symmetric permutation first (tighter
     column clusters per slice: fewer x cache lines per warp); ``perm``
     adopts a given permutation instead (e.g. a JAX operator's ``perm``).
-    ``storage="auto"`` stores float32 (the widest type the JAX BSG stores;
-    exact for the graph Laplacian); ``"float64"`` keeps f64 coefficients.
+    ``storage="auto"`` takes JAX's rule (:func:`_resolve_storage`: int8
+    for the graph Laplacian, else bfloat16 when exact, else float32);
+    ``"int8"``, ``"bfloat16"`` and ``"float32"`` force JAX's storages,
+    ``"float64"`` keeps f64 coefficients (the port's only).
     The padded length is a multiple of ``row_multiple``: 1024 by default,
     as in the JAX BSG layout; AMG levels outside the BSG chain pad to 8, as
     the JAX package pads its ELL levels.  ``device`` defaults to the card.
@@ -394,23 +428,22 @@ def bsg_from_csr(
         shape=csr.shape,
     )
     if perm is not None:
-        perm = np.asarray(perm, dtype=np.int64)
+        perm = np.array(perm, dtype=np.int64)  # writable, for torch
         order = np.empty(n, dtype=np.int64)
         order[perm] = np.arange(n, dtype=np.int64)
         S = S[order][:, order]
     S = S.tocsr()
     S.sort_indices()
     n_pad = max(1, -(-n // row_multiple)) * row_multiple
-    vdt = _storage_dtype(storage)
+    storage = _resolve_storage(storage, S.data)
     chunk = chunk if layout == "ragged" else 0
     slice_ptr, cols, vals = sell_pack(
-        S.indptr, S.indices, S.data, n_pad,
-        value_dtype=np.float32 if vdt == torch.float32 else np.float64,
+        S.indptr, S.indices, S.data, n_pad, value_dtype=_PACK_NP[storage],
     )
     diag = np.zeros(n_pad, dtype=np.float32)
     diag[:n] = S.diagonal().astype(np.float32)
-    return _upload(slice_ptr, cols, vals, diag, perm, n, n, n_pad, n_pad,
-                   device, chunk=chunk)
+    return _upload(slice_ptr, cols, vals, storage, diag, perm, n, n, n_pad,
+                   n_pad, device, chunk=chunk)
 
 
 def bsg_from_coo(
@@ -442,11 +475,10 @@ def bsg_from_coo(
     n_pad = max(1, -(-int(n_rows) // TILE)) * TILE
     indptr = np.zeros(int(n_rows) + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=int(n_rows)), out=indptr[1:])
-    vdt = _storage_dtype(storage)
+    storage = _resolve_storage(storage, data)
     slice_ptr, cols_s, vals_s = sell_pack(
-        indptr, cols, data, n_pad,
-        value_dtype=np.float32 if vdt == torch.float32 else np.float64,
+        indptr, cols, data, n_pad, value_dtype=_PACK_NP[storage],
     )
     diag = np.zeros(n_pad, dtype=np.float32)
-    return _upload(slice_ptr, cols_s, vals_s, diag, None, n_rows, x_len, n_pad,
-                   x_len, device)
+    return _upload(slice_ptr, cols_s, vals_s, storage, diag, None, n_rows,
+                   x_len, n_pad, x_len, device)

@@ -28,7 +28,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .csr import CSRMatrix
-from .ell import pad_to, pad_vector, unpad_vector
+from .ell import PaddedLayout, pad_to
 
 __all__ = [
     "DIAMatrix",
@@ -49,7 +49,7 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 @dataclasses.dataclass
-class DIAMatrix:
+class DIAMatrix(PaddedLayout):
     """Diagonal-storage sparse matrix.
 
     ``data[d, i]`` is the coefficient of ``x[i + offsets[d]]`` in row ``i``
@@ -94,15 +94,6 @@ class DIAMatrix:
         """The offsets as a contiguous host int64 array, built once: every
         kernel launch passes it as it is."""
         return np.ascontiguousarray(self.offsets, dtype=np.int64)
-
-    def put_vector(self, x, dtype=None) -> torch.Tensor:
-        """Host (n,) vector -> device padded vector (input dtype kept
-        unless ``dtype`` is given)."""
-        return pad_vector(np.asarray(x), self.n_pad, dtype=dtype,
-                          device=self.device)
-
-    def get_vector(self, xp: torch.Tensor) -> np.ndarray:
-        return unpad_vector(xp, self.n_rows)
 
     def matvec(self, x_padded: torch.Tensor) -> torch.Tensor:
         """y = A @ x on padded vectors (kernel on CUDA, plain on the CPU)."""

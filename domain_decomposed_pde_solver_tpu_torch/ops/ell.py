@@ -18,15 +18,45 @@ import torch
 from ..utils.device import resolve_device
 from .csr import CSRMatrix
 
-__all__ = ["ELLMatrix", "ell_from_csr", "pad_to", "pad_vector", "unpad_vector"]
+__all__ = [
+    "ELLMatrix",
+    "PaddedLayout",
+    "ell_from_csr",
+    "pad_to",
+    "pad_vector",
+    "unpad_vector",
+]
 
 
 def pad_to(n: int, multiple: int = 8) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+class PaddedLayout:
+    """Identity (non-permuting) padded vector layout.
+
+    The host <-> device vector interface of every operator whose internal
+    vector space is "original order, zero-padded to ``n_pad``" (ELL, DIA,
+    the identity-layout stencil), as JAX's ``PaddedLayout`` (``ops/ell.py:35``
+    there).  Operators with a permuted or embedded space (the sliced-ELL
+    :class:`.bsg.BSGMatrix`, the padded 3-D
+    :class:`.stencil_kernel.PadStencilOperator`) implement the same two
+    methods themselves, so solvers and drivers stay format-agnostic.
+    Subclasses provide ``n_pad``, ``n_rows`` and ``device``."""
+
+    def put_vector(self, x, dtype=None) -> torch.Tensor:
+        """Host (n,) vector -> device padded vector (input dtype kept
+        unless ``dtype`` is given)."""
+        return pad_vector(np.asarray(x), self.n_pad, dtype=dtype,
+                          device=self.device)
+
+    def get_vector(self, xp: torch.Tensor) -> np.ndarray:
+        """Device padded vector -> host (n,) vector."""
+        return unpad_vector(xp, self.n_rows)
+
+
 @dataclasses.dataclass
-class ELLMatrix:
+class ELLMatrix(PaddedLayout):
     """Row-padded sparse matrix.
 
     ``cols``: (n_pad, K) int64 column per slot (0 for padding).
@@ -55,17 +85,11 @@ class ELLMatrix:
     def device(self) -> torch.device:
         return self.vals.device
 
-    def put_vector(self, x, dtype=None) -> torch.Tensor:
-        """Host (n,) vector -> device padded vector (input dtype kept)."""
-        return pad_vector(np.asarray(x), self.n_pad, dtype=dtype,
-                          device=self.device)
-
-    def get_vector(self, xp: torch.Tensor) -> np.ndarray:
-        return unpad_vector(xp, self.n_rows)
-
     def matvec(self, x_padded: torch.Tensor) -> torch.Tensor:
-        """y = A @ x on padded vectors: gather, multiply, row sum."""
-        return (self.vals * x_padded[self.cols]).sum(dim=1)
+        """y = A @ x on padded vectors (:func:`.spmv.ell_spmv`)."""
+        from .spmv import ell_spmv
+
+        return ell_spmv(self, x_padded)
 
     def diagonal_padded(self, fill: float = 1.0) -> torch.Tensor:
         """Diagonal as a padded vector; padding rows get ``fill``."""

@@ -29,12 +29,13 @@ import torch
 
 from ..utils.device import resolve_device
 from .csr import CSRMatrix
-from .ell import pad_to, pad_vector, unpad_vector
+from .ell import PaddedLayout, pad_to
 
 __all__ = [
     "StencilOperator",
     "stencil_core",
     "stencil_from_csr",
+    "stencil_from_dia",
     "stencil_from_packed",
     "stencil_from_parts",
     "stencil_parts_from_packed",
@@ -51,7 +52,7 @@ def _tree_sum(terms):
 
 
 @dataclasses.dataclass
-class StencilOperator:
+class StencilOperator(PaddedLayout):
     """Lattice-stencil operator: pattern-broadcast shifts + diagonal
     correction, in the identity (lexicographic, zero-padded) space.
 
@@ -86,13 +87,6 @@ class StencilOperator:
     @property
     def device(self) -> torch.device:
         return self.corr.device
-
-    def put_vector(self, x, dtype=None) -> torch.Tensor:
-        return pad_vector(np.asarray(x), self.n_pad, dtype=dtype,
-                          device=self.device)
-
-    def get_vector(self, xp: torch.Tensor) -> np.ndarray:
-        return unpad_vector(xp, self.n_rows)
 
     def matvec(self, x_padded: torch.Tensor) -> torch.Tensor:
         mx, my, mz = self.dims
@@ -312,6 +306,20 @@ def stencil_from_parts(parts: dict, dtype=torch.float32,
         n_rows=int(parts["n_rows"]),
         n_pad=int(parts["n_pad"]),
     )
+
+
+def stencil_from_dia(dia, dims: Tuple[int, int, int], dtype=torch.float32,
+                     device=None) -> Optional[StencilOperator]:
+    """Exact lattice-stencil decomposition of a :class:`.dia.DIAMatrix`,
+    or None.  Downloads the diagonals as float32 (JAX's
+    ``stencil_from_dia``); prefer :func:`stencil_from_packed` on the
+    host-packed form where there is one.  The operator lands on
+    ``device``, by default the DIA operator's."""
+    n = dia.n_rows
+    data = dia.data.to(torch.float32).cpu().numpy()[:, :n]
+    return stencil_from_packed(dia.offsets, data, n, dims, dtype=dtype,
+                               device=dia.device if device is None
+                               else device)
 
 
 def stencil_from_packed(offsets, data, n, dims, dtype=torch.float32,

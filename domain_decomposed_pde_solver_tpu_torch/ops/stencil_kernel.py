@@ -265,16 +265,22 @@ def pad_stencil_from_parts(parts: dict, bz: int = 8,
                            corr_storage: str = "auto",
                            device=None) -> PadStencilOperator:
     """Host stencil decomposition (``stencil_parts_from_packed``, the port's
-    or the JAX package's dict) -> padded-3-D operator on ``device`` (by
-    default the card).  ``bz`` (even) follows JAX's rule: shrunk until
-    JAX's VMEM estimate fits, so both packages build the same space."""
+    or the JAX package's dict, or the ``parts`` of
+    :func:`..models.structured.structured_box_parts`, whose ``corr_pad``
+    may be a tensor: it is downloaded, as JAX downloads it) -> padded-3-D
+    operator on ``device`` (by default the card).  ``bz`` (even) follows
+    JAX's rule: shrunk until JAX's VMEM estimate fits, so both packages
+    build the same space."""
     dev = resolve_device(device)
     mx, my, mz = (int(v) for v in parts["dims"])
     myp = _round_up(my + 2, 8)
     mxp = _round_up(mx + 1, 128)
     n = mx * my * mz
 
-    corr_host = np.asarray(parts["corr_pad"][:n], dtype=np.float32)
+    corr_src = parts["corr_pad"][:n]
+    if isinstance(corr_src, torch.Tensor):  # structured_box_parts(device=...)
+        corr_src = corr_src.cpu().numpy()
+    corr_host = np.asarray(corr_src, dtype=np.float32)
     if corr_storage == "auto":
         from .dia import _bf16_exact
 

@@ -24,7 +24,9 @@ gather, local columns) in plain PyTorch, which the tests hold against
 ``spmv_plain``.
 
 The contract is JAX's (``fused_cg.py:148-194`` there): a dense-layout
-float32 operator, float32 vectors in its internal padded space,
+operator with int8, bfloat16 or float32 values (each converted to float32
+before its product, as the TPU kernel converts them, ``fused_cg.py:50``
+there), float32 vectors in its internal padded space,
 ``invd = where(d != 0, 1/d, 0)`` (not the Jacobi preconditioner's fill of
 1 on zero diagonals), the stopping test on squared norms
 ``rnorm2 > tol^2 * bnorm2`` with ``bnorm2 = 1`` when ``b = 0``,
@@ -61,11 +63,17 @@ __all__ = [
     "fused_cg_solve",
 ]
 
+# The value storages of the fused kernel: JAX's (its vectors are float32).
+_STORAGES = ("int8", "bfloat16", "float32")
+
+
 def fused_cg_instance(n_pad: int, max_slots: int, max_win: int) -> str:
     """``"cluster"`` when an operator of ``n_pad`` rows fits the cluster
     instance -- at most 16 CTAs of 1024 rows, the widest window within
     16-bit local columns, the largest CTA's slots and window within a
-    block's shared memory -- else ``"grid"``."""
+    block's shared memory -- else ``"grid"``.  The shared memory is
+    counted with float32 values whatever the operator stores, so narrower
+    values never change which instance a size takes."""
     if (n_pad % CLUSTER_CTA_ROWS
             or n_pad > CLUSTER_MAX_CTAS * CLUSTER_CTA_ROWS
             or max_win > CLUSTER_MAX_WINDOW
@@ -105,7 +113,7 @@ def cluster_pack(A: BSGMatrix) -> ClusterPack:
     per_cta = CLUSTER_CTA_ROWS // SLICE
     sp = A.slice_ptr.cpu().numpy()
     cols = A.cols.cpu().numpy().astype(np.int64)
-    nz = A.vals.cpu().numpy() != 0
+    nz = (A.vals != 0).cpu().numpy()
     bounds = sp[np.arange(ctas + 1) * per_cta]
     lcols = np.zeros(cols.size, dtype=np.int64)
     windows = np.zeros((ctas, 2), dtype=np.int64)
@@ -240,16 +248,17 @@ def fused_cg_solve(
     """Solve ``A x = b`` (both in the operator's padded space) with
     Jacobi-preconditioned CG, the whole solve in one kernel launch on the
     card.  Same contract as :func:`.cg.cg_solve` with ``precond=jacobi``;
-    vectors are float32."""
+    vectors are float32, the operator's values int8, bfloat16 or
+    float32."""
     if A.chunk:
         raise ValueError(
             "fused_cg_solve requires the dense sliced-ELL layout (the kernel "
             "walks each slice with one thread per row); pack with "
             "bsg_from_csr(..., layout='dense')"
         )
-    if A.vals.dtype != torch.float32 or A.x_len != A.n_pad:
-        raise ValueError("fused_cg_solve takes a square float32-stored "
-                         "operator")
+    if A.storage not in _STORAGES or A.x_len != A.n_pad:
+        raise ValueError("fused_cg_solve takes a square operator stored as "
+                         "int8, bfloat16 or float32")
     b = b.to(torch.float32).contiguous()
     if x0 is not None:
         x0 = x0.to(torch.float32).contiguous()

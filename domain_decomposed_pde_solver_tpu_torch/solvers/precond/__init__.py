@@ -1,5 +1,5 @@
 """Preconditioners: Jacobi, Chebyshev (smoother and preconditioner),
-ILU(0)/ILUT and SA-AMG."""
+ILU(0)/ILUT, SA-AMG and the precision cast."""
 
 from .jacobi import DiagonalPreconditioner, jacobi_preconditioner
 from .cheby import chebyshev_smooth
@@ -19,8 +19,10 @@ from .amg import (
     AMGPreconditioner,
     aggregate_greedy,
     infer_free_grid,
+    smoothed_aggregation_preconditioner,
     smoothed_aggregation_setup,
 )
+from .wrappers import CastPreconditioner
 
 __all__ = [
     "DiagonalPreconditioner",
@@ -37,5 +39,7 @@ __all__ = [
     "AMGPreconditioner",
     "aggregate_greedy",
     "infer_free_grid",
+    "smoothed_aggregation_preconditioner",
     "smoothed_aggregation_setup",
+    "CastPreconditioner",
 ]

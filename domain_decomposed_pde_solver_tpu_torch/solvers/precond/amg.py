@@ -38,7 +38,7 @@ import torch
 from ...ops.bsg import TILE, BSGMatrix, bsg_from_coo, bsg_from_csr
 from ...ops.csr import CSRMatrix
 from ...ops.dia import DIAMatrix, choose_operator
-from ...ops.ell import ell_from_csr, pad_to
+from ...ops.ell import ELLMatrix, ell_from_csr, pad_to
 from ...ops.stencil import StencilOperator
 from ...ops.stencil_kernel import PadStencilOperator
 from ...utils.device import resolve_device
@@ -55,6 +55,7 @@ __all__ = [
     "aggregate_greedy",
     "brick_aggregate",
     "infer_free_grid",
+    "smoothed_aggregation_preconditioner",
     "smoothed_aggregation_setup",
 ]
 
@@ -898,3 +899,24 @@ def smoothed_aggregation_setup(
         coarse_inv=coarse_inv,
         smooth_steps=smooth_steps,
     )
+
+
+def smoothed_aggregation_preconditioner(A_ell: ELLMatrix, **kwargs):
+    """SA-AMG built straight from a device ELL operator: the host CSR is
+    rebuilt from its nonzero slots (JAX's convenience, ``amg.py:1272``
+    there; prefer passing the CSR).  ``kwargs`` go to
+    :func:`smoothed_aggregation_setup`; ``dtype`` is the operator's and
+    ``device``, unless given, its device."""
+    from ...ops.csr import coo_to_csr
+
+    cols = A_ell.cols.cpu().numpy()
+    vals = A_ell.vals.cpu().numpy()
+    n = A_ell.n_rows
+    rows = np.repeat(np.arange(cols.shape[0]), cols.shape[1])
+    mask = vals.reshape(-1) != 0
+    rows, cc, vv = rows[mask], cols.reshape(-1)[mask], vals.reshape(-1)[mask]
+    keep = rows < n
+    csr = coo_to_csr(rows[keep], cc[keep], vv[keep].astype(np.float64),
+                     (n, n))
+    kwargs.setdefault("device", A_ell.device)
+    return smoothed_aggregation_setup(csr, dtype=A_ell.dtype, **kwargs)

@@ -2,11 +2,14 @@
 
 With these a caller assembles once and feeds both packages the very same
 system and vector space: CSR fields, the right-hand side and the free-node
-map go in as arrays; :func:`operator_from_csr` can adopt the JAX BSG
-operator's permutation (``np.asarray(A_jax.perm)``); :func:`dia_from_numpy`
-takes a JAX ``DIAMatrix``'s offsets and diagonals; and
-:func:`pad_stencil_from_parts` takes the JAX package's host stencil
-decomposition (``stencil_parts_from_packed``) as it is; and
+map go in as arrays (a JAX ``structured_box_system`` result too, whose
+``mesh`` is None); :func:`operator_from_csr` can adopt the JAX BSG
+operator's permutation (``np.asarray(A_jax.perm)``) and its value storage
+(``A_jax.storage``); :func:`dia_from_numpy` takes a JAX ``DIAMatrix``'s
+offsets and diagonals; :func:`pad_stencil_from_parts` takes the JAX
+package's host stencil decomposition (``stencil_parts_from_packed``) as it
+is, and the ``parts`` of JAX's ``structured_box_parts`` (``device=True``
+ones download through ``np.asarray``); and
 :func:`ilu_from_numpy` takes a JAX ``ILU0Preconditioner``'s solve-ordered
 factor arrays, so both packages apply identical factors.  Nothing here
 imports the JAX package.
@@ -59,7 +62,9 @@ def heat_system_from_numpy(
     bdry_rows=None,
     bdry_cols=None,
 ) -> HeatSystem:
-    """A port :class:`HeatSystem` from the JAX system's arrays."""
+    """A port :class:`HeatSystem` from the JAX system's arrays (``mesh`` is
+    None, as in a ``structured_box_system`` result; ``degree`` is the
+    diagonal of the matrix, as in the heat system)."""
     A = csr_from_numpy(indptr, indices, data, shape)
     free_to_node = np.array(free_to_node, dtype=np.int64)
     n_nodes = (
@@ -79,10 +84,13 @@ def heat_system_from_numpy(
     )
 
 
-def operator_from_csr(csr: CSRMatrix, perm=None, device=None) -> BSGMatrix:
+def operator_from_csr(csr: CSRMatrix, perm=None, storage: str = "auto",
+                      device=None) -> BSGMatrix:
     """The port's unstructured operator for ``csr``; ``perm`` (original row
-    -> internal row) adopts a given numbering, e.g. the JAX operator's."""
-    return bsg_from_csr(csr, perm=perm, device=device)
+    -> internal row) adopts a given numbering and ``storage`` a given value
+    storage, e.g. the JAX operator's (``"int8"``, ``"bfloat16"`` or
+    ``"float32"``; ``"auto"`` takes JAX's rule)."""
+    return bsg_from_csr(csr, perm=perm, storage=storage, device=device)
 
 
 def dia_from_numpy(offsets, data, n_rows: int, compute_dtype: str = "",

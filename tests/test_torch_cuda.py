@@ -45,6 +45,7 @@ from domain_decomposed_pde_solver_tpu_torch.solvers.precond.amg import (
 torch.set_num_threads(1)
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
+VALUES = ("i8", "bf16", "f32")  # the value storages of kernels 1, 2 and 5
 BC = {100: 80.0, 1000: 25.0}
 
 pytestmark = pytest.mark.cuda
@@ -668,8 +669,12 @@ def _refined_operator(cells, device):
 
 
 def _entries():
-    return (_kernels.FUSED_CG.by_entry["ddps_fused_cg_cluster_f32"],
-            _kernels.FUSED_CG.by_entry["ddps_fused_cg_f32"])
+    """Launches of the cluster instance and of the grid instance, over the
+    entries of every value storage (a refined box's Laplacian stores
+    int8)."""
+    by = _kernels.FUSED_CG.by_entry
+    return tuple(sum(by[f"ddps_fused_cg{base}_{v}"] for v in VALUES)
+                 for base in ("_cluster", ""))
 
 
 @pytest.mark.parametrize("cells,n_pad", [(5, 1024), (10, 8192), (13, 16384)])
@@ -798,3 +803,163 @@ def test_transient_step_on_the_card_matches_plain(cuda_device):
     g, c = out[str(cuda_device)], out["cpu"]
     assert abs(g.total_cg_iterations - c.total_cg_iterations) <= 1
     assert np.abs(g.u - c.u).max() <= 1e-10 * np.abs(c.u).max()
+
+
+# -- int8 and bfloat16 values (kernels 1, 2 and 5) ---------------------------
+
+
+def _value_matrices():
+    """name -> (scipy CSR, its narrowest exact storage): the graph Laplacian
+    of a refined box and a random matrix of every integer in [-127, 127]
+    (int8), a shifted random Laplacian (bfloat16) and a matrix of neither
+    (float32)."""
+    import scipy.sparse as sp
+
+    sy = assemble_heat_system(_mesh())
+    S = sp.csr_matrix((sy.A.data, sy.A.indices, sy.A.indptr),
+                      shape=sy.A.shape)
+    rng = np.random.default_rng(7)
+    R = sp.random(2000, 2000, density=0.01, random_state=7, format="csr")
+    R.data = rng.integers(-127, 128, R.data.size).astype(np.float64)
+    R.data[:255] = np.arange(-127, 128)  # every value
+    R.sort_indices()
+    G = _laplacian(900, 8, 7)
+    G.data = G.data * (1.0 + 0.01 * rng.random(G.data.size))
+    G = ((G + G.T) * 0.5).tocsr()
+    G.sort_indices()
+    return {"laplacian": (S, "int8"), "int8_range": (R, "int8"),
+            "bf16_exact": (_laplacian(900, 8, 1), "bfloat16"),
+            "general": (G, "float32")}
+
+
+def _csr(S):
+    return CSRMatrix(indptr=S.indptr.astype(np.int64),
+                     indices=S.indices.astype(np.int64),
+                     data=S.data.astype(np.float64), shape=S.shape)
+
+
+EXACT = {"int8": ("int8", "bfloat16", "float32"),
+         "bfloat16": ("bfloat16", "float32"), "float32": ("float32",)}
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+@pytest.mark.parametrize("name", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["laplacian", "int8_range", "bf16_exact",
+                                  "general"])
+def test_value_storages_match_plain_and_float32(cuda_device, kind, name,
+                                                layout):
+    """Kernel 1 (dense layout) and kernel 2 (ragged, chunk 16) with every
+    storage that holds the operator's values exactly: each within the
+    tolerance of its plain version, and each bit-identical to the float32
+    storage's launch (the values convert exactly before their products)."""
+    S, narrow = _value_matrices()[kind]
+    csr = _csr(S)
+    kernel = _kernels.SELL_SPMV if layout == "dense" else \
+        _kernels.SELL_CHUNKED_SPMV
+    ops = {s: bsg_from_csr(csr, storage=s, layout=layout, device=cuda_device)
+           for s in EXACT[narrow]}
+    assert bsg_from_csr(csr, device=cuda_device).storage == narrow  # "auto"
+    x = ops["float32"].put_vector(
+        np.random.default_rng(41).normal(size=csr.n_rows),
+        dtype=getattr(torch, name))
+    ys = {}
+    for s, A in ops.items():
+        entry = (f"ddps_sell_{'' if layout == 'dense' else 'chunked_'}spmv_"
+                 f"{_kernels._NAME[A.vals.dtype]}_{_kernels._NAME[x.dtype]}")
+        before = kernel.by_entry[entry]
+        ys[s] = bsg_spmv(A, x)
+        assert kernel.by_entry[entry] == before + 1
+        torch.cuda.synchronize()
+        assert _relerr(ys[s], spmv_plain(A, x)) <= TOL[name]
+    for s in ops:
+        assert torch.equal(ys[s], ys["float32"]), s
+
+
+@pytest.mark.parametrize("case", ["cluster", "grid"])
+def test_fused_cg_int8_values_match_float32_bit_for_bit(cuda_device, case):
+    """Kernel 5 on the int8 values ``storage="auto"`` keeps for a graph
+    Laplacian: the float32-stored copy's iterations and answer, bit for
+    bit, in both instances (a refined 13^3 box, 16,384 rows: the cluster
+    instance through ``fused_cg_solve``, the grid instance launched on the
+    same operator)."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plan,
+        fused_cg_solve,
+    )
+
+    sy, A, b = _refined_operator(13, cuda_device)
+    F = bsg_from_csr(sy.A, storage="float32", device=cuda_device)
+    assert A.storage == "int8"
+    assert fused_cg_plan(A).instance == fused_cg_plan(F).instance == "cluster"
+    by = _kernels.FUSED_CG.by_entry
+    base = "_cluster" if case == "cluster" else ""
+    before = by[f"ddps_fused_cg{base}_i8"]
+
+    def solve(op):
+        if case == "cluster":
+            r = fused_cg_solve(op, b, tol=1e-6, maxiter=2000)
+            return r.x, r.iterations
+        x, stats = _kernels.fused_cg_launch(
+            op.slice_ptr, op.cols, op.vals, b, fused_cg_plan(op).invd,
+            torch.zeros_like(b), 1e-6, 2000)
+        return x, int(stats[0].item())
+
+    xi, ki = solve(A)
+    assert by[f"ddps_fused_cg{base}_i8"] == before + 1
+    xf, kf = solve(F)
+    assert 0 < ki < 2000 and ki == kf
+    assert torch.equal(xi, xf)
+
+
+def test_fused_cg_bfloat16_values_match_plain(cuda_device):
+    """A shifted random Laplacian stores bfloat16; 2,500 rows (3,072
+    padded) take the cluster instance."""
+    from domain_decomposed_pde_solver_tpu_torch.solvers.fused_cg import (
+        fused_cg_plain,
+        fused_cg_plan,
+        fused_cg_solve,
+    )
+
+    S, A, b_host, b, invd = _fused_case(2500, 14, 1, cuda_device)
+    assert A.storage == "bfloat16" and fused_cg_plan(A).instance == "cluster"
+    before = _kernels.FUSED_CG.by_entry["ddps_fused_cg_cluster_bf16"]
+    res = fused_cg_solve(A, b, tol=1e-6, maxiter=500)
+    assert _kernels.FUSED_CG.by_entry["ddps_fused_cg_cluster_bf16"] == \
+        before + 1
+    ref = fused_cg_plain(A, b, torch.zeros_like(b), invd, tol=1e-6,
+                         maxiter=500)
+    assert res.converged and abs(res.iterations - ref.iterations) <= 2
+    assert _relerr(res.x, ref.x) <= 1e-4
+    F = bsg_from_csr(_csr(S), storage="float32", device=cuda_device)
+    rf = fused_cg_solve(F, F.put_vector(b_host), tol=1e-6, maxiter=500)
+    assert rf.iterations == res.iterations and torch.equal(rf.x, res.x)
+
+
+def test_structured_parts_on_the_card_equal_numpy(cuda_device):
+    """``structured_box_parts(device=True)`` builds corr, b and degree on
+    the card, bit for bit the numpy build; the pad-stencil operator from
+    them is the one from the numpy parts."""
+    from domain_decomposed_pde_solver_tpu_torch.models.structured import (
+        structured_box_parts,
+        structured_box_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_parts,
+    )
+
+    on = structured_box_parts(16, 10, 12, device=True)
+    host = structured_box_parts(16, 10, 12)
+    for k in ("b", "degree"):
+        assert on[k].device == cuda_device
+        np.testing.assert_array_equal(on[k].cpu().numpy(), host[k])
+    np.testing.assert_array_equal(on["parts"]["corr_pad"].cpu().numpy(),
+                                  host["parts"]["corr_pad"])
+    A = pad_stencil_from_parts(on["parts"], device=cuda_device)
+    B = pad_stencil_from_parts(host["parts"], device=cuda_device)
+    assert torch.equal(A.corr, B.corr)
+    sy = structured_box_system(16, 10, 12)
+    x = np.random.default_rng(43).normal(size=sy.n_free)
+    y = A.get_vector(A.matvec(A.put_vector(x, dtype=torch.float64)))
+    ref = sy.A.matvec(x)
+    assert np.abs(y - ref).max() <= TOL["float64"] * np.abs(ref).max()
+

@@ -21,17 +21,12 @@ PORT = "domain_decomposed_pde_solver_tpu_torch"
 
 ITEM9 = "ROADMAP.md Queue 1, item 9 (multi-device)"
 ITEM10 = "ROADMAP.md Queue 1, item 10 (the port's bench)"
-ITEM16 = "ROADMAP.md Queue 1, item 16 (the rest of the single-device API)"
 BY_DESIGN = "not ported by design (ROADMAP.md North star)"
 
 NOT_PORTED = {
     "io": {},
     "models": {},
     "ops": {
-        "ell_spmv": ITEM16,
-        "spmv_bytes": ITEM16,
-        "stencil_from_dia": ITEM16,
-        "rcm_permute": ITEM16,
         "HYBMatrix": BY_DESIGN,
         "hyb_from_csr": BY_DESIGN,
         "SplitELLMatrix": BY_DESIGN,
@@ -54,10 +49,7 @@ NOT_PORTED = {
         "sharded_power_method",
     )},
     "solvers": {},
-    "solvers.precond": {
-        "CastPreconditioner": ITEM16,
-        "smoothed_aggregation_preconditioner": ITEM16,
-    },
+    "solvers.precond": {},
     "utils": {
         "enable_malloc_reuse": ITEM10,
         "enable_persistent_cache": BY_DESIGN + ": nvcc builds are cached "

@@ -192,7 +192,7 @@ def test_cluster_pack_of_a_random_graph_of_one_cta():
     pk = cluster_pack(A)
     assert pk.ctas == 1 and pk.windows.tolist() == [0, 700]
     lcols = pk.lcols.numpy().view(np.uint16)
-    zero = A.vals.numpy() == 0
+    zero = (A.vals == 0).numpy()
     assert (lcols[zero] == 0).all()
     x = torch.from_numpy(rand(A.n_pad, seed=12, dtype=np.float32))
     assert torch.equal(cluster_spmv_plain(A, pk, x), spmv_plain(A, x))

@@ -87,3 +87,41 @@ def plane_sides(mesh, axis: int, value: float, side_local_nodes):
         off += blk.conn.shape[0]
     return (np.concatenate(elems).astype(np.int64),
             np.concatenate(sides).astype(np.int64))
+
+
+def jax_box10m_route(N: int):
+    """``bench10m.py:95-230``'s route in the JAX package at ``N``:
+    ``structured_box_system``, ``pad_stencil_from_parts`` of
+    ``structured_box_parts``, brick AMG over it, CG+AMG to 1e-6 (f32) and
+    refinement to 1e-8 with the staged f64 right-hand side and the
+    residual on the device.  Returns ``(system, AMG, CG result, refinement
+    result)``."""
+    import jax.numpy as jnp
+
+    from domain_decomposed_pde_solver_tpu.models import structured as j_st
+    from domain_decomposed_pde_solver_tpu.ops.pallas.stencil_kernel import (
+        pad_stencil_from_parts,
+    )
+    from domain_decomposed_pde_solver_tpu.solvers.cg import cg_solve
+    from domain_decomposed_pde_solver_tpu.solvers.mixed import (
+        iterative_refinement_solve,
+    )
+    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+        smoothed_aggregation_setup,
+    )
+
+    sy = j_st.structured_box_system(N, N, N)
+    A = pad_stencil_from_parts(j_st.structured_box_parts(N, N, N)["parts"])
+    M = smoothed_aggregation_setup(sy.A, dtype=jnp.float32,
+                                   grid_dims=(N - 1, N + 1, N + 1),
+                                   fine_operator=A)
+    bh = (sy.b / np.abs(sy.b).max()).astype(np.float32)
+    b = A.put_vector_sparse(bh)
+    r = cg_solve(A, b, jnp.zeros_like(b), precond=M, tol=1e-6, maxiter=100)
+    b64 = sy.b.astype(np.float64)
+    mr = iterative_refinement_solve(
+        sy.A, b64, tol=1e-8, inner_tol=1e-6, inner_maxiter=100, precond=M,
+        operator=A, b_device=A.put_vector_sparse(b64, dtype=np.float64),
+        device_residual=True)
+    return sy, M, r, mr
+
