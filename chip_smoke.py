@@ -128,6 +128,35 @@ G. The BASELINE's 10M box, in a process of its own as F (``--phase-g``),
    bit-identical), the two solves under the profiler,
    kernel 3 at every z-depth and with L2 flushed, beside cuSPARSE on the
    CSR, and kernel 4 on level 1 beside its launch floor.
+H. The domain-decomposed solve, in a process of its own as F and G
+   (``--phase-h``), every part on the one card:
+   H1. The CLI's halo route with the global AMG: path C's mesh
+   (833,048 DOF) written as Exodus, ``--partitions 4 --precond amg
+   --dtype float32 --tolerance 1e-6 --no-snapshots``: exit 0, CG
+   iterations within 2 of path C's single-device CG+AMG count, host f64
+   relres <= 2e-6, the file's values within [100, 1000], kernel 1
+   launched (the coarse tail); the CLI's phases, partition and halo plan
+   included, recorded.
+   H2. The API on H1's system with ``BSGShardedOperator`` (kernel 1 on
+   each part's block, bf16 values) at P = 4 and 8: Jacobi-CG to 1e-6
+   within 2 iterations of D1's unfused solve, host relres <= 5e-6 plus
+   D1's f32 floor, exactly P launches per product; at P = 4 CG with H1's
+   halo AMG over the sliced-ELL blocks within 2 iterations of H1, and
+   block-Schwarz AMG with and without the two-level coarse correction,
+   each converging in no more iterations than Jacobi.  Every part's
+   launch against its plain version (relative 1e-6 in f32), its halo
+   rows exactly 0, its bf16 storage bit-identical to float32 storage.
+   H3. GMRES with per-part ILUT (``build_block_ilu``), f64, to 1e-8 over
+   4 parts on the 16,028-DOF mesh: converges, host relres <= 1.5e-8,
+   iterations <= partitioned Jacobi-GMRES + 2, which is within 2 of the
+   single-device GMRES + Jacobi (JAX's leg 1d).
+   H4. ``cli.matrix_test --partitions 4`` on path A's file: lambda_max
+   within 1e-8 relative of F3's single-device value.
+   Then kernel 1 per part under the profiler against its bound (the
+   compulsory bytes of that part's slots), its plain version and
+   cuSPARSE on the same block, the partitioned product and the halo
+   exchange by CUDA events, and H2's solves again under the profiler
+   (device, busy, wall, idle share).
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
@@ -1707,6 +1736,558 @@ def run_phase_g(timeout: float = 900.0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# H. The domain-decomposed solve: halo plans, partitioned CG/GMRES/power,
+#    the global halo AMG, block-Schwarz AMG and ILUT, the CLI's --partitions
+# ---------------------------------------------------------------------------
+
+H_PARTS = (4, 8)
+H_SEED = 0  # the CLI's x0: default_rng(seed).uniform(-1, 1)
+H_BLOCK_COARSE = 1024  # block AMG's coarse_size when JAX's 64 falls back
+
+
+def _cli_x0(n: int):
+    import numpy as np
+
+    return np.random.default_rng(H_SEED).uniform(-1.0, 1.0, size=n)
+
+
+def _partition(sy, nparts: int, dtype="float32") -> tuple:
+    """The CLI's partition of the free-node graph and its halo plan (values
+    in ``dtype``), with the host seconds of each."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.csr import coo_to_csr
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        build_halo_plan,
+        partition_graph,
+    )
+
+    A = sy.A
+    t0 = time.perf_counter()
+    rows = np.repeat(np.arange(A.n_rows), A.row_lengths())
+    off = rows != A.indices
+    adj = coo_to_csr(rows[off], A.indices[off], np.ones(int(off.sum())),
+                     A.shape, sum_dups=False)
+    parts = partition_graph(adj, nparts,
+                            coords=sy.mesh.coords[sy.free_to_node])
+    t_part = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = build_halo_plan(A, parts, nparts, dtype=np.dtype(dtype))
+    return plan, t_part, time.perf_counter() - t0
+
+
+def phase_h1(device, kernels, refs, cells: int = MESH_CELLS,
+             out=OUT) -> dict:
+    """The CLI's halo route with the global AMG on path C's mesh, written
+    as Exodus: ``--partitions 4 --precond amg --dtype float32 --tolerance
+    1e-6 --no-snapshots``."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.cli.solve import main
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        read_nodal_vars,
+        refine_uniform,
+        write_exodus,
+    )
+
+    out.mkdir(parents=True, exist_ok=True)
+    exo, sol = out / f"h1_refined{cells}.exo", out / "h1_solution.exo"
+    t0 = time.perf_counter()
+    write_exodus(str(exo), refine_uniform(box_mesh(cells, cells, cells,
+                                                   "TETRA4"), 1))
+    t_mesh = time.perf_counter() - t0
+    args = ["--input", exo, "--solution", sol, "--partitions", 4,
+            "--precond", "amg", "--dtype", "float32", "--tolerance", 1e-6,
+            "--no-snapshots", "--verbose"]
+    args += [] if device.type == "cuda" else ["--cpu"]
+    rep = {}
+    (rc, text), counts, wall = _run_counted(
+        kernels, lambda: _captured(lambda: main([str(a) for a in args],
+                                                report=rep)))
+    sy, res, hamg = rep["system"], rep["result"], rep["precond"]
+    _names, _times, vals = read_nodal_vars(str(sol))
+    u = vals[-1, 0, sy.free_to_node]
+    rr = host_relres(sy.A, u, sy.b)
+    phases = rep["timer"].as_dict()
+    log(f"[H1] CLI --partitions 4 --precond amg on {sy.n_free} DOF: rc {rc},"
+        f" {res.iterations} iterations (path C: {refs.get('c_iterations')}),"
+        f" relres {res.relres:.3e}, host f64 relres {rr:.3e}, values "
+        f"[{u.min():.6g}, {u.max():.6g}]; wall {wall:.1f} s (mesh written "
+        f"in {t_mesh:.1f} s); phases {json.dumps(phases)}; launches "
+        f"{_launched(counts)}")
+    check(rc == 0 and res.converged, f"[H1] the CLI exited with {rc}")
+    check(type(rep["operator"]).__name__ == "ShardedOperator"
+          and type(hamg).__name__ == "HaloAMG",
+          f"[H1] operator {type(rep['operator']).__name__}, preconditioner "
+          f"{type(hamg).__name__}")
+    if "c_iterations" in refs:
+        check(abs(res.iterations - refs["c_iterations"]) <= 2,
+              f"[H1] {res.iterations} iterations vs path C's "
+              f"{refs['c_iterations']}")
+    check(rr <= 2e-6, f"[H1] host relres {rr:.3e} > 2e-6")
+    check(bool(np.isfinite(u).all()) and 100.0 <= float(u.min())
+          and float(u.max()) <= 1000.0,
+          f"[H1] values [{u.min()}, {u.max()}] outside [100, 1000]")
+    _want_launched(device, counts, ["sell_spmv"], "H1")
+    tail = [type(lvl.A).__name__ for lvl in hamg.tail.levels]
+    return dict(system=sy, plan=rep["plan"], op=rep["operator"], hamg=hamg,
+                iterations=res.iterations, relres=res.relres,
+                host_relres=rr, phases_s=phases, cli_wall_s=wall,
+                mesh_s=t_mesh, launches=counts, tail_levels=tail,
+                n_c=hamg.n_c)
+
+
+def _per_part_ms(op, x, reps: int = 20) -> list:
+    """Device ms of each part's kernel-1 launch in ``op.matvec(x)``, from
+    the profiler (the launches of one product come in part order)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    P_ = op.nparts
+    op.matvec(x)
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                op.matvec(x)
+            torch.cuda.synchronize()
+        ev = sorted((s, t) for n, s, t in _device_events(prof)
+                    if "sell_spmv_kernel" in n)
+        if len(ev) == reps * P_:
+            break
+        log(f"profiler: per-part trace {attempt + 1} held {len(ev)} launches")
+    check(len(ev) == reps * P_, f"the profiler recorded {len(ev)} of "
+          f"{reps * P_} per-part launches")
+    return [sum(t - s for s, t in ev[p::P_]) / 1e3 / reps for p in range(P_)]
+
+
+def _h2_kernel_checks(device, op, errs, tag):
+    """Every part's kernel-1 launch against its plain version (f32,
+    relative 1e-6), the halo rows exactly 0, and the bf16 storage
+    bit-identical to a float32-storage launch of the same values.  Adds
+    the largest absolute difference to ``errs``; returns the input and
+    that difference."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
+        bsg_spmv,
+        spmv_plain,
+    )
+
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(rng.normal(size=(op.nparts, op.n_local)),
+                        dtype=torch.float32, device=device)
+    xe = op.extended(x)
+    n = op.n_local
+    rows = np.arange(op.parts[0].n_pad)
+    mine = {}
+    for p, blk in enumerate(op.parts):
+        y = bsg_spmv(blk, xe[p])
+        mask = torch.as_tensor(rows >= n, device=device)
+        _compare(f"part {p} of {op.nparts} ({blk.n_pad} rows, {blk.n_slots} "
+                 f"slots, {blk.storage})", y, spmv_plain(blk, xe[p]), 1e-6,
+                 mine, "sell_spmv", mask=mask, tag=tag)
+        y32 = bsg_spmv(with_storage(blk, torch.float32), xe[p])
+        check(torch.equal(y, y32), f"[{tag}] part {p}: {blk.storage} storage "
+              "is not bit-identical to float32 storage")
+    errs["sell_spmv"] = max(errs.get("sell_spmv", 0.0), mine["sell_spmv"])
+    return x, mine["sell_spmv"]
+
+
+def phase_h2(device, kernels, refs, run_h1, parts=H_PARTS) -> dict:
+    """The API on H1's system with :class:`BSGShardedOperator` (kernel 1
+    per part): Jacobi-CG to 1e-6 at every P, CG with H1's halo AMG over
+    the sliced-ELL blocks and block-Schwarz AMG with and without the
+    two-level coarse correction at the first P; each part's product
+    against its plain version."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        BSGShardedOperator,
+        build_block_amg,
+        halo_amg_cg_solve,
+        make_device_mesh,
+        sharded_cg_solve,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.schwarz import (
+        build_coarse_correction,
+    )
+
+    sy = run_h1["system"]
+    deg = np.where(sy.degree > 0, sy.degree, 1.0)
+    x0_cli = _cli_x0(sy.n_free)
+    out, errs, replays = {}, {}, {}
+    for P_ in parts:
+        if P_ == run_h1["plan"].nparts:
+            plan, t_part, t_plan = run_h1["plan"], None, None
+        else:
+            plan, t_part, t_plan = _partition(sy, P_)
+        t0 = time.perf_counter()
+        op = BSGShardedOperator.from_plan(plan, make_device_mesh(P_,
+                                                                 [device]))
+        sync(device)
+        t_op = time.perf_counter() - t0
+        b = op.put_vector(sy.b)
+        inv_d = op.put_vector(1.0 / deg)
+
+        def jacobi(op=op, b=b, inv_d=inv_d):
+            return sharded_cg_solve(op, b, torch.zeros_like(b),
+                                    precond_diag=inv_d, tol=PCG_TOL,
+                                    maxiter=PCG_MAXITER)
+
+        rj, counts, wall = _run_counted(kernels, jacobi)
+        u = op.get_vector(rj.x)
+        rr = host_relres(sy.A, u, sy.b)
+        limit = 5e-6 + refs.get("d1_floor", f32_floor(sy.A, u, sy.b))
+        launches = counts["sell_spmv"]["launches"]
+        rec = dict(n_local=plan.n_local, halo_width=plan.halo_width,
+                   n_pad=op.parts[0].n_pad, storage=op.parts[0].storage,
+                   slots=[blk.n_slots for blk in op.parts],
+                   partition_s=t_part, plan_s=t_plan, operator_s=t_op,
+                   jacobi=dict(iterations=rj.iterations, relres=rj.relres,
+                               host_relres=rr, limit=limit, wall_s=wall,
+                               launches=counts))
+        log(f"[H2] P={P_}: n_local {plan.n_local}, halo width "
+            f"{plan.halo_width}, blocks of {op.parts[0].n_pad} rows "
+            f"({op.parts[0].storage}); partition {t_part} s, plan {t_plan} "
+            f"s, operator {t_op:.2f} s; Jacobi-CG {rj.iterations} iterations"
+            f" (D1 unfused: {refs.get('d1_iterations')}), host relres "
+            f"{rr:.3e} (limit {limit:.3e}), {wall:.2f} s, kernel-1 launches "
+            f"{launches}")
+        check(rj.converged, f"[H2] P={P_}: Jacobi-CG did not converge")
+        if "d1_iterations" in refs:
+            check(abs(rj.iterations - refs["d1_iterations"]) <= 2,
+                  f"[H2] P={P_}: {rj.iterations} iterations vs D1's "
+                  f"{refs['d1_iterations']}")
+        check(rr <= limit, f"[H2] P={P_}: host relres {rr:.3e}")
+        if device.type == "cuda":
+            # One launch per part per product: the initial residual and one
+            # product per iteration.
+            check(launches == P_ * (rj.iterations + 1),
+                  f"[H2] P={P_}: {launches} kernel-1 launches, want "
+                  f"{P_ * (rj.iterations + 1)}")
+        replays[f"H2 jacobi P={P_}"] = (jacobi, counts)
+        if P_ == parts[0]:
+            hamg = run_h1["hamg"]
+
+            def halo(op=op):
+                return halo_amg_cg_solve(op, hamg, sy.b.astype(np.float32),
+                                         x0_cli.astype(np.float32), tol=1e-6,
+                                         maxiter=200)
+
+            (_x, rh), counts_h, wall_h = _run_counted(kernels, halo)
+            log(f"[H2] P={P_}: CG with H1's halo AMG over the sliced-ELL "
+                f"blocks: {rh.iterations} iterations (H1: "
+                f"{run_h1['iterations']}), relres {rh.relres:.3e}, "
+                f"{wall_h:.2f} s")
+            check(rh.converged and abs(rh.iterations
+                                       - run_h1["iterations"]) <= 2,
+                  f"[H2] halo AMG over BSG: {rh.iterations} iterations vs "
+                  f"H1's {run_h1['iterations']}")
+            replays[f"H2 halo-amg P={P_}"] = (halo, counts_h)
+            # JAX's defaults (max_levels 4, coarse_size 64) first; a part
+            # smaller than n_local keeps its padding rows as isolated unit
+            # rows, which no aggregation merges, so its coarsest level can
+            # stay above the dense limit (4 * coarse_size) and the build
+            # returns None, as JAX's does (its CLI then takes Jacobi).  A
+            # larger coarse_size keeps them in the dense coarse solve.
+            coarse_size = 64
+            t0 = time.perf_counter()
+            M = build_block_amg(sy.A, plan, dtype=torch.float32,
+                                device=device)
+            if M is None:
+                coarse_size = H_BLOCK_COARSE
+                M = build_block_amg(sy.A, plan, dtype=torch.float32,
+                                    coarse_size=coarse_size, device=device)
+            t_amg = time.perf_counter() - t0
+            pads = [plan.n_local - int(v) for v in plan.row_valid.sum(1)]
+            check(M is not None, f"[H2] block AMG fell back to Jacobi with "
+                  f"coarse_size {coarse_size} (padding rows per part {pads})")
+            log(f"[H2] P={P_}: block AMG with coarse_size {coarse_size} "
+                f"(padding rows per part {pads}): levels "
+                f"{[[lvl.n_rows for lvl in m.levels] for m in M.parts]}, "
+                f"coarse {[tuple(m.coarse_inv.shape) for m in M.parts]}")
+            coarse = dict(coarse_inv=build_coarse_correction(
+                sy.A, plan, device=device), row_valid=torch.as_tensor(
+                plan.row_valid, device=device))
+            schwarz = {}
+            for label, kw in (("one-level", {}), ("two-level", coarse)):
+                rs, counts_s, wall_s = _run_counted(
+                    kernels, lambda kw=kw: sharded_cg_solve(
+                        op, b, torch.zeros_like(b), block_amg=M, tol=PCG_TOL,
+                        maxiter=PCG_MAXITER, **kw))
+                rrs = host_relres(sy.A, op.get_vector(rs.x), sy.b)
+                log(f"[H2] P={P_}: block-Schwarz AMG {label} ({len(M.parts)}"
+                    f" hierarchies of {len(M.parts[0].levels) + 1} levels, "
+                    f"set up in {t_amg:.1f} s): {rs.iterations} iterations "
+                    f"(Jacobi {rj.iterations}), host relres {rrs:.3e}, "
+                    f"{wall_s:.2f} s")
+                check(rs.converged and rs.iterations <= rj.iterations,
+                      f"[H2] block-Schwarz {label}: {rs.iterations} "
+                      f"iterations, converged {rs.converged}")
+                check(rrs <= limit, f"[H2] block-Schwarz {label}: host "
+                      f"relres {rrs:.3e}")
+                schwarz[label] = dict(iterations=rs.iterations,
+                                      host_relres=rrs, wall_s=wall_s,
+                                      launches=counts_s)
+            rec.update(halo_amg=dict(iterations=rh.iterations,
+                                     relres=rh.relres, wall_s=wall_h,
+                                     launches=counts_h),
+                       block_amg_setup_s=t_amg, schwarz=schwarz,
+                       block_amg_coarse_size=coarse_size,
+                       padding_rows=pads)
+        rec["x"], rec["max_abs_err"] = _h2_kernel_checks(device, op, errs,
+                                                         f"H2 P={P_}")
+        rec["op"] = op
+        out[P_] = rec
+    return dict(parts=out, errs=errs, replays=replays)
+
+
+def phase_h3(device, kernels, cells: int = SMALL_CELLS) -> dict:
+    """The reference's own configuration over 4 parts: GMRES with per-part
+    ILUT (``build_block_ilu``), f64, to 1e-8, beside partitioned Jacobi-
+    GMRES and single-device GMRES + Jacobi (JAX's leg 1d)."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        refine_uniform,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.models.heat import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import choose_operator
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        ShardedOperator,
+        build_block_ilu,
+        make_device_mesh,
+        sharded_gmres_solve,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers import (
+        gmres_solve,
+        jacobi_preconditioner,
+    )
+
+    sy = assemble_heat_system(refine_uniform(box_mesh(cells, cells, cells,
+                                                      "TETRA4"), 1))
+    plan, t_part, _t = _partition(sy, 4, "float64")
+    op = ShardedOperator.from_plan(plan, make_device_mesh(4, [device]))
+    t0 = time.perf_counter()
+    Mi = build_block_ilu(sy.A, plan, dtype=torch.float64, kind="ilut",
+                         device=device)
+    t_ilut = time.perf_counter() - t0
+    check(Mi is not None, "[H3] block ILUT hit a zero pivot")
+    b = op.put_vector(sy.b)
+    x0 = torch.zeros_like(b)
+    deg = np.where(sy.degree > 0, sy.degree, 1.0)
+    kw = dict(restart=30, tol=1e-8, maxiter=2000)
+    ri, counts, wall = _run_counted(kernels, lambda: sharded_gmres_solve(
+        op, b, x0, block_precond=Mi, **kw))
+    rj = sharded_gmres_solve(op, b, x0, precond_diag=op.put_vector(1.0 / deg),
+                             **kw)
+    A1 = choose_operator(sy.A, dtype=torch.float64, device=device)
+    b1 = A1.put_vector(sy.b, dtype=torch.float64)
+    r1 = gmres_solve(A1, b1, torch.zeros_like(b1),
+                     precond=jacobi_preconditioner(A1), **kw)
+    rr = host_relres(sy.A, op.get_vector(ri.x), sy.b)
+    log(f"[H3] GMRES + per-part ILUT over 4 parts on {sy.n_free} DOF (ILUT "
+        f"factors {t_ilut:.1f} s, partition {t_part:.2f} s): "
+        f"{ri.iterations} iterations, host relres {rr:.3e}, {wall:.2f} s; "
+        f"partitioned Jacobi-GMRES {rj.iterations}, single-device "
+        f"GMRES+Jacobi ({type(A1).__name__}) {r1.iterations}")
+    check(ri.converged, "[H3] GMRES + block ILUT did not converge")
+    check(rr <= 1.5e-8, f"[H3] host relres {rr:.3e} > 1.5e-8")
+    check(ri.iterations <= rj.iterations + 2,
+          f"[H3] block ILUT {ri.iterations} vs Jacobi {rj.iterations}")
+    check(rj.converged and r1.converged
+          and abs(rj.iterations - r1.iterations) <= 2,
+          f"[H3] partitioned Jacobi-GMRES {rj.iterations} vs single-device "
+          f"{r1.iterations}")
+    return dict(dof=sy.n_free, iterations=ri.iterations, host_relres=rr,
+                jacobi_iterations=rj.iterations,
+                single_device_iterations=r1.iterations, ilut_s=t_ilut,
+                wall_s=wall, launches=counts)
+
+
+def phase_h4(device, kernels, exo, f3_eigenvalue=None) -> dict:
+    """``cli.matrix_test --partitions 4`` on F3's mesh: the eigenvalue of
+    F3's single-device run within 1e-8 relative."""
+    from domain_decomposed_pde_solver_tpu_torch.cli.matrix_test import main
+
+    rep = {}
+    args = ["--input", str(exo), "--partitions", "4"] + (
+        [] if device.type == "cuda" else ["--cpu"])
+    (rc, text), counts, wall = _run_counted(
+        kernels, lambda: _captured(lambda: main(args, report=rep)))
+    res = rep["result"]
+    final = text.strip().splitlines()[-1]
+    log(f"[H4] matrix test --partitions 4 on {rep['laplacian'].n_rows} rows:"
+        f" rc {rc}, {res.iterations} iterations, lambda_max "
+        f"{res.eigenvalue:.17g} (F3: {f3_eigenvalue}), wall {wall:.1f} s")
+    check(rc == 0 and final.startswith("lambda_max ~= "),
+          f"[H4] rc {rc}, final line {final!r}")
+    if f3_eigenvalue is not None:
+        check(abs(res.eigenvalue - f3_eigenvalue) <= 1e-8 * abs(f3_eigenvalue),
+              f"[H4] lambda_max {res.eigenvalue} vs F3's {f3_eigenvalue}")
+    return dict(rows=rep["laplacian"].n_rows, eigenvalue=res.eigenvalue,
+                iterations=res.iterations, wall_s=wall, launches=counts)
+
+
+def time_phase_h(device, card, run_h2) -> dict:
+    """Kernel 1 per part (profiler device time against its bound, the
+    compulsory bytes of that part's slots), the product and the halo
+    exchange by CUDA events, the plain version and cuSPARSE on each part's
+    block, and each counted solve of H2 again under the profiler: device
+    and busy time, wall, idle share."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import spmv_plain
+    from domain_decomposed_pde_solver_tpu_torch.parallel.sharded import (
+        part_block_csr,
+    )
+
+    out = {}
+    for P_, rec in run_h2["parts"].items():
+        op, x = rec["op"], rec["x"]
+        xe = op.extended(x)
+        per_part = _per_part_ms(op, x)
+        parts = []
+        for p, blk in enumerate(op.parts):
+            nnz = int((blk.vals != 0).sum())
+            b_ms, by = bound(sell_bytes(blk), 2.0 * nnz)
+            S = part_block_csr(op.plan, p)  # the block, rows in blk's order
+            csr = _csr_tensor(S.indptr, S.indices, S.data, S.n_cols,
+                              torch.float32, device)
+            xp, xs = xe[p], xe[p][: S.n_cols]
+            parts.append(dict(
+                ms=per_part[p], bound_ms=b_ms, bound_by=by,
+                slots=blk.n_slots, nnz=nnz, bytes=sell_bytes(blk),
+                plain_ms=time_ms(lambda blk=blk, xp=xp: spmv_plain(blk, xp)),
+                library_ms=time_ms(lambda csr=csr, xs=xs: csr @ xs)))
+        exch = profile_device(lambda op=op, x=x: op.extended(x))
+        t = dict(
+            per_part=parts,
+            matvec_ms=time_ms(lambda op=op, x=x: op.matvec(x)),
+            exchange_ms=time_ms(lambda op=op, x=x: op.extended(x)),
+            exchange_device_ms=exch["device_ms"])
+        log(f"[E] H2 P={P_}: kernel 1 per part (ms, bound ms): "
+            f"{[(round(q['ms'], 5), round(q['bound_ms'], 5)) for q in parts]}"
+            f"; the partitioned product {t['matvec_ms']:.4f} ms, the halo "
+            f"exchange {t['exchange_ms']:.4f} ms ({exch['device_ms']:.4f} ms "
+            f"of device time) [{card}]")
+        out[f"P={P_}"] = t
+    for label, (fn, counts) in run_h2["replays"].items():
+        per_call = counts["sell_spmv"]["launches"]
+        p = profile_device(fn, reps=1, kernel="sell_spmv_kernel",
+                           per_call=per_call)
+        top = sorted(p["kernels"].items(), key=lambda kv: -kv[1][1])[:6]
+        out[label] = dict(device_ms=p["device_ms"], busy_ms=p["busy_ms"],
+                          wall_ms=p["wall_ms"],
+                          idle_share=1.0 - p["busy_ms"] / p["wall_ms"],
+                          launches=per_call,
+                          top_kernels={k[:80]: v for k, v in top})
+        log(f"[E] {label}: device {p['device_ms']:.3f} ms, busy "
+            f"{p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms wall (idle "
+            f"share {out[label]['idle_share']:.3f}), {per_call} kernel-1 "
+            f"launches; the largest kernels (launches, ms) "
+            f"{json.dumps(out[label]['top_kernels'])} [{card}]")
+    return out
+
+
+def phase_h(device, kernels, refs, cells: int = MESH_CELLS,
+            small_cells: int = SMALL_CELLS, exo=None, parts=H_PARTS,
+            out=OUT) -> dict:
+    """H1-H4 in order, each counted run with every launch counter at 0
+    just before it; ``refs`` holds the numbers of the main process's
+    paths it is checked against (``c_iterations``, ``d1_iterations``,
+    ``d1_floor``, ``f3_eigenvalue``; a missing one is not checked)."""
+    t0 = time.perf_counter()
+    h1 = phase_h1(device, kernels, refs, cells, out)
+    h2 = phase_h2(device, kernels, refs, h1, parts)
+    h3 = phase_h3(device, kernels, small_cells)
+    if exo is None:
+        exo = OUT / f"box{BOX}.exo"  # path A's file, written when absent
+        if not exo.exists():
+            from domain_decomposed_pde_solver_tpu_torch.io import (
+                box_mesh,
+                write_exodus,
+            )
+
+            write_exodus(str(exo), box_mesh(BOX, BOX, BOX, "TETRA4"))
+    h4 = phase_h4(device, kernels, exo, refs.get("f3_eigenvalue"))
+    wall = time.perf_counter() - t0
+    log(f"[H] wall {wall:.1f} s")
+    return dict(H1=h1, H2=h2, H3=h3, H4=h4, wall_s=wall)
+
+
+def phase_h_launches(run_h: dict, name: str) -> dict:
+    """One kernel's launches in each counted run of phase H."""
+    runs = {"H1": run_h["H1"]["launches"]}
+    for P_, rec in run_h["H2"].items():
+        runs[f"H2 jacobi P={P_}"] = rec["jacobi"]["launches"]
+        if "halo_amg" in rec:
+            runs[f"H2 halo-amg P={P_}"] = rec["halo_amg"]["launches"]
+            for label, r in rec["schwarz"].items():
+                runs[f"H2 schwarz {label} P={P_}"] = r["launches"]
+    runs["H3"], runs["H4"] = run_h["H3"]["launches"], run_h["H4"]["launches"]
+    return {k: c[name]["launches"] for k, c in runs.items()}
+
+
+def phase_h_record(run_h) -> dict:
+    """What the smoke's record keeps of phase H (numbers only)."""
+    h1 = {k: v for k, v in run_h["H1"].items()
+          if k not in ("system", "plan", "op", "hamg")}
+    h1["dof"] = run_h["H1"]["system"].n_free
+    h2 = {str(P_): {k: v for k, v in rec.items() if k not in ("op", "x")}
+          for P_, rec in run_h["H2"]["parts"].items()}
+    return dict(H1=h1, H2=h2, H3=run_h["H3"], H4=run_h["H4"],
+                wall_s=run_h["wall_s"])
+
+
+def phase_h_process(result: str, refs: str = "{}") -> int:
+    """Phase H in a process of its own (``python3 chip_smoke.py --phase-h
+    RESULT [REFS]``, started by :func:`run_phase_h`, or alone), as F and
+    G: load the kernels (building them if needed), run :func:`phase_h`
+    against the numbers in the JSON ``REFS`` (none alone: those checks are
+    skipped), time it and write the record to ``RESULT``."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = _kernels.build_kernels()
+    device = torch.device("cuda", 0)
+    run = phase_h(device, kernels, json.loads(refs))
+    rec = phase_h_record(run)
+    rec["errs"] = run["H2"]["errs"]
+    rec["timing"] = time_phase_h(device, card_line(), run["H2"])
+    rec["card"] = card_line()
+    pathlib.Path(result).write_text(json.dumps(rec))
+    return 0
+
+
+def run_phase_h(refs: dict, timeout: float = 900.0) -> dict:
+    """Run :func:`phase_h_process` in a child process on the same card and
+    return its record; fails if the child does."""
+    result = OUT / "phase_h.json"
+    result.unlink(missing_ok=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                           "--phase-h", str(result), json.dumps(refs)],
+                          cwd=REPO, timeout=timeout)
+    check(proc.returncode == 0 and result.exists(),
+          f"[H] the phase H process exited with {proc.returncode}")
+    return json.loads(result.read_text())
+
+
+# ---------------------------------------------------------------------------
 # D. Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2972,10 +3553,17 @@ def main() -> int:
     log(f"[F] done at {time.perf_counter() - t_start:.1f} s")
     run_g = run_phase_g()
     log(f"[G] done at {time.perf_counter() - t_start:.1f} s")
+    run_h = run_phase_h(dict(
+        c_iterations=run_c["res"][0].iterations,
+        d1_iterations=run_d1["833k"]["unfused"].iterations,
+        d1_floor=run_d1["833k"]["floor"],
+        f3_eigenvalue=run_f["F3"]["eigenvalue"]))
+    log(f"[H] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
     errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
-    for key, e in [*run_f.pop("errs").items(), *run_g.pop("errs").items()]:
+    for key, e in [*run_f.pop("errs").items(), *run_g.pop("errs").items(),
+                   *run_h.pop("errs").items()]:
         errs[key] = max(errs.get(key, 0.0), e)
 
     # ---- E. timing and records --------------------------------------------
@@ -3029,6 +3617,7 @@ def main() -> int:
         "cli_routes": run_d3,
         "slice6": run_f,
         "box10m": run_g,
+        "domain_decomposed": run_h,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
@@ -3063,6 +3652,14 @@ def main() -> int:
         extra["phase_f_launches"] = phase_f_launches(run_f, k.name)
         extra["phase_g_launches"] = {
             run: c.get(k.name, 0) for run, c in run_g["launches"].items()}
+        extra["phase_h_launches"] = phase_h_launches(run_h, k.name)
+        if k.name == "sell_spmv":
+            # Phase H's instances: each part's block of BSGShardedOperator.
+            extra["phase_h_parts"] = {
+                key: dict(max_abs_err=run_h["H2"][key[2:]]["max_abs_err"],
+                          per_part=t["per_part"])
+                for key, t in run_h["timing"].items()
+                if key.startswith("P=")}
         records.append({
             "name": k.name,
             "route": "cuda",
@@ -3093,6 +3690,8 @@ if __name__ == "__main__":
             sys.exit(phase_f_process(sys.argv[2]))
         if sys.argv[1:2] == ["--phase-g"]:
             sys.exit(phase_g_process(sys.argv[2]))
+        if sys.argv[1:2] == ["--phase-h"]:
+            sys.exit(phase_h_process(*sys.argv[2:4]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

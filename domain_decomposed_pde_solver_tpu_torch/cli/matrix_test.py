@@ -1,14 +1,17 @@
 """Power-method driver — the ``ExodusMatrixTest`` executable.
 
-Counterpart of the JAX package's ``cli/matrix_test.py``, single device:
-build the full-mesh Laplacian (``IO::getMatrix``) and run 500 power
+Counterpart of the JAX package's ``cli/matrix_test.py``: build the
+full-mesh Laplacian (``IO::getMatrix``) and run 500 power
 iterations at tolerance 1e-2, reporting every 50
 (``ExodusMatrixTest.cpp:131-171``), with JAX's start vector
 (``default_rng(seed).uniform``), report lines and final line.  The operator
 is the padded ELL in float64 (a plain PyTorch product, as JAX's ELL is an
-XLA one).  It runs on the card; ``--cpu`` runs it on the CPU.
-``--partitions >= 2`` (the reference's >= 2 ranks) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+XLA one).  With ``--partitions >= 2`` (the reference's >= 2 ranks,
+``ExodusMatrixTest.cpp:146-149``) the Laplacian is partitioned over a halo
+plan and the power method runs over the parts
+(``parallel.sharded_power_method``, all parts on the one device) in one
+call, printing the final line only, as JAX's does.  It runs on the card;
+``--cpu`` runs it on the CPU.
 
 Usage::
 
@@ -25,8 +28,9 @@ from typing import Optional
 
 def main(argv=None, report: Optional[dict] = None) -> int:
     """Run the driver; returns the exit code.  ``report``: an optional dict
-    that receives the run's ``laplacian`` (host CSR), ``operator`` and
-    ``result`` (the last :class:`PowerResult`)."""
+    that receives the run's ``laplacian`` (host CSR), ``operator``,
+    ``result`` (the last :class:`PowerResult`) and, with ``--partitions``,
+    ``plan``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--input", required=True)
     ap.add_argument("--iterations", type=int, default=500)
@@ -37,10 +41,6 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.partitions > 1:
-        raise NotImplementedError(
-            f"--partitions {args.partitions}: the multi-device power method "
-            "(ROADMAP.md, Queue 1, item 9)")
 
     import numpy as np
     import torch
@@ -61,8 +61,15 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     rng = np.random.default_rng(args.seed)
     z0_host = rng.uniform(size=L.n_rows)
 
-    A = ell_from_csr(L, dtype=torch.float64, device=device)
     out = {} if report is None else report
+    if args.partitions > 1:
+        res = _sharded_power(args, mesh, L, z0_host, device, out)
+        out["result"] = res
+        print(f"lambda_max ~= {res.eigenvalue:.10g} after {res.iterations} "
+              f"iterations (residual {res.residual:.3e}, "
+              f"converged={res.converged})")
+        return 0
+    A = ell_from_csr(L, dtype=torch.float64, device=device)
     out.update(laplacian=L, operator=A)
     z = A.put_vector(z0_host)
     # Chunked so that the estimate prints every reportFrequency
@@ -83,6 +90,34 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     print(f"lambda_max ~= {res.eigenvalue:.10g} after {done} iterations "
           f"(residual {res.residual:.3e}, converged={res.converged})")
     return 0
+
+
+def _sharded_power(args, mesh, L, z0_host, device, out):
+    """The power method over a ``--partitions``-way halo plan of ``L``."""
+    import numpy as np
+
+    from ..ops.csr import coo_to_csr
+    from ..parallel import (
+        ShardedOperator,
+        build_halo_plan,
+        make_device_mesh,
+        partition_graph,
+        sharded_power_method,
+    )
+
+    rows = np.repeat(np.arange(L.n_rows), L.row_lengths())
+    off = rows != L.indices
+    adj = coo_to_csr(rows[off], L.indices[off], np.ones(int(off.sum())),
+                     L.shape, sum_dups=False)
+    parts = partition_graph(adj, args.partitions, coords=mesh.coords)
+    plan = build_halo_plan(L, parts, args.partitions)
+    op = ShardedOperator.from_plan(
+        plan, make_device_mesh(args.partitions, [device]))
+    out.update(laplacian=L, operator=op, plan=plan)
+    return sharded_power_method(
+        op, op.put_vector(z0_host), maxiter=args.iterations,
+        tol=args.tolerance, check_every=args.reportFrequency,
+    )
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """Heat-equation solve driver — the ``BelosMueLuSolver`` executable.
 
-Counterpart of the JAX package's ``cli/solve.py``, single-device routes:
-open -> assemble -> dump A and B (``--outputPrefix``) -> decompose the mesh
-into ``max(2, nparts)`` partition blocks for the solution file -> solve ->
-dump X.  The solve routes, chosen as JAX chooses them:
+Counterpart of the JAX package's ``cli/solve.py``: open -> assemble ->
+dump A and B (``--outputPrefix``) -> decompose the mesh into
+``max(2, nparts)`` partition blocks for the solution file -> solve -> dump
+X.  The solve routes, chosen as JAX chooses them:
 
 - ``--dtype float64 --precond amg --no-snapshots`` (CG, f32-exact
   operator): mixed-precision iterative refinement — f32 CG+AMG sweeps with
@@ -17,13 +17,23 @@ dump X.  The solve routes, chosen as JAX chooses them:
   solve/write/reset loop) or ``bicgstab``, preconditioned by
   none/jacobi/chebyshev/amg on the operator's own vector space, or by
   ilu0/ilut (the reference's GMRES+ILUT, ``BelosMueLuSolver.cpp:92-106``)
-  on an identity-layout operator.
+  on an identity-layout operator;
+- ``--partitions N > 1``: the domain-decomposed solve over a halo plan
+  (``parallel/``), every part on the one device, in JAX's branch order:
+  CG with the global halo AMG for ``--precond amg`` (block-Schwarz AMG if
+  that build fails, then Jacobi), else CG or GMRES with Jacobi or
+  Chebyshev on the partitioned operator, whose local products run on the
+  sliced-ELL kernel for f32 on a CUDA device (JAX: on a TPU); with
+  snapshots, CG runs in chunks of ``--reportAfterIterations`` on one
+  continuous recurrence.  As in JAX, ``--precond ilu0|ilut`` runs Jacobi
+  there and ``--solver bicgstab`` runs CG.  A structured mesh with
+  ``--precond amg`` takes JAX's slab engines, not ported yet: it raises
+  ``NotImplementedError`` naming its ``ROADMAP.md`` item (9b).
 
 The solve runs on the card; ``--cpu`` runs it on the CPU.  ``--x64`` is
 accepted for JAX's command lines and changes nothing (``--dtype`` sets the
 precision); ``--debug-nans`` checks the answer and its reported residual
-for NaN and Inf.  The route not ported (``--partitions > 1``) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+for NaN and Inf.
 
 Usage::
 
@@ -35,20 +45,13 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from typing import Optional
 
 import numpy as np
 
-_NOT_PORTED = {
-    "partitions": "multi-device solves (ROADMAP.md, Queue 1, item 9)",
-}
-
-
-def _check_ported(cfg) -> None:
-    if cfg.partitions > 1:
-        raise NotImplementedError(f"--partitions {cfg.partitions}: "
-                                  f"{_NOT_PORTED['partitions']}")
+_SLAB = "the structured slab engines (ROADMAP.md, Queue 1, item 9b)"
 
 
 def _check_finite(x_host, relres) -> None:
@@ -66,9 +69,10 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     """Run the driver; returns the exit code (0 when converged).
 
     ``report``: an optional dict that receives the run's objects —
-    ``timer``, ``system``, ``operator``, ``precond``, ``result`` and, on
-    the mixed route, ``mixed`` (the :class:`MixedSolveResult`) — for
-    callers that drive the CLI in process."""
+    ``timer``, ``system``, ``operator``, ``precond``, ``result``, on the
+    mixed route ``mixed`` (the :class:`MixedSolveResult`) and on the
+    partitioned route ``plan`` (the :class:`HaloPlan`) — for callers that
+    drive the CLI in process."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     from ..utils.config import add_solve_args, config_from_args
 
@@ -83,7 +87,6 @@ def main(argv=None, report: Optional[dict] = None) -> int:
                     "NaN and Inf; raise FloatingPointError on one")
     args = ap.parse_args(argv)
     cfg = config_from_args(args)
-    _check_ported(cfg)
 
     import torch
 
@@ -154,7 +157,21 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         else None
     )
     with timer.phase("solve"):
-        if (
+        if cfg.partitions > 1:
+            with ExodusSolutionWriter(cfg.solution, out_mesh) as writer:
+                writer.write_boundary_timestep()
+
+                def snap(total, x_now):
+                    writer.write_solution(x_now, system.free_to_node, total)
+
+                result, x_host = _solve_sharded(
+                    cfg, system, x0_host, dtype, op_dims, device, timer,
+                    out, snapshot_cb=snap if cfg.snapshots else None,
+                )
+                if not cfg.snapshots:
+                    writer.write_solution(x_host, system.free_to_node,
+                                          int(result.iterations))
+        elif (
             cfg.dtype == "float64"
             and cfg.precond == "amg"
             and cfg.solver == "cg"
@@ -295,6 +312,140 @@ def _solve_krylov(cfg, system, x0_host, dtype, op_dims, device, out_mesh,
                     write(result.x, result.iterations)
         x_host = A.get_vector(result.x)
     return result, x_host
+
+
+def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
+                   snapshot_cb=None):
+    """The domain-decomposed route (JAX's ``_solve_sharded``,
+    ``cli/solve.py:397-647`` there), every part on ``device``."""
+    import torch
+
+    from ..ops.csr import coo_to_csr
+    from ..parallel import (
+        BSGShardedOperator,
+        ShardedOperator,
+        build_halo_plan,
+        make_device_mesh,
+        partition_graph,
+        sharded_cg_chunk,
+        sharded_cg_solve,
+        sharded_gmres_solve,
+    )
+
+    nparts = cfg.partitions
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    # Structured meshes with AMG take JAX's slab engines (the global
+    # hierarchy over slabs); the port has none yet, so it refuses rather
+    # than fall through to another algorithm.
+    if (cfg.precond == "amg" and cfg.solver != "gmres" and op_dims is not None
+            and int(np.prod(op_dims)) == system.A.n_rows):
+        raise NotImplementedError(
+            f"--partitions {nparts} --precond amg on a structured mesh: "
+            f"{_SLAB}")
+    A = system.A
+    with timer.phase("solve.partition"):
+        rows = np.repeat(np.arange(A.n_rows), A.row_lengths())
+        off = rows != A.indices
+        adj = coo_to_csr(rows[off], A.indices[off],
+                         np.ones(int(off.sum())), A.shape, sum_dups=False)
+        coords = (system.mesh.coords[system.free_to_node]
+                  if system.mesh is not None else None)
+        parts = partition_graph(adj, nparts, coords=coords)
+    with timer.phase("solve.plan"):
+        plan = build_halo_plan(A, parts, nparts, dtype=np_dt)
+    out["plan"] = plan
+    # f32 with an operator-space preconditioner: the local products run on
+    # the sliced-ELL kernel (JAX's rule, with a CUDA device for its TPU).
+    op_cls = ShardedOperator
+    if (dtype == torch.float32 and device.type == "cuda"
+            and cfg.precond in ("none", "jacobi", "chebyshev")):
+        op_cls = BSGShardedOperator
+    with timer.phase("solve.operator"):
+        op = op_cls.from_plan(plan, make_device_mesh(nparts, [device]))
+    if cfg.verbose:
+        print(f"operator format: {op_cls.__name__} over {nparts} parts "
+              f"(n_local {plan.n_local}, halo width {plan.halo_width})")
+    b = op.put_vector(system.b)
+    x0 = op.put_vector(x0_host)
+    # --precond ilu0|ilut runs Jacobi here, as in JAX (its CLI never builds
+    # the block ILU); amg + CG takes the global halo hierarchy, then
+    # block-Schwarz AMG if that build fails, then Jacobi.
+    block_amg = halo_amg = inv_d = None
+    with timer.phase("solve.precond"):
+        if cfg.precond != "none":
+            # Guard degree-0 rows (orphan free nodes).
+            deg = np.where(system.degree > 0, system.degree, 1.0)
+            inv_d = op.put_vector(1.0 / deg)
+            if cfg.precond == "amg" and cfg.solver == "gmres":
+                print("warning: distributed AMG is CG-only; "
+                      "using Jacobi for the multi-device GMRES solve")
+            elif cfg.precond == "amg":
+                from ..parallel.haloamg import build_halo_amg
+
+                halo_amg = build_halo_amg(A, plan, dtype=dtype, device=device)
+                if halo_amg is None:
+                    from ..parallel.schwarz import build_block_amg
+
+                    block_amg = build_block_amg(A, plan, dtype=dtype,
+                                                device=device)
+                    if block_amg is None:
+                        print("warning: AMG build failed; using Jacobi")
+    out.update(operator=op, precond=halo_amg or block_amg)
+    with timer.phase("solve.iterate"):
+        if halo_amg is not None:
+            from ..parallel.haloamg import halo_amg_cg_solve
+
+            if snapshot_cb is not None:
+                print("note: per-chunk snapshots are not yet supported with "
+                      "the sharded global AMG; writing only the final state")
+            x_host, result = halo_amg_cg_solve(
+                op, halo_amg, system.b.astype(np_dt), x0_host.astype(np_dt),
+                tol=cfg.tolerance, maxiter=cfg.iterations,
+            )
+            if snapshot_cb is not None:
+                snapshot_cb(int(result.iterations), x_host)
+            return result, x_host
+        if cfg.solver == "gmres":
+            result = sharded_gmres_solve(
+                op, b, x0, precond_diag=inv_d, restart=cfg.restart,
+                tol=cfg.tolerance, maxiter=cfg.iterations,
+            )
+            if snapshot_cb is not None:
+                snapshot_cb(int(result.iterations), op.get_vector(result.x))
+            return result, op.get_vector(result.x)
+        # For the graph Laplacian, D^-1 A has its spectrum in [0, 2]: an
+        # exact Chebyshev bound with no estimate.
+        cheb = 2.0 if cfg.precond == "chebyshev" else None
+        if snapshot_cb is None or block_amg is not None:
+            if snapshot_cb is not None:
+                print("note: per-chunk snapshots are not yet supported with "
+                      "distributed block-AMG; writing only the final state")
+            result = sharded_cg_solve(
+                op, b, x0, precond_diag=inv_d, cheb_lmax=cheb,
+                block_amg=block_amg, tol=cfg.tolerance,
+                maxiter=cfg.iterations,
+            )
+            if snapshot_cb is not None:
+                snapshot_cb(int(result.iterations), op.get_vector(result.x))
+            return result, op.get_vector(result.x)
+        # Snapshot mode: chunks that thread the exact CG state, one
+        # gather and Exodus timestep per chunk (the reference's
+        # per-iteration writeSolution, ``BelosMueLuSolver.cpp:112-133``).
+        chunk = max(1, cfg.report_after_iterations)
+        x_cur, state, total, result = x0, None, 0, None
+        while total < cfg.iterations:
+            step = min(chunk, cfg.iterations - total)
+            result, state = sharded_cg_chunk(
+                op, b, x_cur, state, precond_diag=inv_d, cheb_lmax=cheb,
+                tol=cfg.tolerance, maxiter=step,
+            )
+            x_cur = result.x
+            total += max(int(result.iterations), 1)
+            snapshot_cb(total, op.get_vector(x_cur))
+            if result.converged:
+                break
+        result = dataclasses.replace(result, iterations=total)
+        return result, op.get_vector(result.x)
 
 
 def _gmres_route(cfg, A, b, x0, precond, write):

@@ -1,0 +1,430 @@
+"""Partitioned operators and solvers: one controller over P parts.
+
+Counterpart of the JAX package's ``parallel/sharded.py``.  JAX runs the
+domain-decomposed solve as one SPMD program under ``shard_map`` over a
+1-D device mesh, with an ``all_to_all`` halo exchange and ``psum``-reduced
+dots.  The port keeps the job and drops the SPMD layout: one process drives
+all P parts of a :class:`HaloPlan` on one device (the card, or the CPU when
+the caller asks for it), and
+
+- a partitioned vector is a ``(P, n_local)`` tensor, the global view JAX
+  gives of a ``P(AXIS)``-sharded array; ``put_vector`` / ``get_vector``
+  keep JAX's contract through the plan's ``scatter_vector`` /
+  ``gather_vector``;
+- the collectives are explicit functions on those tensors, each in a fixed
+  part order, so a solve is deterministic: the halo exchange
+  (:func:`halo_exchange`, JAX's ``all_to_all``) is one gather over the
+  flattened vector, ``halo[p, q, s] = x[q, send_idx[q, p, s]]``; the dot
+  (:func:`psum_dot`, JAX's ``psum`` of per-part ``vdot``) takes each
+  part's dot and adds them in part order;
+- the Krylov loops (:func:`..solvers.cg.cg_solve` and the others) run
+  unchanged over the ``(P, n_local)`` vectors, with that dot injected.
+
+Two local products, as in JAX: :class:`ShardedOperator`'s padded ELL block
+(plain XLA in JAX, plain PyTorch here: one batched gather through the
+exchange and a row sum) and :class:`BSGShardedOperator`'s, which packs each
+part's block over its extended-local space as a square sliced-ELL operator
+and runs it on the sliced-ELL SpMV kernel (``csrc/spmv.cu``), one launch
+per part.
+
+The mesh spans one device.  JAX needs one device per part; the card
+machine has one GPU, and spreading parts over several devices (processes
+with ``torch.distributed``) is ``ROADMAP.md`` Queue 1, item 9c.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.bsg import BSGMatrix, bsg_from_csr
+from ..ops.csr import CSRMatrix
+from ..solvers.cg import CGResult, cg_solve, cg_solve_with_state
+from ..solvers.gmres import GMRESResult, gmres_solve
+from ..solvers.power import PowerResult, power_method
+from ..solvers.precond.chebyshev import ChebyshevPreconditioner
+from ..solvers.precond.jacobi import DiagonalPreconditioner
+from ..utils.device import resolve_device
+from .halo import HaloPlan
+
+__all__ = [
+    "AXIS",
+    "BSGShardedOperator",
+    "DeviceMesh",
+    "ShardedOperator",
+    "halo_exchange",
+    "make_device_mesh",
+    "psum",
+    "psum_dot",
+    "sharded_cg_chunk",
+    "sharded_cg_solve",
+    "sharded_gmres_solve",
+    "sharded_power_method",
+]
+
+AXIS = "parts"
+_SPANS_DEVICES = ("a mesh over more than one device (ROADMAP.md, Queue 1, "
+                  "item 9c: multi-process)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """A 1-D mesh of ``nparts`` parts along :data:`AXIS`, all on
+    ``device``."""
+
+    nparts: int
+    device: torch.device
+
+    @property
+    def shape(self) -> dict:
+        return {AXIS: self.nparts}
+
+
+def _device_key(d) -> tuple:
+    d = torch.device(d)
+    return (d.type, d.index or 0)
+
+
+def make_device_mesh(nparts: int,
+                     devices: Optional[Sequence] = None) -> DeviceMesh:
+    """The mesh of ``nparts`` parts, JAX's name (``sharded.py:45`` there).
+
+    Every part lies on one device: ``devices[0]`` when a list is given,
+    else the card (``resolve_device(None)``).  Unlike JAX's, this mesh
+    always fits, however many parts it has.  A list that names two
+    different devices raises ``NotImplementedError``: the port never places
+    parts on devices silently."""
+    if nparts < 1:
+        raise ValueError(f"nparts must be >= 1, got {nparts}")
+    if devices is None:
+        return DeviceMesh(nparts, resolve_device(None))
+    devs = list(devices)[:nparts]
+    if not devs:
+        raise ValueError("devices is empty")
+    if len({_device_key(d) for d in devs}) > 1:
+        raise NotImplementedError(
+            f"devices {[str(d) for d in devs]}: {_SPANS_DEVICES}")
+    return DeviceMesh(nparts, resolve_device(devs[0]))
+
+
+# ---------------------------------------------------------------------------
+# The collectives, on (P, n_local) tensors
+# ---------------------------------------------------------------------------
+
+
+def halo_index(plan: HaloPlan) -> np.ndarray:
+    """``(P, P*H)`` int64: the position in the flattened ``(P, n_local)``
+    vector of every halo slot, ``[p, q*H + s] = q*n_local + send_idx[q, p,
+    s]`` (JAX's ``take`` of the send buffer and ``all_to_all``)."""
+    P_, H, n = plan.nparts, plan.halo_width, plan.n_local
+    src = plan.send_idx.astype(np.int64).transpose(1, 0, 2)  # [p, q, s]
+    return (src + n * np.arange(P_, dtype=np.int64)[None, :, None]
+            ).reshape(P_, P_ * H)
+
+
+def halo_exchange(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x (P, n_local)`` -> ``halo (P, P*H)``: part p's halo, the values
+    its columns read from the other parts (``index`` from
+    :func:`halo_index`).  One gather."""
+    return x.reshape(-1)[index]
+
+
+def psum(values: torch.Tensor) -> torch.Tensor:
+    """Sum of per-part values (leading axis) added in part order:
+    ``((v0 + v1) + v2) + ...``, JAX's ``psum`` with a fixed order."""
+    total = values[0]
+    for p in range(1, values.shape[0]):
+        total = total + values[p]
+    return total
+
+
+def psum_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The global dot of two ``(P, n_local)`` vectors: each part's dot,
+    then :func:`psum` (JAX's ``_psum_dot``)."""
+    return psum((a * b).sum(dim=1))
+
+
+# ---------------------------------------------------------------------------
+# Operators
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedOperator:
+    """A partitioned sparse operator: each part's ELL block over its
+    extended-local space ``[x_own (n_local) | halo (P*H)]``, and the
+    exchange plan.  ``matvec`` takes and returns ``(P, n_local)``."""
+
+    mesh: DeviceMesh
+    plan: HaloPlan
+    cols: torch.Tensor  # (P, n_local, K) int64 extended-local columns
+    vals: torch.Tensor  # (P, n_local, K)
+    halo_idx: torch.Tensor  # (P, P*H) int64 into the flattened x
+    flat_cols: torch.Tensor  # (P, n_local*K) int64: cols through the exchange
+
+    @classmethod
+    def from_plan(cls, plan: HaloPlan, mesh: DeviceMesh,
+                  dtype=None) -> "ShardedOperator":
+        """Upload the plan's blocks to ``mesh.device``; values in ``dtype``
+        (numpy or torch; default the plan's)."""
+        return cls(**_base_fields(plan, mesh, dtype))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def nparts(self) -> int:
+        return self.plan.nparts
+
+    @property
+    def n_local(self) -> int:
+        return self.plan.n_local
+
+    def put_vector(self, x_global) -> torch.Tensor:
+        """Host ``(n_global,)`` -> ``(P, n_local)`` in the operator's dtype
+        on its device (zeros on padding rows)."""
+        xp = self.plan.scatter_vector(
+            np.asarray(x_global, dtype=_np_dtype(self.dtype)))
+        return torch.from_numpy(xp).to(self.device)
+
+    def get_vector(self, x: torch.Tensor) -> np.ndarray:
+        """``(P, n_local)`` -> host ``(n_global,)`` in original row order."""
+        return self.plan.gather_vector(x.detach().cpu().numpy())
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = A x`` over the parts: every part's ELL row sum over its
+        extended-local vector.  The exchange and the column gather are
+        composed into one gather (``flat_cols``); the products and their
+        order are JAX's ``_local_spmv``."""
+        P_, n, K = self.cols.shape
+        xg = x.reshape(-1)[self.flat_cols].view(P_, n, K)
+        return (self.vals * xg).sum(dim=2)
+
+
+def _np_dtype(dtype) -> np.dtype:
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(str(dtype).replace("torch.", ""))
+    return np.dtype(dtype)
+
+
+def _base_fields(plan: HaloPlan, mesh: DeviceMesh, dtype) -> dict:
+    if mesh.nparts != plan.nparts:
+        raise ValueError(f"mesh of {mesh.nparts} parts for a plan of "
+                         f"{plan.nparts}")
+    dev = mesh.device
+    vals = plan.ell_vals if dtype is None else plan.ell_vals.astype(
+        _np_dtype(dtype))
+    hidx = halo_index(plan)
+    n = plan.n_local
+    cols = plan.ell_cols.astype(np.int64)
+    own = n * np.arange(plan.nparts, dtype=np.int64)[:, None, None] + cols
+    flat = np.where(
+        cols < n, own,
+        np.take_along_axis(hidx, np.maximum(cols - n, 0).reshape(
+            plan.nparts, -1), axis=1).reshape(cols.shape))
+    return dict(
+        mesh=mesh,
+        plan=plan,
+        cols=torch.from_numpy(cols).to(dev),
+        vals=torch.from_numpy(np.ascontiguousarray(vals)).to(dev),
+        halo_idx=torch.from_numpy(hidx).to(dev),
+        flat_cols=torch.from_numpy(flat.reshape(plan.nparts, -1)).to(dev),
+    )
+
+
+def _bsg_storage(vals: np.ndarray) -> str:
+    """JAX's rule for the sharded blocks (``sharded.py:127-137`` there),
+    decided once on the global values so every part stores alike:
+    bfloat16 when every value survives it, else float32."""
+    from ..ops.dia import _bf16_exact
+
+    return "bfloat16" if _bf16_exact(np.asarray(vals).ravel()) else "float32"
+
+
+def part_block_csr(plan: HaloPlan, p: int) -> CSRMatrix:
+    """Part ``p``'s block as a square CSR over its extended-local space
+    (``n_local + P*H`` rows and columns; the halo rows are empty), from
+    the plan's nonzero ELL slots, as JAX builds it."""
+    nparts, n_local, K = plan.ell_cols.shape
+    n_ext = n_local + nparts * plan.halo_width
+    cols = np.asarray(plan.ell_cols[p])
+    vals = np.asarray(plan.ell_vals[p], dtype=np.float64)
+    rows = np.repeat(np.arange(n_local), K)
+    nz = vals.reshape(-1) != 0
+    r, c, v = rows[nz], cols.reshape(-1)[nz], vals.reshape(-1)[nz]
+    o = np.lexsort((c, r))
+    r, c, v = r[o], c[o], v[o]
+    indptr = np.zeros(n_ext + 1, np.int64)
+    np.add.at(indptr, r + 1, 1)
+    return CSRMatrix(indptr=np.cumsum(indptr), indices=c.astype(np.int64),
+                     data=v, shape=(n_ext, n_ext))
+
+
+@dataclasses.dataclass
+class BSGShardedOperator(ShardedOperator):
+    """A partitioned operator whose local products run on the sliced-ELL
+    SpMV kernel: part p's block over its extended-local space is packed as
+    a square sliced-ELL operator with no reordering (``reorder=False``:
+    the halo plan fixes the layout), values in one storage for all parts
+    (:func:`_bsg_storage`).  Its ``P*H`` halo rows and the padding to a
+    multiple of 1024 are empty rows (slices of width 0), which give 0.
+
+    ``matvec``: one gather builds every part's padded extended-local vector
+    (own values, halo, zeros), then one kernel launch per part; the first
+    ``n_local`` rows of each are the answer."""
+
+    parts: List[BSGMatrix] = dataclasses.field(default_factory=list)
+    ext_idx: Optional[torch.Tensor] = None  # (P, n_pad) into [x | 0]
+
+    @classmethod
+    def from_plan(cls, plan: HaloPlan, mesh: DeviceMesh,
+                  dtype=None) -> "BSGShardedOperator":
+        base = _base_fields(plan, mesh, dtype)
+        storage = _bsg_storage(plan.ell_vals)
+        parts = [bsg_from_csr(part_block_csr(plan, p), reorder=False,
+                              storage=storage, layout="dense",
+                              device=mesh.device)
+                 for p in range(plan.nparts)]
+        n_pad = parts[0].n_pad
+        n, zero = plan.n_local, plan.nparts * plan.n_local
+        ext = np.full((plan.nparts, n_pad), zero, dtype=np.int64)
+        ext[:, :n] = (n * np.arange(plan.nparts, dtype=np.int64)[:, None]
+                      + np.arange(n, dtype=np.int64)[None, :])
+        hidx = base["halo_idx"].cpu().numpy()
+        ext[:, n: n + hidx.shape[1]] = hidx
+        return cls(**base, parts=parts,
+                   ext_idx=torch.from_numpy(ext).to(mesh.device))
+
+    def extended(self, x: torch.Tensor) -> torch.Tensor:
+        """``(P, n_pad)``: each part's own values, its halo, then zeros —
+        the input of its local product."""
+        xz = torch.cat([x.reshape(-1), x.new_zeros(1)])
+        return xz[self.ext_idx]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        xe = self.extended(x)
+        n = self.n_local
+        return torch.stack([b.matvec(xe[p])[:n]
+                            for p, b in enumerate(self.parts)])
+
+
+# ---------------------------------------------------------------------------
+# Solvers: the single-device loops over (P, n_local) vectors
+# ---------------------------------------------------------------------------
+
+
+def _diag_precond(op, b, precond_diag, cheb_lmax, cheb_degree):
+    if precond_diag is None:
+        return None
+    if cheb_lmax is not None:
+        # Each polynomial term is a halo-exchange product.
+        return ChebyshevPreconditioner(
+            A=op, inv_diag=precond_diag,
+            lmax=torch.tensor(cheb_lmax, dtype=b.dtype), degree=cheb_degree,
+        )
+    return DiagonalPreconditioner(precond_diag)
+
+
+def sharded_cg_solve(
+    op: ShardedOperator,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    precond_diag: Optional[torch.Tensor] = None,
+    cheb_lmax: Optional[float] = None,
+    cheb_degree: int = 4,
+    block_amg: Optional[Callable] = None,
+    coarse_inv: Optional[torch.Tensor] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    tol: float = 1e-14,
+    maxiter: int = 300,
+) -> CGResult:
+    """CG over the parts (JAX's ``sharded_cg_solve``), preconditioned by:
+
+    - Jacobi, ``precond_diag`` (the inverse diagonal, ``(P, n_local)``);
+    - Chebyshev with it, ``cheb_lmax`` (each term a halo-exchange product);
+    - block-Schwarz, ``block_amg``: a per-part preconditioner applied to
+      every part's residual with no communication —
+      :func:`.schwarz.build_block_amg` or :func:`.schwarzilu.build_block_ilu`
+      (it replaces Jacobi, as in JAX);
+    - ``coarse_inv`` + ``row_valid`` (:func:`.schwarz.build_coarse_correction`,
+      the plan's ``row_valid``) add the partition-constant coarse
+      correction: two-level Schwarz (:class:`.schwarz.TwoLevelPrecond`)."""
+    M = _diag_precond(op, b, precond_diag, cheb_lmax, cheb_degree)
+    if block_amg is not None:
+        M = block_amg
+    if coarse_inv is not None:
+        from .schwarz import TwoLevelPrecond
+
+        if M is None:
+            M = DiagonalPreconditioner(torch.ones_like(b))
+        M = TwoLevelPrecond(local=M, Ac_inv=coarse_inv, valid=row_valid)
+    return cg_solve(op, b, x0, precond=M, tol=tol, maxiter=maxiter,
+                    dot=psum_dot)
+
+
+def sharded_cg_chunk(
+    op: ShardedOperator,
+    b: torch.Tensor,
+    x: torch.Tensor,
+    state,
+    *,
+    precond_diag: Optional[torch.Tensor] = None,
+    cheb_lmax: Optional[float] = None,
+    cheb_degree: int = 4,
+    tol: float = 1e-14,
+    maxiter: int = 50,
+):
+    """One chunk of partitioned CG, continuing exactly from ``state``
+    (``None`` or the ``(r, p, rz)`` of the previous chunk).  Returns
+    ``(CGResult, new_state)``; chunks driven in a host loop run the
+    unbroken solve's recurrence bit for bit."""
+    M = _diag_precond(op, b, precond_diag, cheb_lmax, cheb_degree)
+    return cg_solve_with_state(op, b, x, state=state, precond=M, tol=tol,
+                               maxiter=maxiter, dot=psum_dot)
+
+
+def sharded_gmres_solve(
+    op: ShardedOperator,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    precond_diag: Optional[torch.Tensor] = None,
+    block_precond: Optional[Callable] = None,
+    restart: int = 30,
+    tol: float = 1e-14,
+    maxiter: int = 300,
+) -> GMRESResult:
+    """GMRES(m) over the parts — the reference's solver (Belos "GMRES",
+    ``BelosMueLuSolver.cpp:105-106``) distributed.  ``block_precond``: a
+    per-part preconditioner such as :func:`.schwarzilu.build_block_ilu`,
+    which makes this the reference's ``mpirun`` configuration: GMRES with
+    per-rank ILUT."""
+    M = DiagonalPreconditioner(precond_diag) if precond_diag is not None \
+        else None
+    if block_precond is not None:
+        M = block_precond
+    return gmres_solve(op, b, x0, precond=M, restart=restart, tol=tol,
+                       maxiter=maxiter, dot=psum_dot)
+
+
+def sharded_power_method(
+    op: ShardedOperator,
+    z0: torch.Tensor,
+    *,
+    maxiter: int = 500,
+    tol: float = 1e-2,
+    check_every: int = 50,
+) -> PowerResult:
+    """The power method over the parts — ``ExodusMatrixTest`` under
+    ``mpirun`` (``ExodusMatrixTest.cpp:131-171``)."""
+    return power_method(op, z0, maxiter=maxiter, tol=tol,
+                        check_every=check_every, dot=psum_dot)

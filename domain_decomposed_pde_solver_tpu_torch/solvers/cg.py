@@ -7,6 +7,10 @@ is a Python loop that reads one boolean from the device per iteration (the
 stopping test).  Capturing the loop in a CUDA graph is later work.
 
 Operators are objects with ``.matvec(x)``; preconditioners are callables.
+The dot product is injectable (``dot=``, default :func:`torch.dot`), as in
+JAX: the sharded solvers (``parallel/sharded.py``) pass one that takes
+``(P, n_local)`` vectors and adds the parts' dots in part order, so the
+same loop runs over a partitioned vector.
 :func:`cg_solve_resumable` checkpoints the recurrence to a file every few
 iterations and continues from it (``utils/checkpoint.py``).
 """
@@ -53,11 +57,12 @@ def cg_solve(
     precond: Any = None,
     tol: float = 1e-14,
     maxiter: int = 300,
+    dot: Callable = torch.dot,
 ) -> CGResult:
     """Solve ``A x = b`` with (preconditioned) CG; ``tol`` is relative to
     ``||b||``."""
     result, _ = cg_solve_with_state(
-        A, b, x0, precond=precond, tol=tol, maxiter=maxiter
+        A, b, x0, precond=precond, tol=tol, maxiter=maxiter, dot=dot
     )
     return result
 
@@ -71,11 +76,12 @@ def cg_solve_with_state(
     precond: Any = None,
     tol: float = 1e-14,
     maxiter: int = 300,
+    dot: Callable = torch.dot,
 ):
     """Like :func:`cg_solve` but returns ``(result, (r, p, rz))`` and can
     resume from a prior state exactly."""
     M = precond if precond is not None else IdentityPrecond()
-    bnorm = torch.sqrt(torch.dot(b, b))
+    bnorm = torch.sqrt(dot(b, b))
     bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
     target = torch.as_tensor(tol, dtype=b.dtype, device=b.device) * bnorm
 
@@ -83,14 +89,14 @@ def cg_solve_with_state(
         r = b - A.matvec(x0)
         z = M(r)
         p = z
-        rz = torch.dot(r, z)
+        rz = dot(r, z)
     else:
         r, p, rz = state
     x = x0
-    rnorm = torch.sqrt(torch.dot(r, r))
+    rnorm = torch.sqrt(dot(r, r))
     k = 0
     while k < maxiter and bool(rnorm > target):
-        x, r, p, rz, rnorm = _cg_step(A, M, x, r, p, rz)
+        x, r, p, rz, rnorm = _cg_step(A, M, x, r, p, rz, dot)
         k += 1
     return (
         CGResult(
@@ -142,17 +148,17 @@ def cg_solve_snapshots(
     )
 
 
-def _cg_step(A, M, x, r, p, rz):
+def _cg_step(A, M, x, r, p, rz, dot=torch.dot):
     """One CG iteration: the body of :func:`cg_solve_with_state`'s loop,
     also returning the new residual norm (a device scalar)."""
     Ap = A.matvec(p)
-    alpha = rz / torch.dot(p, Ap)
+    alpha = rz / dot(p, Ap)
     x = x + alpha * p
     r = r - alpha * Ap
     z = M(r)
-    rz_new = torch.dot(r, z)
+    rz_new = dot(r, z)
     p = z + rz_new / rz * p
-    return x, r, p, rz_new, torch.sqrt(torch.dot(r, r))
+    return x, r, p, rz_new, torch.sqrt(dot(r, r))
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:

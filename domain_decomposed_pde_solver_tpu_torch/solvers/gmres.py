@@ -20,7 +20,7 @@ also serves the convergence test).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -40,10 +40,6 @@ class GMRESResult:
     converged: bool
 
 
-def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.dot(v, v))
-
-
 def gmres_solve(
     A: Any,
     b: torch.Tensor,
@@ -53,35 +49,44 @@ def gmres_solve(
     restart: int = 30,
     tol: float = 1e-14,
     maxiter: int = 300,
+    dot: Callable = torch.dot,
 ) -> GMRESResult:
     """Solve ``A x = b`` with right-preconditioned GMRES(m).
 
     ``tol`` is relative (``||r|| / ||b||``), matching Belos' scaled
     residual test for the tolerance passed at ``BelosMueLuSolver.cpp:151``.
+    ``dot`` is injectable, as in :func:`.cg.cg_solve`: the Krylov basis
+    holds vectors of ``b``'s shape, so a ``(P, n_local)`` vector with the
+    sharded dot runs the same recurrence.
     """
     M = precond if precond is not None else IdentityPrecond()
     dt = _NP[b.dtype]
-    bnorm = dt(_norm(b).item())
+
+    def norm(v):
+        return torch.sqrt(dot(v, v))
+
+    bnorm = dt(norm(b).item())
     bnorm = dt(1.0) if bnorm == 0 else bnorm
     target = dt(tol) * bnorm
     x = x0
-    rnorm = dt(_norm(b - A.matvec(x0)).item())
+    rnorm = dt(norm(b - A.matvec(x0)).item())
     k = 0
     while rnorm > target and k < maxiter:
-        x, rnorm, j_used = _restart_cycle(A, M, b, x, restart, target, dt)
+        x, rnorm, j_used = _restart_cycle(A, M, b, x, restart, target, dt,
+                                          dot)
         k += j_used
     # Report the true residual, not the implicit one.
-    true = dt(_norm(b - A.matvec(x)).item())
+    true = dt(norm(b - A.matvec(x)).item())
     return GMRESResult(x=x, iterations=k, relres=float(true / bnorm),
                        converged=bool(true <= target))
 
 
-def _restart_cycle(A, M, b, x, m, target, dt):
+def _restart_cycle(A, M, b, x, m, target, dt, dot):
     """One GMRES(m) cycle from ``x``: returns (x, |g[j_used]|, j_used)."""
     eps = np.finfo(dt).tiny
     r = b - A.matvec(x)
-    beta = _norm(r)
-    V = torch.zeros((m + 1, r.numel()), dtype=r.dtype, device=r.device)
+    beta = torch.sqrt(dot(r, r))
+    V = torch.zeros((m + 1,) + tuple(r.shape), dtype=r.dtype, device=r.device)
     V[0] = r / torch.clamp(beta, min=eps)
     H = np.zeros((m + 1, m), dtype=dt)
     cs = np.zeros(m, dtype=dt)
@@ -94,10 +99,10 @@ def _restart_cycle(A, M, b, x, m, target, dt):
         w = A.matvec(M(V[j]))
         col = []
         for i in range(j + 1):
-            hij = torch.dot(V[i], w)
+            hij = dot(V[i], w)
             w = w - hij * V[i]
             col.append(hij)
-        wnorm = _norm(w)
+        wnorm = torch.sqrt(dot(w, w))
         V[j + 1] = w / torch.clamp(wnorm, min=eps)
         col.append(wnorm)
         h = np.zeros(m + 1, dtype=dt)
@@ -126,5 +131,5 @@ def _restart_cycle(A, M, b, x, m, target, dt):
         hii = H[i, i]
         y[i] = (g[i] - np.dot(H[i, :], y)) / (hii if hii != 0 else dt(1.0))
     # x += M (V[:m]^T y)  (right preconditioning)
-    update = torch.from_numpy(y).to(V.device) @ V[:m]
-    return x + M(update), abs(g[j_used]), j_used
+    update = torch.from_numpy(y).to(V.device) @ V[:m].reshape(m, -1)
+    return x + M(update.reshape(r.shape)), abs(g[j_used]), j_used

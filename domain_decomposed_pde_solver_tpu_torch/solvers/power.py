@@ -14,6 +14,7 @@ counts are JAX's.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -29,10 +30,6 @@ class PowerResult:
     converged: bool
 
 
-def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.dot(v, v))
-
-
 def power_method(
     A,
     z0: torch.Tensor,
@@ -40,10 +37,16 @@ def power_method(
     maxiter: int = 500,
     tol: float = 1e-2,
     check_every: int = 50,
+    dot: Callable = torch.dot,
 ) -> PowerResult:
     """``A``: an operator with ``.matvec(x)``; ``z0`` the start vector in
     its space.  Stops when the checked residual is at most ``tol`` (compared
-    in ``z0``'s dtype) or after ``maxiter`` iterations."""
+    in ``z0``'s dtype) or after ``maxiter`` iterations.  ``dot`` is
+    injectable, as in :func:`.cg.cg_solve` (the sharded power method)."""
+
+    def _norm(v):
+        return torch.sqrt(dot(v, v))
+
     tiny = torch.finfo(z0.dtype).tiny
     tol = float(torch.tensor(tol, dtype=z0.dtype))
     z = z0
@@ -53,7 +56,7 @@ def power_method(
     while res > tol and k < maxiter:
         q = z / torch.clamp_min(_norm(z), tiny)
         z = A.matvec(q)
-        lam = torch.dot(q, z)
+        lam = dot(q, z)
         k += 1
         # The reference's residual check, on report iterations only
         # (``ExodusMatrixTest.cpp:95-107``).
@@ -61,7 +64,7 @@ def power_method(
             res = float(_norm(z - lam * q))
     q = z / torch.clamp_min(_norm(z), tiny)
     Aq = A.matvec(q)
-    final = float(_norm(Aq - torch.dot(q, Aq) * q))
+    final = float(_norm(Aq - dot(q, Aq) * q))
     return PowerResult(
         eigenvalue=float(lam),
         eigenvector=q,

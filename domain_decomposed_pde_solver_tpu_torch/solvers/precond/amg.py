@@ -12,7 +12,12 @@ Counterpart of the JAX package's ``solvers/precond/amg.py``:
   (:class:`BrickProlongator` in the identity space,
   :class:`PadBrickProlongator` in a pad-stencil fine operator's padded 3-D
   space), and coarse levels with stencil structure become DIA operators;
-- elsewhere explicit ELL ``P``/``R``, and a dense coarse inverse.
+- elsewhere explicit ELL ``P``/``R``, and a dense coarse inverse;
+- ``level_info_out`` hands the raw per-level pieces (aggregates, counts,
+  diagonal, lmax, omega) to the distributed hierarchy builder
+  (``parallel/haloamg.py``), and ``operator_format="ell"`` with
+  ``factored_transfers=False`` gives the uniform ELL levels of the
+  block-Schwarz builder (``parallel/schwarz.py``).
 
 - **Setup on host** (NumPy, scipy and the native library, run once): the
   same functions as the JAX package, so both build the same hierarchy.
@@ -21,9 +26,6 @@ Counterpart of the JAX package's ``solvers/precond/amg.py``:
   the card).  The selection gather and segment sum of
   :class:`FactoredProlongator` are ``index_select`` and ``index_add_``; the
   brick transfers are reshapes, repeats and block sums.
-
-Not ported: ``level_info_out`` (the distributed hierarchy builders) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -58,9 +60,6 @@ __all__ = [
     "smoothed_aggregation_preconditioner",
     "smoothed_aggregation_setup",
 ]
-
-_DISTRIBUTED = "multi-device (ROADMAP.md, Queue 1, item 9)"
-
 
 # ---------------------------------------------------------------------------
 # Host-side setup (identical to the JAX package)
@@ -564,7 +563,9 @@ def smoothed_aggregation_setup(
     max_levels: int = 10,
     coarse_size: int = 64,
     smooth_steps: int = 2,
+    factored_transfers: bool = True,
     filter_tol: Union[float, str] = "auto",
+    operator_format: str = "auto",
     aggressive_levels: Union[int, str] = "auto",
     grid_dims: Optional[Tuple[int, int, int]] = None,
     brick: int = 6,
@@ -578,9 +579,9 @@ def smoothed_aggregation_setup(
     """Build the SA-AMG hierarchy from the host CSR operator.
 
     The same hierarchy as the JAX function for the parameters kept here (its
-    Jacobi smoother, multi-cycle apply, ``operator_format="ell"`` and the
-    opt-outs of the BSG chain are not ported), plus ``device`` (default:
-    the fine operator's device, else the card).
+    Jacobi smoother, multi-cycle apply and the opt-outs of the BSG chain
+    are not ported), plus ``device`` (default: the fine operator's device,
+    else the card).
 
     - ``fine_operator``: a prebuilt level-0 operator that owns its vector
       space — a sliced-ELL :class:`BSGMatrix` (possibly RCM-permuted) or a
@@ -596,11 +597,21 @@ def smoothed_aggregation_setup(
       then takes ``brick^3`` aggregates and gather-free brick transfers.
     - ``filter_tol="auto"`` is 0.005 on the BSG chain, 0.01 otherwise;
       ``aggressive_levels="auto"`` follows JAX's rule.
+    - ``level_info_out``: a list that receives, per level, a dict of the
+      raw setup pieces (``n``, ``agg``, ``counts``, ``d``, ``lmax``,
+      ``omega``) for the distributed builders.  As in JAX, it turns the
+      BSG chain off, so the coarse levels keep the raw aggregate numbering
+      (no host relabelling) that those builders index.
+    - ``operator_format="ell"``: every level built here is a plain ELL
+      operator (no DIA, no sliced ELL); ``factored_transfers=False``: DIA
+      and stencil levels take explicit ELL ``P``/``R``.  The block-Schwarz
+      builder asks for both, as JAX's does.
     """
     import scipy.sparse as sp
 
-    if level_info_out is not None:
-        raise NotImplementedError(f"level_info_out: {_DISTRIBUTED}")
+    if operator_format not in ("auto", "ell"):
+        raise ValueError(
+            f"operator_format must be auto|ell, got {operator_format!r}")
     _tm = {} if timings_out is None else timings_out
     _last = [time.perf_counter()]
 
@@ -620,8 +631,10 @@ def smoothed_aggregation_setup(
     if use_fine_op and fine_operator.n_rows != A.n_rows:
         raise ValueError("fine_operator does not match A")
     n_pads = [fine_operator.n_pad if use_fine_op else pad_to(max(A.n_rows, 1))]
-    # The BSG chain starts at a sliced-ELL fine operator.
-    bsg_chain = use_fine_op and isinstance(fine_operator, BSGMatrix)
+    # The BSG chain starts at a sliced-ELL fine operator; the distributed
+    # builders (level_info_out) take the raw hierarchy without it.
+    fine_sell = use_fine_op and isinstance(fine_operator, BSGMatrix)
+    bsg_chain = fine_sell and level_info_out is None
     grid_match = grid_dims is not None and int(np.prod(grid_dims)) == A.n_rows
 
     if aggressive_levels == "auto":
@@ -629,9 +642,11 @@ def smoothed_aggregation_setup(
             # Brick transfers replace level-0 greedy aggregation, and the
             # aggressive compose only ever applies at level 0.
             aggressive_levels = 0
-        elif bsg_chain and A.n_rows > 200_000:
-            aggressive_levels = 0
-        elif A.n_rows > 200_000:
+        elif fine_sell and A.n_rows > 200_000:
+            # Without the chain's sliced-ELL mid levels, JAX skips the
+            # several-100k-row level 1 by composing two aggregation rounds.
+            aggressive_levels = 0 if bsg_chain else 1
+        elif operator_format != "ell" and A.n_rows > 200_000:
             ndiags = _count_diagonals_capped(A, 64)
             aggressive_levels = 1 if ndiags <= 64 else 0
         else:
@@ -695,6 +710,11 @@ def smoothed_aggregation_setup(
         d = np.where(d != 0, d, 1.0)
         lmax = _lmax_dinv_a_host(A_k)
         _mark("lmax")
+        if level_info_out is not None:
+            level_info_out.append(dict(
+                n=A_k.shape[0], agg=agg.copy(), counts=counts.copy(),
+                d=d.copy(), lmax=float(lmax), omega=float(omega),
+            ))
         from ...utils.native import rap_galerkin_native, sa_prolongator_native
 
         tval = 1.0 / np.sqrt(counts)
@@ -763,6 +783,9 @@ def smoothed_aggregation_setup(
             # Chain level: csr_k is already in this level's (host-RCM)
             # order, so the operator's internal space is the identity.
             lvl_A = bsg_from_csr(csr_k, reorder=False, device=device)
+        elif operator_format == "ell":
+            lvl_A = ell_from_csr(csr_k, dtype=dtype,
+                                 device=device).repad(n_pad_f)
         else:
             lvl_A = choose_operator(
                 csr_k, dtype=dtype,
@@ -821,7 +844,8 @@ def smoothed_aggregation_setup(
                     scale=scale_dev, A=lvl_A, n_pad_c=n_pad_c,
                 )
             R_op = FactoredRestriction(P=P_op)
-        elif isinstance(lvl_A, (DIAMatrix, StencilOperator)) or this_bsg:
+        elif (isinstance(lvl_A, (DIAMatrix, StencilOperator))
+              and factored_transfers) or this_bsg:
             # Factored transfers in the identity space: one selection (or a
             # brick repeat) plus a fine-level matvec.
             tval_pad = np.zeros(n_pad_f, dtype=np_dt)

@@ -163,7 +163,9 @@ def test_config_matches_jax():
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (["--partitions", "2"], "item 9"),
+        # The partitioned route is ported (``test_torch_parallel_cli.py``);
+        # on a structured mesh with AMG it takes JAX's slab engines.
+        (["--partitions", "2", "--precond", "amg"], "item 9b"),
     ],
 )
 def test_routes_not_ported_raise(box_file, tmp_path, extra, match):

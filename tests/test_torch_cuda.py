@@ -1,7 +1,9 @@
 """The port on the card: the hand-written kernels (sliced-ELL SpMV,
 pad-stencil, DIA, chunked sliced-ELL SpMV, fused Jacobi-PCG) against their
 plain PyTorch versions, and the solves through them against the same
-solves on the CPU.
+solves on the CPU; also each part's sliced-ELL launch of the partitioned
+operator (``parallel.BSGShardedOperator``) and partitioned Jacobi-CG on
+the card against the CPU's iterations.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -963,3 +965,72 @@ def test_structured_parts_on_the_card_equal_numpy(cuda_device):
     ref = sy.A.matvec(x)
     assert np.abs(y - ref).max() <= TOL["float64"] * np.abs(ref).max()
 
+
+
+def _partitioned(nparts, device, dtype=np.float32, op="bsg"):
+    """The refined 8^3 box over ``nparts`` parts (the CLI's partition), as
+    a partitioned operator on ``device``."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.csr import coo_to_csr
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        BSGShardedOperator,
+        ShardedOperator,
+        build_halo_plan,
+        make_device_mesh,
+        partition_graph,
+    )
+
+    sy = assemble_heat_system(_mesh())
+    A = sy.A
+    rows = np.repeat(np.arange(A.n_rows), A.row_lengths())
+    off = rows != A.indices
+    adj = coo_to_csr(rows[off], A.indices[off], np.ones(int(off.sum())),
+                     A.shape, sum_dups=False)
+    parts = partition_graph(adj, nparts,
+                            coords=sy.mesh.coords[sy.free_to_node])
+    plan = build_halo_plan(A, parts, nparts, dtype=dtype)
+    cls = BSGShardedOperator if op == "bsg" else ShardedOperator
+    return sy, cls.from_plan(plan, make_device_mesh(nparts, [device]))
+
+
+@pytest.mark.parametrize("nparts", [2, 4, 8])
+def test_sharded_parts_match_plain(cuda_device, nparts):
+    """Each part's kernel-1 launch of ``BSGShardedOperator`` against its
+    plain version; the halo rows past ``n_local`` exactly 0; one launch per
+    part per product; the partitioned product is the host CSR's."""
+    sy, op = _partitioned(nparts, cuda_device)
+    rng = np.random.default_rng(nparts)
+    x = torch.as_tensor(rng.normal(size=(nparts, op.n_local)),
+                        dtype=torch.float32, device=cuda_device)
+    xe = op.extended(x)
+    for p, blk in enumerate(op.parts):
+        assert blk.storage == "bfloat16"
+        y = bsg_spmv(blk, xe[p])
+        torch.cuda.synchronize()
+        assert _relerr(y, spmv_plain(blk, xe[p])) <= TOL["float32"]
+        assert not y[op.n_local:].any()
+    before = _kernels.SELL_SPMV.launches
+    xg = rng.normal(size=sy.n_free)
+    y = op.get_vector(op.matvec(op.put_vector(xg)))
+    assert _kernels.SELL_SPMV.launches == before + nparts
+    ref = sy.A.matvec(xg)
+    assert np.abs(y - ref).max() <= TOL["float32"] * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind", ["bsg", "ell"])
+def test_sharded_jacobi_cg_on_the_card_matches_cpu(cuda_device, kind):
+    """Partitioned Jacobi-CG in f32 to 1e-6 on the card (kernel 1 per part
+    for the sliced-ELL blocks) takes the CPU port's iterations within 1."""
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        sharded_cg_solve,
+    )
+
+    its = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sy, op = _partitioned(4, dev, op=kind)
+        b = op.put_vector(sy.b)
+        inv_d = op.put_vector(1.0 / np.where(sy.degree > 0, sy.degree, 1.0))
+        res = sharded_cg_solve(op, b, torch.zeros_like(b), precond_diag=inv_d,
+                               tol=1e-6, maxiter=2000)
+        assert res.converged
+        its.append(res.iterations)
+    assert abs(its[0] - its[1]) <= 1

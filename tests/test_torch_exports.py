@@ -19,7 +19,8 @@ import pytest
 JAX = "domain_decomposed_pde_solver_tpu"
 PORT = "domain_decomposed_pde_solver_tpu_torch"
 
-ITEM9 = "ROADMAP.md Queue 1, item 9 (multi-device)"
+ITEM9B = "ROADMAP.md Queue 1, item 9b (the structured slab engines)"
+ITEM9C = "ROADMAP.md Queue 1, item 9c (multi-process)"
 ITEM10 = "ROADMAP.md Queue 1, item 10 (the port's bench)"
 BY_DESIGN = "not ported by design (ROADMAP.md North star)"
 
@@ -32,22 +33,20 @@ NOT_PORTED = {
         "SplitELLMatrix": BY_DESIGN,
         "splitell_from_csr": BY_DESIGN,
     },
-    "parallel": {name: ITEM9 for name in (
-        "HaloPlan", "build_halo_plan",
-        "node_ownership_from_element_partition", "build_block_amg",
-        "build_block_ilu", "SlabDIAPlan", "SlabStencilOperator",
-        "build_slab_stencil", "slab_stencil_cg_solve", "SlabAMG",
-        "build_slab_amg", "slab_amg_cg_solve", "SlabPadPlan",
-        "SlabPadStencilOperator", "build_slab_pad_stencil",
-        "slab_pad_cg_solve", "SlabPadAMG", "build_slab_pad_amg",
-        "slab_pad_amg_cg_solve", "slab_pad_amg_refine_solve", "HaloAMG",
-        "build_halo_amg", "halo_amg_cg_solve", "initialize_multihost",
-        "multihost_slab_cg_solve", "put_global", "BSGShardedOperator",
-        "build_slab_plan", "slab_cg_solve", "SlabBrickPrecond",
-        "build_slab_brick_precond", "ShardedOperator", "make_device_mesh",
-        "sharded_cg_chunk", "sharded_cg_solve", "sharded_gmres_solve",
-        "sharded_power_method",
-    )},
+    "parallel": {
+        **{name: ITEM9B for name in (
+            "SlabDIAPlan", "SlabStencilOperator", "build_slab_stencil",
+            "slab_stencil_cg_solve", "SlabAMG", "build_slab_amg",
+            "slab_amg_cg_solve", "SlabPadPlan", "SlabPadStencilOperator",
+            "build_slab_pad_stencil", "slab_pad_cg_solve", "SlabPadAMG",
+            "build_slab_pad_amg", "slab_pad_amg_cg_solve",
+            "slab_pad_amg_refine_solve", "build_slab_plan", "slab_cg_solve",
+            "SlabBrickPrecond", "build_slab_brick_precond",
+        )},
+        **{name: ITEM9C for name in (
+            "initialize_multihost", "multihost_slab_cg_solve", "put_global",
+        )},
+    },
     "solvers": {},
     "solvers.precond": {},
     "utils": {

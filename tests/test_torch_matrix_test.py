@@ -6,7 +6,9 @@
   check iterations only, as JAX's is).
 - ``cli.matrix_test.main`` prints JAX's report lines; the numbers agree to
   8 significant digits (the same f64 iteration summed in another order).
-- ``--partitions 2`` raises ``NotImplementedError`` naming ROADMAP item 9.
+- ``--partitions 2`` runs the partitioned power method (held to JAX's in
+  ``test_torch_parallel_cli.py``); only a mesh that spans two devices
+  raises ``NotImplementedError``, naming ROADMAP item 9c.
 """
 
 import re
@@ -114,10 +116,20 @@ def test_cli_prints_jax_report_lines(tmp_path, capsys, extra):
 
 
 def test_cli_partitions_raise(tmp_path):
+    """``--partitions 2`` no longer raises: it runs over two parts on the
+    one device.  What still raises is a mesh over two devices."""
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        make_device_mesh,
+    )
+
     path = tmp_path / "box.exo"
     write_exodus(str(path), box_mesh(3, 3, 3, "TETRA4"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--input", str(path), "--cpu", "--partitions", "2"])
+    report = {}
+    assert main(["--input", str(path), "--cpu", "--partitions", "2"],
+                report=report) == 0
+    assert report["plan"].nparts == 2
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        make_device_mesh(2, ["cpu", "cuda:0"])
 
 
 def test_cli_missing_input_returns_1(tmp_path, capsys):

@@ -251,10 +251,16 @@ def test_cg_amg_iterations_match_jax(dims, case, dtype_name, slack):
 
 
 def test_unported_branches_raise():
-    """The distributed hierarchy builders' hook is still to be ported (the
-    structured branches, which raised here before, are ported and held to
-    JAX in ``test_torch_structured.py``)."""
+    """The distributed hierarchy builders' hook, which raised here before,
+    is ported (held to JAX in ``test_torch_parallel_precond.py``): it fills
+    one record per level.  An operator format the port does not have
+    raises."""
     sy, csr = _systems(MESH_DIMS[1])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        p_amg.smoothed_aggregation_setup(csr, level_info_out=[],
+    info = []
+    M = p_amg.smoothed_aggregation_setup(csr, level_info_out=info,
+                                         device="cpu")
+    assert len(info) == len(M.levels) >= 1
+    assert info[0]["n"] == csr.n_rows
+    with pytest.raises(ValueError, match="operator_format"):
+        p_amg.smoothed_aggregation_setup(csr, operator_format="dia",
                                          device="cpu")
