@@ -27,8 +27,12 @@ X.  The solve routes, chosen as JAX chooses them:
   snapshots, CG runs in chunks of ``--reportAfterIterations`` on one
   continuous recurrence.  As in JAX, ``--precond ilu0|ilut`` runs Jacobi
   there and ``--solver bicgstab`` runs CG.  A structured mesh with
-  ``--precond amg`` takes JAX's slab engines, not ported yet: it raises
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item (9b).
+  ``--precond amg`` (CG) takes the slab engines first, in JAX's order:
+  f32 on a CUDA device the global AMG over z-slabs with the pad-stencil
+  kernel on every slab (JAX: on a TPU), f64 with f32-exact values the
+  f64 refinement over those slabs, otherwise the global AMG over slab DIA
+  or lattice-stencil fine levels; when no slab hierarchy fits, the halo
+  route above.
 
 The solve runs on the card; ``--cpu`` runs it on the CPU.  ``--x64`` is
 accepted for JAX's command lines and changes nothing (``--dtype`` sets the
@@ -50,9 +54,6 @@ import sys
 from typing import Optional
 
 import numpy as np
-
-_SLAB = "the structured slab engines (ROADMAP.md, Queue 1, item 9b)"
-
 
 def _check_finite(x_host, relres) -> None:
     """``--debug-nans``: raise on NaN or Inf in the answer or its residual."""
@@ -334,14 +335,18 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
 
     nparts = cfg.partitions
     np_dt = np.float64 if dtype == torch.float64 else np.float32
-    # Structured meshes with AMG take JAX's slab engines (the global
-    # hierarchy over slabs); the port has none yet, so it refuses rather
-    # than fall through to another algorithm.
+    # Structured meshes with AMG take the slab engines (the global
+    # hierarchy over z-slabs); a build that does not fit falls through to
+    # the halo route, as in JAX.
     if (cfg.precond == "amg" and cfg.solver != "gmres" and op_dims is not None
             and int(np.prod(op_dims)) == system.A.n_rows):
-        raise NotImplementedError(
-            f"--partitions {nparts} --precond amg on a structured mesh: "
-            f"{_SLAB}")
+        routed = _solve_slab(cfg, system, x0_host, dtype, op_dims, device,
+                             timer, out)
+        if routed is not None:
+            result, x_host = routed
+            if snapshot_cb is not None:
+                snapshot_cb(int(result.iterations), x_host)
+            return result, x_host
     A = system.A
     with timer.phase("solve.partition"):
         rows = np.repeat(np.arange(A.n_rows), A.row_lengths())
@@ -446,6 +451,66 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
                 break
         result = dataclasses.replace(result, iterations=total)
         return result, op.get_vector(result.x)
+
+
+def _solve_slab(cfg, system, x0_host, dtype, op_dims, device, timer, out):
+    """The structured ``--partitions N --precond amg`` route, in JAX's
+    branch order (``cli/solve.py:411-502`` there): f32 on a CUDA device
+    (JAX: on a TPU) the slab-pad AMG, kernel 3 on every slab; f64 with
+    f32-exact values the refinement over the slabs; else, or when those
+    builds do not fit, the global AMG over slab DIA (or lattice-stencil)
+    fine levels.  Returns ``(result, x_host)``, or None when no slab
+    hierarchy fits (the caller takes the halo route)."""
+    import torch
+
+    from ..parallel.slab import SlabStencilOperator
+    from ..parallel.slabamg import build_slab_amg, slab_amg_cg_solve
+    from ..parallel.slabpadamg import build_slab_pad_amg, slab_pad_amg_cg_solve
+    from ..parallel.slabpadmixed import slab_pad_amg_refine_solve
+    from ..solvers.cg import CGResult
+
+    A, nparts = system.A, cfg.partitions
+    f32_exact = np.all(A.data.astype(np.float32).astype(np.float64) == A.data)
+    pad_route = ((dtype == torch.float32 and device.type == "cuda")
+                 or (dtype == torch.float64 and f32_exact))
+    if pad_route:
+        with timer.phase("solve.precond"):
+            spamg = build_slab_pad_amg(A, op_dims, nparts, device=device)
+        if spamg is not None:
+            out.update(operator=spamg.A, precond=spamg,
+                       plan=spamg.plan)
+            if cfg.verbose:
+                print(f"slab-pad AMG over {nparts} slabs of {spamg.plan.L} "
+                      f"layers (kernel 3 per slab)")
+            with timer.phase("solve.iterate"):
+                if dtype == torch.float32:
+                    x_host, result = slab_pad_amg_cg_solve(
+                        spamg, system.b.astype(np.float32),
+                        x0_host.astype(np.float32), tol=cfg.tolerance,
+                        maxiter=cfg.iterations)
+                    return result, x_host
+                mr = slab_pad_amg_refine_solve(
+                    spamg, b=system.b.astype(np.float64),
+                    x0=x0_host.astype(np.float64), tol=cfg.tolerance,
+                    inner_maxiter=cfg.iterations)
+            out["mixed"] = mr
+            return CGResult(x=mr.x, iterations=mr.inner_iterations,
+                            relres=mr.relres, converged=mr.converged), mr.x
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    with timer.phase("solve.precond"):
+        samg = build_slab_amg(A, op_dims, nparts, dtype=np_dt, device=device)
+    if samg is None:
+        return None
+    out.update(precond=samg, plan=samg.plan)
+    if cfg.verbose:
+        fine = ("lattice stencil" if isinstance(samg.A, SlabStencilOperator)
+                else "DIA")
+        print(f"slab AMG over {nparts} slabs ({fine} fine level)")
+    with timer.phase("solve.iterate"):
+        x_host, result = slab_amg_cg_solve(
+            samg, system.b.astype(np_dt), x0_host.astype(np_dt),
+            tol=cfg.tolerance, maxiter=cfg.iterations)
+    return result, x_host
 
 
 def _gmres_route(cfg, A, b, x0, precond, write):

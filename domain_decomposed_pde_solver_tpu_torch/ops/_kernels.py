@@ -13,7 +13,9 @@ Each launch function checks what the kernel cannot check itself (device,
 dtype, shape, contiguity), launches on ``torch.cuda.current_stream()``,
 raises if ``cudaGetLastError()`` reports a failed launch, and counts its
 launches in plain integers: :attr:`Kernel.launches` in all, and
-:attr:`Kernel.by_entry` per C entry point (one per instantiation).
+:attr:`Kernel.by_entry` per C entry point (one per instantiation), and
+:attr:`Kernel.by_form` per form of a launch (the pad-stencil kernel's
+``"window"`` launches on a z-slab).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ __all__ = [
     "fused_cg_launch",
     "kernel_build_dir",
     "pad_stencil_launch",
+    "pad_stencil_window_launch",
     "sell_chunked_spmv",
     "sell_spmv",
 ]
@@ -102,6 +105,7 @@ class Kernel:
         self.flags = [f"-D{k}={v}" for k, v in (defines or {}).items()]
         self.launches = 0
         self.by_entry: Dict[str, int] = {e: 0 for e in self.entries}
+        self.by_form: Dict[str, int] = {}
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
@@ -110,6 +114,7 @@ class Kernel:
         """Set every launch count to 0."""
         self.launches = 0
         self.by_entry = {e: 0 for e in self.entries}
+        self.by_form = {}
 
     def library(self) -> ctypes.CDLL:
         with self._lock:
@@ -150,14 +155,17 @@ class Kernel:
             f.argtypes = list(argtypes)
         return lib
 
-    def launch(self, entry: str, *args) -> None:
-        """Call ``entry``, raise on a failed launch, count it."""
+    def launch(self, entry: str, *args, form: Optional[str] = None) -> None:
+        """Call ``entry``, raise on a failed launch, count it (and under
+        ``form`` in :attr:`by_form` when one is named)."""
         code = getattr(self.library(), entry)(*args)
         if code != 0:
             msg = self.library().ddps_error_string(code).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({code})")
         self.launches += 1
         self.by_entry[entry] += 1
+        if form is not None:
+            self.by_form[form] = self.by_form.get(form, 0) + 1
 
 
 _SELL_ARGS = [_P] * 5 + [_I64, _I64, _P]
@@ -602,29 +610,28 @@ def dia_floor_launch(kind: str, x: torch.Tensor, shape: DiaLaunch) -> None:
 _PAD_MAX_TAPS = 27  # 3 x 3 x 3 lattice neighbourhood
 
 
-def pad_stencil_launch(A, x: torch.Tensor, z_layers: int = 0) -> torch.Tensor:
-    """Launch the pad-stencil SpMV of a ``PadStencilOperator`` on a CUDA
-    vector of its padded space; returns y in ``x``'s dtype.
-
-    ``z_layers``: layers of z each block marches; 0 takes the kernel's
-    choice (from the grid and the occupancy).  Only measurements and tests
-    of the kernel pass anything else."""
+def _pad_checks(x: torch.Tensor, corr: torch.Tensor, myp: int, mxp: int,
+                n: int, z_layers: int) -> torch.device:
     dev = _require_cuda(x, "pad_stencil")
-    corr = A.corr
     if corr.device != dev:
         raise ValueError(f"corr is on {corr.device}, x on {dev}")
-    if x.numel() != A.n_pad or corr.numel() != A.n_pad:
-        raise ValueError(f"vectors must have {A.n_pad} entries")
+    if x.numel() != n or corr.numel() != n:
+        raise ValueError(f"vectors must have {n} entries")
     if not corr.is_contiguous():
         raise ValueError("corr must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the kernel copies it "
                          "in 16-byte vectors)")
-    if A.mxp % 128 or A.myp % 8:
-        raise ValueError(f"padded extents ({A.myp}, {A.mxp}) are not "
+    if mxp % 128 or myp % 8:
+        raise ValueError(f"padded extents ({myp}, {mxp}) are not "
                          f"multiples of (8, 128)")
     if z_layers < 0:
         raise ValueError(f"z_layers must be >= 0, got {z_layers}")
+    return dev
+
+
+def _pad_launch(A, x, corr, y, mz: int, Z: int, z_layers: int,
+                form: Optional[str]) -> None:
     entry = f"ddps_pad_stencil_{_NAME.get(x.dtype)}_{_NAME.get(corr.dtype)}"
     if entry not in PAD_STENCIL.entries:
         raise TypeError(
@@ -633,13 +640,53 @@ def pad_stencil_launch(A, x: torch.Tensor, z_layers: int = 0) -> torch.Tensor:
     taps, start, quads = A.kernel_tables()
     if not 0 < taps.shape[0] <= _PAD_MAX_TAPS:
         raise ValueError(f"{taps.shape[0]} taps (the kernel takes 1 to 27)")
-    mx, my, mz = A.dims
-    y = torch.empty_like(x)
+    mx, my = A.dims[0], A.dims[1]
+    dev = x.device
     with torch.cuda.device(dev):
         PAD_STENCIL.launch(
             entry, x.data_ptr(), corr.data_ptr(), y.data_ptr(),
             taps.ctypes.data, taps.shape[0], start.ctypes.data,
-            start.size - 1, quads.ctypes.data, mx, my, mz, A.myp, A.mxp,
-            A.Z, int(z_layers), _stream(dev),
+            start.size - 1, quads.ctypes.data, mx, my, int(mz), A.myp, A.mxp,
+            int(Z), int(z_layers), _stream(dev), form=form,
         )
+
+
+def pad_stencil_launch(A, x: torch.Tensor, z_layers: int = 0) -> torch.Tensor:
+    """Launch the pad-stencil SpMV of a ``PadStencilOperator`` on a CUDA
+    vector of its padded space; returns y in ``x``'s dtype.
+
+    ``z_layers``: layers of z each block marches; 0 takes the kernel's
+    choice (from the grid and the occupancy).  Only measurements and tests
+    of the kernel pass anything else."""
+    _pad_checks(x, A.corr, A.myp, A.mxp, A.n_pad, z_layers)
+    y = torch.empty_like(x)
+    _pad_launch(A, x, A.corr, y, A.dims[2], A.Z, z_layers, None)
     return y
+
+
+def pad_stencil_window_launch(A, x: torch.Tensor, corr: torch.Tensor,
+                              mz: int, out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Launch the pad-stencil SpMV on one window of a z-slab: ``x`` and
+    ``corr`` hold ``Z = x.numel() / (myp * mxp)`` whole layers of the
+    padded space (a slab's owned layers between its two halo layers), and
+    the product is written for the layers ``1 <= z <= mz`` of the window,
+    0 everywhere else (``mz``: the slab's last real layer, at most ``Z -
+    2``).  ``A`` supplies the taps (``kernel_tables()``), ``dims`` (mx, my)
+    and the padded extents ``myp`` and ``mxp``.  Writes ``out`` (a
+    contiguous window of ``x``'s size and dtype) when given; returns y.
+    Counted as a launch of the window form (``Kernel.by_form["window"]``)."""
+    layer = A.myp * A.mxp
+    Z = x.numel() // layer
+    _pad_checks(x, corr, A.myp, A.mxp, Z * layer, 0)
+    if not 0 <= mz <= Z - 2:
+        raise ValueError(f"mz = {mz} outside [0, {Z - 2}] for a window of "
+                         f"{Z} layers")
+    if out is None:
+        out = torch.empty_like(x)
+    elif (out.dtype != x.dtype or out.device != x.device
+          or out.numel() != x.numel() or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous window of x's size, "
+                         "dtype and device")
+    _pad_launch(A, x, corr, out, mz, Z, 0, "window")
+    return out

@@ -38,9 +38,12 @@ from .stencil import StencilOperator, _pattern_field, stencil_core
 
 __all__ = [
     "PadStencilOperator",
+    "kernel_tables",
     "pad_stencil_from_parts",
     "pad_stencil_from_stencil",
     "pad_stencil_spmv",
+    "pad_window_reference",
+    "pad_window_spmv",
 ]
 
 
@@ -183,19 +186,25 @@ class PadStencilOperator:
         return y + self.corr.to(x_padded.dtype) * x_padded
 
     def kernel_tables(self):
-        """Host tables the kernel launch packs into its parameters: taps
-        ``(dx, dy, dz)`` in group order (int32), each group's first tap
-        (int32, length n_groups + 1) and ``quads`` (float32)."""
+        """Host tables the kernel launch packs into its parameters
+        (:func:`kernel_tables`), built once."""
         if self._tables is None:
-            order = [d for g in self.groups for d in g]
-            taps = np.array([self.taps[d] for d in order],
-                            dtype=np.int32).reshape(-1, 3)
-            start = np.zeros(len(self.groups) + 1, dtype=np.int32)
-            np.cumsum([len(g) for g in self.groups], out=start[1:])
-            quads = np.ascontiguousarray(self.quads.cpu().numpy(),
-                                         dtype=np.float32)
-            self._tables = (np.ascontiguousarray(taps), start, quads)
+            self._tables = kernel_tables(self.taps, self.groups, self.quads)
         return self._tables
+
+
+def kernel_tables(taps, groups, quads):
+    """The pad-stencil kernel's host tables: taps ``(dx, dy, dz)`` in group
+    order (int32), each group's first tap (int32, length n_groups + 1) and
+    the per-group pattern scalars ``quads`` (float32)."""
+    order = [d for g in groups for d in g]
+    tap_arr = np.array([taps[d] for d in order], dtype=np.int32).reshape(-1, 3)
+    start = np.zeros(len(groups) + 1, dtype=np.int32)
+    np.cumsum([len(g) for g in groups], out=start[1:])
+    if isinstance(quads, torch.Tensor):
+        quads = quads.cpu().numpy()
+    quads = np.ascontiguousarray(quads, dtype=np.float32)
+    return np.ascontiguousarray(tap_arr), start, quads
 
 
 def pad_stencil_spmv(A: PadStencilOperator,
@@ -219,6 +228,50 @@ def pad_stencil_spmv(A: PadStencilOperator,
     from ._kernels import pad_stencil_launch
 
     return pad_stencil_launch(A, x_padded.contiguous())
+
+
+def pad_window_reference(A, x_win: torch.Tensor, corr_win: torch.Tensor,
+                         mz: int) -> torch.Tensor:
+    """Plain PyTorch product on one window of a z-slab (the plain version
+    of :func:`.._kernels.pad_stencil_window_launch`), in the dtype of
+    ``x_win``: the window's layers ``1..mz`` are the rows, its layers 0 and
+    ``mz + 1`` their z-neighbours, and every other slot of the result is
+    0.  ``A`` supplies the stencil (``pats``, ``const_vals``, ``taps``,
+    ``groups``, ``group_const``, ``period``), ``dims`` (mx, my) and the
+    padded extents."""
+    mx, my = A.dims[0], A.dims[1]
+    x3 = x_win.reshape(-1, A.myp, A.mxp)
+    y3 = torch.zeros_like(x3)
+    if mz > 0:
+        inner = x3[:, 1 : my + 1, :mx]
+        y = stencil_core(
+            inner[1 : mz + 1], inner[0], inner[mz + 1], A.period, A.taps,
+            A.groups, A.group_const, A.const_vals, A.pats, x_win.dtype,
+        )
+        c = corr_win.reshape(x3.shape)[1 : mz + 1, 1 : my + 1, :mx]
+        y3[1 : mz + 1, 1 : my + 1, :mx] = y + c.to(x_win.dtype) * inner[
+            1 : mz + 1]
+    return y3.reshape(-1)
+
+
+def pad_window_spmv(A, x_win: torch.Tensor, corr_win: torch.Tensor, mz: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The product on one window of a z-slab (see
+    :func:`pad_window_reference`): the pad-stencil kernel on a CUDA tensor,
+    the plain version on a CPU tensor (written to ``out`` when given)."""
+    if x_win.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported vector dtype {x_win.dtype}")
+    if x_win.device.type == "cpu":
+        y = pad_window_reference(A, x_win, corr_win, mz)
+        if out is None:
+            return y
+        out.copy_(y)
+        return out
+    if x_win.device.type != "cuda":
+        raise ValueError(f"no pad-stencil product for device {x_win.device}")
+    from ._kernels import pad_stencil_window_launch
+
+    return pad_stencil_window_launch(A, x_win, corr_win, mz, out=out)
 
 
 def _build_group_quads(period: int, pats_in, groups) -> np.ndarray:

@@ -3,11 +3,15 @@ and solvers.
 
 The host partitioners and the block-per-partition mesh writer are numpy
 copies of the JAX package's modules.  The domain-decomposed solve runs
-every part of a halo plan on one device, one controller over P parts
-(``parallel/sharded.py``): the sharded operators and Krylov solvers, the
-block-Schwarz AMG and ILU preconditioners and the global halo AMG.  The
-structured slab engines (``ROADMAP.md``, Queue 1, item 9b) and the
-multi-process path (item 9c) are not ported yet."""
+every part on one device, one controller over P parts
+(``parallel/sharded.py``): over a general halo plan, the sharded
+operators and Krylov solvers, the block-Schwarz AMG and ILU
+preconditioners and the global halo AMG; over z-slabs of a structured
+grid, the slab DIA, lattice-stencil and pad-stencil (kernel 3 per slab)
+operators, the brick-Schwarz preconditioner, the global slab AMG on
+either fine level and the f64 refinement over the slabs.  The
+multi-process path (``ROADMAP.md``, Queue 1, item 9c) is not ported
+yet."""
 
 from .decompose import decompose_mesh, write_decomposition
 from .halo import HaloPlan, build_halo_plan
@@ -25,6 +29,24 @@ from .partition import (
 )
 from .schwarz import build_block_amg
 from .schwarzilu import build_block_ilu
+from .slab import (
+    SlabDIAPlan,
+    SlabStencilOperator,
+    build_slab_plan,
+    build_slab_stencil,
+    slab_cg_solve,
+    slab_stencil_cg_solve,
+)
+from .slabamg import SlabAMG, build_slab_amg, slab_amg_cg_solve
+from .slabbrick import SlabBrickPrecond, build_slab_brick_precond
+from .slabpad import (
+    SlabPadPlan,
+    SlabPadStencilOperator,
+    build_slab_pad_stencil,
+    slab_pad_cg_solve,
+)
+from .slabpadamg import SlabPadAMG, build_slab_pad_amg, slab_pad_amg_cg_solve
+from .slabpadmixed import slab_pad_amg_refine_solve
 from .sharded import (
     BSGShardedOperator,
     ShardedOperator,
@@ -54,6 +76,25 @@ __all__ = [
     "HaloAMG",
     "build_halo_amg",
     "halo_amg_cg_solve",
+    "SlabDIAPlan",
+    "SlabStencilOperator",
+    "build_slab_plan",
+    "build_slab_stencil",
+    "slab_cg_solve",
+    "slab_stencil_cg_solve",
+    "SlabAMG",
+    "build_slab_amg",
+    "slab_amg_cg_solve",
+    "SlabBrickPrecond",
+    "build_slab_brick_precond",
+    "SlabPadPlan",
+    "SlabPadStencilOperator",
+    "build_slab_pad_stencil",
+    "slab_pad_cg_solve",
+    "SlabPadAMG",
+    "build_slab_pad_amg",
+    "slab_pad_amg_cg_solve",
+    "slab_pad_amg_refine_solve",
     "BSGShardedOperator",
     "ShardedOperator",
     "make_device_mesh",

@@ -1,0 +1,295 @@
+"""z-slab partition of the pad-stencil operator: kernel 3 per slab.
+
+Counterpart of the JAX package's ``parallel/slabpad.py``.  Each part owns
+a contiguous block of ``L`` whole z-layers of the padded ``(Z, myp, mxp)``
+lattice; the halo is one z-layer per neighbour (the stencil's ``|dz| <=
+1``), and a part's product is the pad-stencil kernel (``csrc/
+pad_stencil.cu``) run unchanged on its window
+
+    [lo_halo | L owned layers | hi_halo]     (Z_local = L + 2 layers)
+
+with the window's z-validity bound ``mz = min(L, mz_global - p*L)``: the
+kernel writes the layers ``1..mz`` and 0 everywhere else, so the last
+slab's layers past the grid (dead layers) and every pad slot stay 0.
+
+The slab rules are JAX's, kept exactly so that plans equal its arrays: L
+is even (global layer ``p*L + l`` has the parity of local layer ``l``, so
+the kernel's parity from the local layer is the global one), ``L + 2 ≡ 0
+(mod bz)``, ``L ≡ 0 (mod z_align)``, ``L >= 2*bz - 2``; no plan when a
+trailing slab would own no layer.  A window starts ``(L + 2) * myp * mxp``
+slots after the previous one, and ``mxp`` is a multiple of 128, so every
+window is 16-byte aligned for the kernel's vector copies.
+
+One controller drives the P parts on one device (``parallel/sharded.py``):
+a slab vector is the owned-only ``(P, L*myp*mxp)`` tensor (pad slots 0,
+so dots need no mask), the exchange builds every part's window with one
+strided copy of the owned layers and two strip copies
+(:meth:`SlabPadStencilOperator.extended`), then one launch per part.  On
+a CPU tensor each window takes the kernel's plain version
+(:func:`..ops.stencil_kernel.pad_window_reference`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.stencil_kernel import (
+    PadStencilOperator,
+    kernel_tables,
+    pad_window_spmv,
+)
+from ..solvers.cg import cg_solve
+from ..solvers.precond.jacobi import DiagonalPreconditioner
+from .sharded import DeviceMesh, psum_dot
+from .slab import plan_mesh
+
+__all__ = [
+    "SlabPadPlan",
+    "SlabPadStencilOperator",
+    "build_slab_pad_stencil",
+    "slab_pad_cg_solve",
+]
+
+
+@dataclasses.dataclass
+class SlabPadStencilOperator:
+    """The slab pad-stencil product over all parts, on one device.
+
+    ``corr_ext`` is each slab's diagonal correction in its window layout
+    (zero guard layers where the halos sit), ``(P, (L+2)*myp*mxp)`` in the
+    operator's storage (bfloat16 when exact); ``zlim[p]`` the last layer
+    of window p the kernel writes.  The other fields have
+    :class:`..ops.stencil_kernel.PadStencilOperator` semantics on the
+    local dims ``(mx, my, L)``.  ``matvec`` takes and returns ``(P,
+    L*myp*mxp)`` in float32 or float64 (the f64 residual of
+    :mod:`.slabpadmixed` runs the kernel's double instance)."""
+
+    pats: torch.Tensor  # (ndiags, p, p, p) f32: the plain version's
+    const_vals: torch.Tensor  # (n_groups,) f32
+    quads: np.ndarray  # (n_groups, 8) f32: the kernel's pattern scalars
+    corr_ext: torch.Tensor  # (P, (L+2)*myp*mxp)
+    zlim: Tuple[int, ...]  # (P,) valid layers of each window
+    taps: Tuple[Tuple[int, int, int], ...]
+    groups: Tuple[Tuple[int, ...], ...]
+    group_const: Tuple[bool, ...]
+    dims_local: Tuple[int, int, int]  # (mx, my, L)
+    period: int
+    myp: int
+    mxp: int
+    bz: int
+    _tables: Optional[tuple] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def dims(self) -> Tuple[int, int, int]:
+        return self.dims_local
+
+    @property
+    def L(self) -> int:
+        return self.dims_local[2]
+
+    @property
+    def nparts(self) -> int:
+        return self.corr_ext.shape[0]
+
+    @property
+    def n_pad(self) -> int:
+        """Owned (per-part) vector length."""
+        return self.L * self.myp * self.mxp
+
+    @property
+    def n_rows(self) -> int:
+        return self.n_pad
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.float32
+
+    @property
+    def device(self) -> torch.device:
+        return self.corr_ext.device
+
+    def kernel_tables(self):
+        if self._tables is None:
+            self._tables = kernel_tables(self.taps, self.groups, self.quads)
+        return self._tables
+
+    def extended(self, x: torch.Tensor) -> torch.Tensor:
+        """The halo exchange: ``(P, L*layer)`` -> every part's window
+        ``(P, (L+2)*layer)``, its owned layers between part p - 1's last
+        layer and part p + 1's first (zeros at the ring ends)."""
+        P_, L = x.shape[0], self.L
+        layer = self.myp * self.mxp
+        x3 = x.reshape(P_, L, layer)
+        xe = x.new_empty((P_, L + 2, layer))
+        xe[:, 1: L + 1] = x3
+        xe[0, 0] = 0
+        xe[P_ - 1, L + 1] = 0
+        if P_ > 1:
+            xe[1:, 0] = x3[:-1, L - 1]
+            xe[:-1, L + 1] = x3[1:, 0]
+        return xe.reshape(P_, -1)
+
+    def window_products(self, xe: torch.Tensor) -> torch.Tensor:
+        """Every part's window product (one kernel launch per part on the
+        card): ``(P, (L+2)*layer)`` -> the same shape."""
+        ye = torch.empty_like(xe)
+        for p in range(xe.shape[0]):
+            pad_window_spmv(self, xe[p], self.corr_ext[p], self.zlim[p],
+                            out=ye[p])
+        return ye
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        layer = self.myp * self.mxp
+        ye = self.window_products(self.extended(x))
+        return ye[:, layer: (self.L + 1) * layer]
+
+
+@dataclasses.dataclass
+class SlabPadPlan:
+    """The P-way z-slab split of a pad-stencil operator: JAX's fields, the
+    device arrays as tensors on the operator's device, plus the patterns
+    the plain version reads."""
+
+    nparts: int
+    L: int  # owned layers per part
+    dims: Tuple[int, int, int]  # global (mx, my, mz)
+    myp: int
+    mxp: int
+    bz: int
+    quads: np.ndarray  # (n_groups, 8) f32
+    zlims: np.ndarray  # (nparts, 1, 2) int32
+    corr_ext: torch.Tensor  # (nparts, (L+2)*myp, mxp) f32 or bf16
+    inv_diag: torch.Tensor  # (nparts, L*myp*mxp) f32 (pad slots 1.0)
+    meta: dict  # taps/groups/group_const/period
+    pats: torch.Tensor  # (ndiags, p, p, p) f32
+    const_vals: torch.Tensor  # (n_groups,) f32
+
+    @property
+    def slab(self) -> int:
+        return self.L * self.myp * self.mxp
+
+    @property
+    def device(self) -> torch.device:
+        return self.corr_ext.device
+
+    def scatter_vector(self, x: np.ndarray, dtype=np.float32) -> np.ndarray:
+        """Logical lexicographic ``(n_rows,)`` -> owned stacked ``(P,
+        slab)`` (host)."""
+        mx, my, mz = self.dims
+        out = np.zeros((self.nparts * self.L, self.myp, self.mxp),
+                       dtype=dtype)
+        out[:mz, 1: my + 1, :mx] = np.asarray(x, dtype=dtype).reshape(
+            mz, my, mx)
+        return out.reshape(self.nparts, self.slab)
+
+    def put_vector(self, x: np.ndarray, dtype=np.float32) -> torch.Tensor:
+        """:meth:`scatter_vector` on the plan's device."""
+        return torch.from_numpy(self.scatter_vector(x, dtype)).to(self.device)
+
+    def gather_vector(self, x_parts) -> np.ndarray:
+        if isinstance(x_parts, torch.Tensor):
+            x_parts = x_parts.detach().cpu().numpy()
+        mx, my, mz = self.dims
+        x3 = np.asarray(x_parts).reshape(self.nparts * self.L, self.myp,
+                                         self.mxp)
+        return np.ascontiguousarray(x3[:mz, 1: my + 1, :mx]).reshape(-1)
+
+    def make_ops(self) -> SlabPadStencilOperator:
+        """The operator over all parts, on the plan's device."""
+        mx, my, _ = self.dims
+        return SlabPadStencilOperator(
+            pats=self.pats,
+            const_vals=self.const_vals,
+            quads=self.quads,
+            corr_ext=self.corr_ext.reshape(self.nparts, -1),
+            zlim=tuple(int(z) for z in self.zlims[:, 0, 1]),
+            dims_local=(mx, my, self.L),
+            myp=self.myp,
+            mxp=self.mxp,
+            bz=self.bz,
+            **self.meta,
+        )
+
+
+def slab_layers(mz: int, nparts: int, bz: int, z_align: int = 1):
+    """JAX's slab rule: the smallest L covering ``mz / nparts`` with L
+    even, ``L + 2 ≡ 0 (mod bz)``, ``L ≡ 0 (mod z_align)`` and ``L >= 2*bz
+    - 2``; None when no such L exists or a trailing slab would own no
+    layer."""
+    L_min = max(2 * bz - 2, -(-mz // nparts))
+    k0 = -(-(L_min + 2) // bz)
+    z_align = max(int(z_align), 1)
+    L = None
+    # k*bz - 2 cycles through residues mod z_align with period at most
+    # z_align; scan one cycle and a little more.
+    for k in range(k0, k0 + z_align + 2):
+        cand = k * bz - 2
+        if cand % 2 == 0 and cand % z_align == 0:
+            L = cand
+            break
+    if L is None or L < 2:
+        return None
+    if nparts > 1 and (nparts - 1) * L >= mz:
+        return None
+    return L
+
+
+def build_slab_pad_stencil(A: PadStencilOperator, nparts: int,
+                           z_align: int = 1) -> Optional[SlabPadPlan]:
+    """Split a :class:`PadStencilOperator` into P z-layer slabs on its
+    device; None when the grid has too few layers for P slabs or no L
+    satisfies the rules (:func:`slab_layers`)."""
+    mx, my, mz = A.dims
+    bz = A.bz
+    L = slab_layers(mz, nparts, bz, z_align)
+    if L is None:
+        return None
+    myp, mxp = A.myp, A.mxp
+    layer = myp * mxp
+
+    # The correction keeps the operator's storage (bfloat16 when exact).
+    corr3 = A.corr.reshape(A.Z, myp, mxp)
+    corr_full = corr3.new_zeros((nparts * L, myp, mxp))
+    corr_full[:mz] = corr3[1: mz + 1]
+    corr_ext = corr3.new_zeros((nparts, L + 2, myp, mxp))
+    corr_ext[:, 1: L + 1] = corr_full.reshape(nparts, L, myp, mxp)
+
+    zlims = np.zeros((nparts, 1, 2), np.int32)
+    for p_i in range(nparts):
+        zlims[p_i, 0] = (1, int(np.clip(mz - p_i * L, 0, L)))
+
+    d = A.diagonal_padded(fill=1.0).to(torch.float32).reshape(
+        A.Z, myp, mxp)[1: mz + 1]
+    d_full = torch.ones((nparts * L, myp, mxp), dtype=torch.float32,
+                        device=d.device)
+    d_full[:mz] = torch.where(d != 0, d, torch.ones_like(d))
+    inv_diag = (1.0 / d_full).reshape(nparts, L * layer)
+
+    meta = dict(taps=A.taps, groups=A.groups, group_const=A.group_const,
+                period=A.period)
+    return SlabPadPlan(
+        nparts=nparts, L=L, dims=A.dims, myp=myp, mxp=mxp, bz=bz,
+        quads=A.quads.cpu().numpy().astype(np.float32), zlims=zlims,
+        corr_ext=corr_ext.reshape(nparts, (L + 2) * myp, mxp),
+        inv_diag=inv_diag, meta=meta,
+        pats=A.pats.to(torch.float32), const_vals=A.const_vals.to(
+            torch.float32),
+    )
+
+
+def slab_pad_cg_solve(plan: SlabPadPlan, b: np.ndarray, x0: np.ndarray, *,
+                      mesh: Optional[DeviceMesh] = None, tol: float = 1e-12,
+                      maxiter: int = 1000, jacobi: bool = True):
+    """CG over the slabs with kernel 3 as each part's product, float32, on
+    the plan's device (``mesh``, if given, must name it).  Returns
+    ``(x_host, CGResult)``."""
+    plan_mesh(plan, mesh)
+    op = plan.make_ops()
+    M = DiagonalPreconditioner(plan.inv_diag) if jacobi else None
+    res = cg_solve(op, plan.put_vector(b), plan.put_vector(x0), precond=M,
+                   tol=tol, maxiter=maxiter, dot=psum_dot)
+    return plan.gather_vector(res.x), res

@@ -9,10 +9,13 @@ operator's permutation (``np.asarray(A_jax.perm)``) and its value storage
 offsets and diagonals; :func:`pad_stencil_from_parts` takes the JAX
 package's host stencil decomposition (``stencil_parts_from_packed``) as it
 is, and the ``parts`` of JAX's ``structured_box_parts`` (``device=True``
-ones download through ``np.asarray``); and
+ones download through ``np.asarray``);
 :func:`ilu_from_numpy` takes a JAX ``ILU0Preconditioner``'s solve-ordered
-factor arrays, so both packages apply identical factors.  Nothing here
-imports the JAX package.
+factor arrays, so both packages apply identical factors; and
+:func:`slab_dia_plan_from_numpy` and :func:`slab_pad_plan_from_numpy`
+adopt a JAX ``SlabDIAPlan`` or ``SlabPadPlan`` (their numpy fields), so
+the port's slab engines run on JAX's exact plan.  Nothing here imports
+the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from ..ops.bsg import BSGMatrix, bsg_from_csr
 from ..ops.csr import CSRMatrix
 from ..ops.dia import DIAMatrix
 from ..ops.stencil_kernel import pad_stencil_from_parts
+from ..parallel.slab import SlabDIAPlan
+from ..parallel.slabpad import SlabPadPlan
 from ..solvers.precond.ilu import ilu_from_arrays as ilu_from_numpy
 from .device import resolve_device
 
@@ -38,6 +43,8 @@ __all__ = [
     "ilu_from_numpy",
     "operator_from_csr",
     "pad_stencil_from_parts",
+    "slab_dia_plan_from_numpy",
+    "slab_pad_plan_from_numpy",
 ]
 
 
@@ -110,4 +117,44 @@ def dia_from_numpy(offsets, data, n_rows: int, compute_dtype: str = "",
         offsets=tuple(int(o) for o in np.asarray(offsets).reshape(-1)),
         n_rows=int(n_rows),
         compute_dtype=compute_dtype,
+    )
+
+
+def slab_dia_plan_from_numpy(nparts: int, n: int, slab: int, halo: int,
+                             offsets, data) -> SlabDIAPlan:
+    """A port :class:`SlabDIAPlan` from a slab DIA plan's fields (JAX's
+    ``SlabDIAPlan``: ``data`` ``(P, ndiags, slab)``), copied."""
+    return SlabDIAPlan(
+        nparts=int(nparts), n=int(n), slab=int(slab), halo=int(halo),
+        offsets=tuple(int(o) for o in np.asarray(offsets).reshape(-1)),
+        data=np.array(data),
+    )
+
+
+def slab_pad_plan_from_numpy(nparts: int, L: int, dims, myp: int, mxp: int,
+                             bz: int, quads, zlims, corr_ext, inv_diag,
+                             meta: dict, pats, const_vals,
+                             corr_storage: str = "float32",
+                             device=None) -> SlabPadPlan:
+    """A port :class:`SlabPadPlan` on ``device`` (default: the card) from
+    a slab-pad plan's fields (JAX's ``SlabPadPlan``) and the patterns of
+    the operator it split (``pats``, ``const_vals``: the plain version's
+    stencil).  ``corr_ext`` comes as float32 values, stored in
+    ``corr_storage`` (``"bfloat16"`` where JAX's plan holds bfloat16: the
+    values are exact there); ``meta`` keeps ``taps``, ``groups``,
+    ``group_const`` and ``period`` (JAX's ``group_kind`` is the TPU
+    kernel's and is dropped)."""
+    dev = resolve_device(device)
+    corr = torch.from_numpy(np.ascontiguousarray(corr_ext, np.float32))
+    return SlabPadPlan(
+        nparts=int(nparts), L=int(L), dims=tuple(int(v) for v in dims),
+        myp=int(myp), mxp=int(mxp), bz=int(bz),
+        quads=np.array(quads, dtype=np.float32),
+        zlims=np.array(zlims, dtype=np.int32),
+        corr_ext=corr.to(getattr(torch, corr_storage)).to(dev),
+        inv_diag=torch.from_numpy(np.array(inv_diag, np.float32)).to(dev),
+        meta={k: meta[k] for k in ("taps", "groups", "group_const",
+                                   "period")},
+        pats=torch.from_numpy(np.array(pats, np.float32)).to(dev),
+        const_vals=torch.from_numpy(np.array(const_vals, np.float32)).to(dev),
     )

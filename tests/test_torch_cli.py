@@ -160,20 +160,6 @@ def test_config_matches_jax():
     assert aps[0] == aps[1]
 
 
-@pytest.mark.parametrize(
-    "extra,match",
-    [
-        # The partitioned route is ported (``test_torch_parallel_cli.py``);
-        # on a structured mesh with AMG it takes JAX's slab engines.
-        (["--partitions", "2", "--precond", "amg"], "item 9b"),
-    ],
-)
-def test_routes_not_ported_raise(box_file, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        p_main(["--input", str(box_file), "--solution",
-                str(tmp_path / "s.exo"), "--cpu"] + extra)
-
-
 @pytest.mark.parametrize("route", [
     ["--precond", "jacobi"],
     ["--precond", "amg", "--no-snapshots"],

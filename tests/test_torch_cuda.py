@@ -3,7 +3,9 @@ pad-stencil, DIA, chunked sliced-ELL SpMV, fused Jacobi-PCG) against their
 plain PyTorch versions, and the solves through them against the same
 solves on the CPU; also each part's sliced-ELL launch of the partitioned
 operator (``parallel.BSGShardedOperator``) and partitioned Jacobi-CG on
-the card against the CPU's iterations.
+the card against the CPU's iterations, and the pad-stencil kernel on the
+windows of a z-slab split (``parallel.build_slab_pad_stencil``) with the
+slab-pad AMG solve on the card against the CPU's iterations.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -1034,3 +1036,185 @@ def test_sharded_jacobi_cg_on_the_card_matches_cpu(cuda_device, kind):
         assert res.converged
         its.append(res.iterations)
     assert abs(its[0] - its[1]) <= 1
+
+
+def _slab_pad_plan(device, corr="auto", nparts=4):
+    """The z-slab plan of a pad-stencil operator on ``device``: free grid
+    9 x 9 x 19 at bz = 4 over 4 parts, slabs of 6, 6, 6 and 1 real layers
+    (the last slab has 5 dead layers)."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_stencil,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        build_slab_pad_stencil,
+    )
+
+    _mesh, sy, dims = _box_system((10, 8, 18), "TETRA4")
+    st = choose_operator(sy.A, dtype=torch.float32, grid_dims=dims,
+                         device=device)
+    A = pad_stencil_from_stencil(st, bz=4, corr_storage=corr)
+    return sy, A, build_slab_pad_stencil(A, nparts)
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+@pytest.mark.parametrize("part", [1, 3], ids=["interior", "last"])
+def test_pad_window_launch_matches_plain(cuda_device, name, part):
+    """Kernel 3 on one slab's window (its halo layers in the guard slots,
+    Z = L + 2, mz the slab's last real layer) against its plain version on
+    the same window; the guard layers, the last slab's dead layers and
+    every pad slot exactly 0; the slab product over all parts is the
+    single-device product."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_window_reference,
+    )
+
+    sy, A, plan = _slab_pad_plan(cuda_device)
+    op = plan.make_ops()
+    assert plan.L == 6 and op.zlim == (6, 6, 6, 1)
+    dt = getattr(torch, name)
+    xg = np.random.default_rng(part).normal(size=sy.n_free)
+    x = plan.put_vector(xg, dtype=np.dtype(name))
+    xe = op.extended(x)
+    before = _kernels.PAD_STENCIL.by_form.get("window", 0)
+    y = _kernels.pad_stencil_window_launch(op, xe[part], op.corr_ext[part],
+                                           op.zlim[part])
+    torch.cuda.synchronize()
+    assert _kernels.PAD_STENCIL.by_form["window"] == before + 1
+    assert y.dtype == dt
+    ref = pad_window_reference(op, xe[part], op.corr_ext[part], op.zlim[part])
+    assert _relerr(y, ref) <= TOL[name]
+    live = torch.zeros(plan.L + 2, op.myp, op.mxp, dtype=torch.bool,
+                       device=cuda_device)
+    live[1: op.zlim[part] + 1, 1: A.dims[1] + 1, : A.dims[0]] = True
+    assert not y.reshape(live.shape)[~live].any()
+    y_all = op.matvec(x)
+    y1 = A.get_vector(A.matvec(A.put_vector(xg, dtype=dt)))
+    assert np.abs(plan.gather_vector(y_all) - y1).max() <= TOL[name] * (
+        np.abs(y1).max())
+
+
+def test_pad_window_bf16_correction_is_bit_identical(cuda_device):
+    """A window with the bfloat16 correction gives the bits of a float32
+    launch of the same (bf16-exact) values."""
+    _sy, A, plan = _slab_pad_plan(cuda_device)
+    op = plan.make_ops()
+    assert op.corr_ext.dtype == torch.bfloat16
+    x = torch.randn(op.nparts, op.n_pad, device=cuda_device)
+    x = x * plan.put_vector(np.ones(int(np.prod(A.dims)), np.float32))
+    xe = op.extended(x)
+    for p in range(op.nparts):
+        c16 = op.corr_ext[p]
+        y16 = _kernels.pad_stencil_window_launch(op, xe[p], c16, op.zlim[p])
+        y32 = _kernels.pad_stencil_window_launch(op, xe[p], c16.float(),
+                                                 op.zlim[p])
+        assert torch.equal(y16, y32)
+
+
+def test_slab_pad_amg_on_the_card_matches_cpu(cuda_device):
+    """The slab-pad AMG solve in f32 to 1e-6 on the card (kernel 3 on
+    every window) takes the CPU port's iterations within 1; every kernel-3
+    launch of the solve is a window launch."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_stencil,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        build_slab_pad_amg,
+        slab_pad_amg_cg_solve,
+    )
+
+    _mesh, sy, dims = _box_system((8, 6, 20), "TETRA4")  # 7 x 7 x 21
+    its = []
+    for dev in (cuda_device, torch.device("cpu")):
+        st = choose_operator(sy.A, dtype=torch.float32, grid_dims=dims,
+                             device=dev)
+        pad_op = pad_stencil_from_stencil(st, bz=4)  # 6-layer slabs
+        samg = build_slab_pad_amg(sy.A, dims, 4, pad_op=pad_op)
+        assert samg.plan.L == 6 and samg.plan.device.type == dev.type
+        _kernels.PAD_STENCIL.reset()
+        x, res = slab_pad_amg_cg_solve(samg, sy.b, np.zeros(sy.n_free),
+                                       tol=1e-6)
+        assert res.converged and np.isfinite(x).all()
+        its.append(res.iterations)
+        if dev.type == "cuda":
+            k = _kernels.PAD_STENCIL
+            assert k.launches > 0 and k.by_form["window"] == k.launches
+    assert abs(its[0] - its[1]) <= 1
+
+
+def test_structured_partitions_cli_f32_takes_the_slab_pad_amg(cuda_device,
+                                                              tmp_path):
+    """The CLI's first structured ``--partitions`` branch: f32 on the card
+    takes the slab-pad AMG (JAX: on a TPU), kernel 3 runs only on slab
+    windows, the iterations are the CPU API solve's within 1, and the
+    solution file holds the boundary snapshot and the answer."""
+    from domain_decomposed_pde_solver_tpu_torch.cli.solve import main
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        read_nodal_vars,
+        write_exodus,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        SlabPadAMG,
+        build_slab_pad_amg,
+        slab_pad_amg_cg_solve,
+    )
+
+    mesh = box_mesh(8, 6, 30, elem_type="TETRA4")  # free 7 x 7 x 31
+    path = tmp_path / "box.exo"
+    write_exodus(str(path), mesh)
+    _kernels.PAD_STENCIL.reset()
+    rep = {}
+    assert main(["--input", str(path), "--solution", str(tmp_path / "g.exo"),
+                 "--partitions", "2", "--precond", "amg", "--dtype",
+                 "float32", "--tolerance", "1e-6"], report=rep) == 0
+    k = _kernels.PAD_STENCIL
+    assert isinstance(rep["precond"], SlabPadAMG)
+    assert rep["precond"].device.type == "cuda" and rep["precond"].plan.L == 30
+    assert k.launches > 0 and k.by_form["window"] == k.launches
+    res = rep["result"]
+    assert res.converged
+
+    sy = assemble_heat_system(mesh)
+    dims = infer_free_grid(mesh, sy.free_to_node)
+    samg = build_slab_pad_amg(sy.A, dims, 2, device="cpu")
+    x, r = slab_pad_amg_cg_solve(samg, sy.b.astype(np.float32),
+                                 np.zeros(sy.n_free, np.float32), tol=1e-6)
+    assert r.converged and abs(res.iterations - r.iterations) <= 1
+
+    _names, _times, vals = read_nodal_vars(str(tmp_path / "g.exo"))
+    assert vals.shape[0] >= 2  # the boundary snapshot, then the answer
+    u = vals[-1, 0, sy.free_to_node]
+    assert np.isfinite(u).all() and 99 <= u.min() <= u.max() <= 1001
+    assert np.abs(u - x).max() <= 1e-4 * np.abs(x).max()
+
+
+def test_smoke_timing_falls_back_to_events_without_a_trace(cuda_device,
+                                                           monkeypatch):
+    """``chip_smoke.py``'s timing helpers, given a profiler that hands back
+    no device events, time the same calls with CUDA events and mark what
+    they could not measure."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "_device_events", lambda prof: [])
+    x = torch.ones(1 << 20, device=cuda_device)
+
+    def fn():
+        x.mul_(1.0)
+
+    p = chip_smoke.profile_device(fn, reps=3, kernel="k", attempts=2)
+    assert p["timed_by"] == "events" and p["device_ms"] > 0
+    assert p["busy_ms"] is None and p["kernels"] == {}
+    rec = chip_smoke.replay_record(p)
+    assert rec["idle_share"] is None
+    assert "not measured" in chip_smoke.replay_text(rec)
+    scrub = torch.empty(1 << 20, device=cuda_device)
+    assert chip_smoke.profile_cold(fn, scrub, "k", reps=3, attempts=2) > 0
+
+    class Op:
+        nparts = 2
+
+        @staticmethod
+        def matvec(v):
+            return v * 2.0
+
+    ms = chip_smoke._per_part_ms(Op(), x, [fn, fn], reps=3, attempts=2)
+    assert len(ms) == 2 and all(m > 0 for m in ms)

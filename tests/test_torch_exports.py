@@ -19,7 +19,6 @@ import pytest
 JAX = "domain_decomposed_pde_solver_tpu"
 PORT = "domain_decomposed_pde_solver_tpu_torch"
 
-ITEM9B = "ROADMAP.md Queue 1, item 9b (the structured slab engines)"
 ITEM9C = "ROADMAP.md Queue 1, item 9c (multi-process)"
 ITEM10 = "ROADMAP.md Queue 1, item 10 (the port's bench)"
 BY_DESIGN = "not ported by design (ROADMAP.md North star)"
@@ -34,15 +33,6 @@ NOT_PORTED = {
         "splitell_from_csr": BY_DESIGN,
     },
     "parallel": {
-        **{name: ITEM9B for name in (
-            "SlabDIAPlan", "SlabStencilOperator", "build_slab_stencil",
-            "slab_stencil_cg_solve", "SlabAMG", "build_slab_amg",
-            "slab_amg_cg_solve", "SlabPadPlan", "SlabPadStencilOperator",
-            "build_slab_pad_stencil", "slab_pad_cg_solve", "SlabPadAMG",
-            "build_slab_pad_amg", "slab_pad_amg_cg_solve",
-            "slab_pad_amg_refine_solve", "build_slab_plan", "slab_cg_solve",
-            "SlabBrickPrecond", "build_slab_brick_precond",
-        )},
         **{name: ITEM9C for name in (
             "initialize_multihost", "multihost_slab_cg_solve", "put_global",
         )},
