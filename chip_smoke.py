@@ -182,6 +182,32 @@ I. The structured slab engines, in a process of its own as F, G and H
    version.  Then kernel 3 per part under the profiler against its bound,
    the exchange and the slab product, and the counted solves under the
    profiler (device, busy, wall, idle share).
+J. The multi-process decomposition, in a process of its own as F-I
+   (``--phase-j``), which starts two worker processes
+   (``--phase-j-worker RANK 2 URL OUT``, ``URL`` a ``file://`` rendezvous
+   in ``OUT``) on the one card over gloo, each
+   holding two of four parts, every wait bounded (a worker that fails or
+   outlives ``J_TIMEOUT`` fails the phase):
+   J1. ``box_mesh(100, 100, 100, "HEX8")`` written as Exodus (1,009,899
+   free rows): ``assemble_heat_multihost``, each process reading only its
+   element slice; rank 0's blocks bit-identical to ``build_halo_plan``'s
+   slices of the global system; one product against the host CSR (1e-9);
+   f64 Jacobi ``sharded_cg_solve`` to 1e-8 within one iteration of this
+   process's one-process solve over the same 4 parts, host relres
+   <= 1.5e-8.
+   J2. ``BSGShardedOperator`` on J1's blocks in f32 (kernel 1 on each
+   local part): exactly 2 launches per product in each process, each
+   part's launch against its plain version (1e-6 relative), Jacobi-CG to
+   1e-6 within max(2, 2 %) of one process, host relres <= 5e-6 plus the
+   f32 floor.
+   J3. ``multihost_slab_cg_solve`` on path A's system over 4 slabs, f32
+   Jacobi to 1e-6: the same full answer in both processes, within max(2,
+   2 %) iterations and 1e-5 of one process's, host relres <= 5e-6 plus
+   the f32 floor; a sharded checkpoint of the iterate from each process,
+   reassembled here bit for bit.
+   Timed per process: J1's and J3's solves, one ``psum_dot``,
+   ``halo_exchange`` and ``neighbour_strips`` across the processes (CUDA
+   events) beside the same calls in one process, and the peak host RSS.
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
@@ -2831,6 +2857,582 @@ def run_phase_i(refs: dict, timeout: float = 900.0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# J. The multi-process decomposition: two processes over torch.distributed
+#    on the one card (distributed assembly, kernel 1 across processes, the
+#    slab CG across processes, sharded checkpoints)
+# ---------------------------------------------------------------------------
+
+J_PARTS = 4
+J_WORLD = 2
+J_TIMEOUT = 600.0  # seconds the workers may take, and a collective may wait
+J_FULL = dict(hex_box=BOX, tet_box=BOX, hex_dof=BOX_DOF, tet_dof=BOX_DOF,
+              device="cuda")
+
+
+def _j_device(cfg: dict, rank: int = 0):
+    import torch
+
+    if cfg["device"] == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _event_ms(fn, device, reps: int) -> float:
+    """:func:`time_ms` on the card; on the CPU the host clock around
+    ``reps`` calls after three warm-up calls.  Both processes of a
+    collective call it alike."""
+    if device.type == "cuda":
+        return time_ms(fn, reps)
+    for _ in range(3):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _timed(fn, device):
+    """``fn()`` and its milliseconds: CUDA events on the card (the wall of
+    a solve whose host waits on the card), the host clock on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize(device)
+    return out, start.elapsed_time(stop)
+
+
+def _jacobi(op):
+    import torch
+
+    d = op.diagonal()
+    return torch.where(d != 0, 1.0 / torch.where(d == 0, 1.0, d), 0.0)
+
+
+def _j1_worker(device, cfg, exo, rank) -> tuple:
+    """J1 in one worker: the distributed assembly, rank 0's parity with the
+    global plan, one product, f64 Jacobi-CG to 1e-8."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.io import read_exodus
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        build_halo_plan,
+        sharded_cg_solve,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.distassembly import (
+        assemble_heat_multihost,
+    )
+
+    t0 = time.perf_counter()
+    op, b_s, plan, state = assemble_heat_multihost(
+        str(exo), nparts=J_PARTS, dtype=np.float64, device=device)
+    rec = dict(assembly_s=time.perf_counter() - t0, n_free=state.n_free,
+               n_local=plan.n_local, H=plan.halo_width, K=plan.ell_width,
+               local_parts=op.mesh.local_parts, operator=type(op).__name__)
+    check(state.n_free == cfg["hex_dof"],
+          f"[J1] {state.n_free} free rows, not {cfg['hex_dof']}")
+    k = op.mesh.local_parts
+    check(plan.ell_cols.shape[0] == k, "[J1] the plan holds other blocks")
+    S = b_ref = None
+    if rank == 0:
+        # JAX's parity check (tests/distassembly_worker.py:52-66): this
+        # rank's blocks are bit-identical slices of the global plan.
+        t0 = time.perf_counter()
+        sy = assemble_heat_system(read_exodus(str(exo)))
+        plan_g = build_halo_plan(sy.A, state.owner_free, J_PARTS)
+        rec["global_s"] = time.perf_counter() - t0
+        check(plan.n_local == plan_g.n_local
+              and plan.halo_width == plan_g.halo_width,
+              "[J1] the widths differ from the global plan's")
+        for name in ("ell_cols", "ell_vals", "send_idx", "row_valid"):
+            check(np.array_equal(getattr(plan, name),
+                                 getattr(plan_g, name)[:k]),
+                  f"[J1] {name} is not the global plan's slice")
+        rec["bit_identical"] = True
+        S, b_ref = sy.A, sy.b
+    x = np.random.default_rng(7).standard_normal(state.n_free)
+    y = op.get_vector(op.matvec(op.put_vector(x)))
+    b = op.get_vector(b_s)
+    if rank == 0:
+        y_ref = S.matvec(x)
+        err = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
+        check(err <= 1e-9, f"[J1] sharded product off by {err:.3e}")
+        check(np.array_equal(b, b_ref), "[J1] b differs from the global b")
+        rec["product_relerr"] = err
+    res, ms = _timed(lambda: sharded_cg_solve(
+        op, b_s, torch.zeros_like(b_s), precond_diag=_jacobi(op), tol=1e-8,
+        maxiter=20000), device)
+    u = op.get_vector(res.x)
+    check(res.converged, f"[J1] CG stopped at relres {res.relres:.3e}")
+    rec.update(iterations=res.iterations, relres=res.relres, solve_ms=ms)
+    if rank == 0:
+        rec["host_relres"] = host_relres(S, u, b_ref)
+        check(rec["host_relres"] <= 1.5e-8,
+              f"[J1] host relres {rec['host_relres']:.3e} > 1.5e-8")
+    log(f"[J1] rank {rank}: {state.n_free} rows, {k} parts, assembly "
+        f"{rec['assembly_s']:.2f} s; f64 Jacobi-CG {res.iterations} "
+        f"iterations in {ms:.1f} ms")
+    return rec, op, plan, b, S
+
+
+def _j2_worker(device, kernels, op, plan, b, S, rank, errs) -> dict:
+    """J2 in one worker: BSGShardedOperator over the process mesh, kernel 1
+    on each local part, f32 Jacobi-CG to 1e-6."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
+        bsg_spmv,
+        spmv_plain,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        BSGShardedOperator,
+        sharded_cg_solve,
+    )
+
+    t0 = time.perf_counter()
+    bop = BSGShardedOperator.from_plan(plan, op.mesh, dtype=np.float32)
+    k = len(bop.parts)
+    rec = dict(pack_s=time.perf_counter() - t0, storage=bop.parts[0].storage,
+               parts=k, rows=[blk.n_pad for blk in bop.parts],
+               slots=[blk.n_slots for blk in bop.parts])
+    b32 = bop.put_vector(b)
+    x0 = torch.zeros_like(b32)
+    inv = _jacobi(bop)
+    reset_counts(kernels)
+    bop.matvec(b32)
+    sync(device)
+    rec["per_product"] = read_counts(kernels)["sell_spmv"]["launches"]
+    reset_counts(kernels)
+    res, ms = _timed(lambda: sharded_cg_solve(
+        bop, b32, x0, precond_diag=inv, tol=1e-6, maxiter=20000), device)
+    counts = read_counts(kernels)
+    rec.update(iterations=res.iterations, relres=res.relres, solve_ms=ms,
+               launches=counts["sell_spmv"]["launches"], counts=counts)
+    check(res.converged, f"[J2] CG stopped at relres {res.relres:.3e}")
+    if device.type == "cuda":
+        check(rec["per_product"] == k, f"[J2] {rec['per_product']} kernel-1 "
+              f"launches in a product over {k} parts")
+        check(rec["launches"] == k * (res.iterations + 1),
+              f"[J2] {rec['launches']} kernel-1 launches in "
+              f"{res.iterations + 1} products over {k} parts")
+    u = bop.get_vector(res.x)
+    # Each local part's launch against its plain version (not counted).
+    rng = np.random.default_rng(17 + rank)
+    xe = bop.extended(torch.as_tensor(
+        rng.normal(size=(k, plan.n_local)), dtype=torch.float32,
+        device=device))
+    rows = np.arange(bop.parts[0].n_pad)
+    mine = {}
+    for p, blk in enumerate(bop.parts):
+        _compare(f"rank {rank} part {bop.mesh.parts_lo + p} ({blk.n_pad} "
+                 f"rows, {blk.storage})", bsg_spmv(blk, xe[p]),
+                 spmv_plain(blk, xe[p]), 1e-6, mine, "sell_spmv",
+                 mask=torch.as_tensor(rows >= plan.n_local, device=device),
+                 tag="J2")
+    rec["max_abs_err"] = mine["sell_spmv"]
+    errs["sell_spmv"] = max(errs.get("sell_spmv", 0.0), mine["sell_spmv"])
+    if rank == 0:
+        rec["host_relres"] = host_relres(S, u, b)
+        rec["f32_floor"] = f32_floor(S, u, b)
+        check(rec["host_relres"] <= 5e-6 + rec["f32_floor"],
+              f"[J2] host relres {rec['host_relres']:.3e} > 5e-6 + "
+              f"{rec['f32_floor']:.3e}")
+    log(f"[J2] rank {rank}: {k} parts ({rec['storage']}), "
+        f"{rec['per_product']} kernel-1 launches per product; f32 "
+        f"Jacobi-CG {res.iterations} iterations in {ms:.1f} ms, "
+        f"{rec['launches']} launches")
+    return rec
+
+
+def _tet_system(cfg):
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import box_mesh
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.slab import (
+        build_slab_plan,
+    )
+
+    n = cfg["tet_box"]
+    sy = assemble_heat_system(box_mesh(n, n, n, "TETRA4"))
+    check(sy.A.n_rows == cfg["tet_dof"], f"[J3] {sy.A.n_rows} DOF")
+    plan = build_slab_plan(sy.A, nparts=J_PARTS)
+    check(plan is not None, "[J3] no slab plan")
+    b = (sy.b / np.abs(sy.b).max()).astype(np.float32)
+    return sy, plan, b
+
+
+def _j3_worker(device, cfg, out, rank) -> tuple:
+    """J3 in one worker: ``multihost_slab_cg_solve`` on path A's system,
+    the full answer and a sharded checkpoint of the iterate."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        make_device_mesh,
+        multihost_slab_cg_solve,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.collectives import (
+        gather_parts,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.multihost import (
+        save_sharded_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    sy, plan, b = _tet_system(cfg)
+    rec = dict(build_s=time.perf_counter() - t0, slab=plan.slab,
+               halo=plan.halo)
+    mesh = make_device_mesh(J_PARTS, [device])
+    (x, res), ms = _timed(lambda: multihost_slab_cg_solve(
+        plan, b, np.zeros_like(b), tol=1e-6, maxiter=20000, mesh=mesh), device)
+    check(res.converged, f"[J3] CG stopped at relres {res.relres:.3e}")
+    rec.update(iterations=res.iterations, relres=res.relres, solve_ms=ms)
+    np.save(out / f"j3_x.rank{rank}.npy", x)
+    save_sharded_checkpoint(str(out / "j3_ck"), {"x": res.x})
+    it = gather_parts(res.x).cpu().numpy()
+    if rank == 0:
+        np.save(out / "j3_iterate.npy", it)
+    rec["host_relres"] = host_relres(sy.A, x, b)
+    rec["f32_floor"] = f32_floor(sy.A, x, b)
+    check(rec["host_relres"] <= 5e-6 + rec["f32_floor"],
+          f"[J3] host relres {rec['host_relres']:.3e} > 5e-6 + "
+          f"{rec['f32_floor']:.3e}")
+    log(f"[J3] rank {rank}: slab CG {res.iterations} iterations in "
+        f"{ms:.1f} ms, host relres {rec['host_relres']:.3e}")
+    return rec, plan
+
+
+def _collective_ms(device, op, slab_plan, reps: int = 50) -> dict:
+    """One ``psum_dot``, one ``halo_exchange`` and one ``neighbour_strips``
+    on the vectors of J1 and J3 (over processes: the local parts, every
+    timing started after a barrier, so no process waits there for one
+    still busy with earlier work)."""
+    import torch
+    import torch.distributed as dist
+
+    from domain_decomposed_pde_solver_tpu_torch.parallel.sharded import (
+        halo_exchange,
+        psum_dot,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.slab import (
+        neighbour_strips,
+    )
+
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(op.cols.shape[:2], generator=g, device=device,
+                    dtype=torch.float64)
+    xs = torch.randn((x.shape[0], slab_plan.slab), generator=g,
+                     device=device, dtype=torch.float32)
+    calls = dict(
+        psum_dot=lambda: psum_dot(x, x, op.mesh),
+        halo_exchange=lambda: halo_exchange(x, op.halo_idx, op.mesh),
+        neighbour_strips=lambda: neighbour_strips(xs, slab_plan.halo,
+                                                  op.mesh))
+    out = {}
+    for name, fn in calls.items():
+        if dist.is_initialized():
+            dist.barrier()
+        out[name] = _event_ms(fn, device, reps)
+    return out
+
+
+def phase_j_worker(rank: str, world: str, addr: str, out: str,
+                   cfg: str = "{}") -> int:
+    """One worker of phase J (``python3 chip_smoke.py --phase-j-worker RANK
+    WORLD URL OUT [CFG]``): join the process group at ``URL``, run J1-J3
+    and the collectives' timing over its parts, and write its record to
+    ``OUT/phase_j.rank{RANK}.json``.  ``CFG``: JSON overrides of
+    :data:`J_FULL` (the CPU tests' sizes)."""
+    import logging
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        initialize_multihost,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.collectives import (
+        staged,
+    )
+
+    rank, world = int(rank), int(world)
+    cfg = {**J_FULL, **json.loads(cfg)}
+    out = pathlib.Path(out)
+    device = _j_device(cfg, rank)
+    logging.basicConfig(level=logging.INFO, format="%(message)s",
+                        stream=sys.stdout)
+    torch.set_num_threads(2)  # the parent and the other worker share the host
+    kernels = _kernels.KERNELS
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels = _kernels.build_kernels()  # built by the parent: a load
+    t_start = time.perf_counter()
+    got = initialize_multihost(addr, world, rank, device=cfg["device"],
+                               timeout_s=J_TIMEOUT)
+    check(got == rank, f"[J] rank {got}, not {rank}")
+    rec = dict(rank=rank, world=world, backend=dist.get_backend(),
+               staged=staged(device), device=str(device))
+    errs = {}
+    j1, op, plan, b, S = _j1_worker(device, cfg, out / cfg["hex_exo"], rank)
+    rec["J1"] = j1
+    rec["J2"] = _j2_worker(device, kernels, op, plan, b, S, rank, errs)
+    del S
+    rec["J3"], slab_plan = _j3_worker(device, cfg, out, rank)
+    rec["collectives_ms"] = _collective_ms(device, op, slab_plan)
+    rec["errs"] = errs
+    rec["wall_s"] = time.perf_counter() - t_start
+    rec["peak_rss_mb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1024
+    log(f"[J] rank {rank}: collectives (ms) "
+        f"{json.dumps(rec['collectives_ms'])}, peak RSS "
+        f"{rec['peak_rss_mb']:.0f} MiB, {rec['wall_s']:.1f} s")
+    dist.destroy_process_group()
+    (out / f"phase_j.rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _wait_workers(procs, deadline: float) -> None:
+    """Wait for every worker until ``deadline`` (host clock); a worker that
+    fails or outlives it ends the phase, and the others are killed."""
+    try:
+        while any(p.poll() is None for p in procs):
+            for i, p in enumerate(procs):
+                check(p.poll() in (None, 0),
+                      f"[J] worker {i} exited with {p.returncode}")
+            check(time.perf_counter() < deadline,
+                  f"[J] workers still running after {J_TIMEOUT:.0f} s")
+            time.sleep(0.2)
+        codes = [p.returncode for p in procs]
+        check(codes == [0] * len(procs), f"[J] worker exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _j_references(device, host) -> dict:
+    """The one-process runs J's workers are held to, on the same systems
+    and plans: f64 Jacobi-CG and f32 BSGShardedOperator Jacobi-CG over the
+    4 parts of J1's plan, the slab CG over J3's plan; and the three
+    collectives over the 4 parts in one process."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        BSGShardedOperator,
+        ShardedOperator,
+        build_halo_plan,
+        make_device_mesh,
+        sharded_cg_solve,
+        slab_cg_solve,
+    )
+
+    sy, owner = host["hex"]
+    plan = build_halo_plan(sy.A, owner, J_PARTS)
+    mesh = make_device_mesh(J_PARTS, [device])
+    op = ShardedOperator.from_plan(plan, mesh)
+    b = op.put_vector(sy.b)
+    r1, ms1 = _timed(lambda: sharded_cg_solve(
+        op, b, torch.zeros_like(b), precond_diag=_jacobi(op), tol=1e-8,
+        maxiter=20000), device)
+    bop = BSGShardedOperator.from_plan(plan, mesh, dtype=np.float32)
+    b32 = bop.put_vector(sy.b)
+    r2, ms2 = _timed(lambda: sharded_cg_solve(
+        bop, b32, torch.zeros_like(b32), precond_diag=_jacobi(bop), tol=1e-6,
+        maxiter=20000), device)
+    sy3, plan3, b3 = host["tet"]
+    (x3, r3), ms3 = _timed(lambda: slab_cg_solve(
+        plan3, b3, np.zeros_like(b3), tol=1e-6, maxiter=20000, mesh=mesh),
+        device)
+    for tag, r in (("J1", r1), ("J2", r2), ("J3", r3)):
+        check(r.converged, f"[{tag}] the one-process solve did not converge")
+    log(f"[J] one process: J1 {r1.iterations} iterations ({ms1:.1f} ms), "
+        f"J2 {r2.iterations} ({ms2:.1f} ms), J3 {r3.iterations} "
+        f"({ms3:.1f} ms)")
+    return dict(J1=dict(iterations=r1.iterations, solve_ms=ms1),
+                J2=dict(iterations=r2.iterations, solve_ms=ms2,
+                        storage=bop.parts[0].storage),
+                J3=dict(iterations=r3.iterations, solve_ms=ms3, x=x3),
+                collectives_ms=_collective_ms(device, op, plan3))
+
+
+def _within(a: int, b: int) -> bool:
+    return abs(a - b) <= max(2, 0.02 * b)
+
+
+def phase_j(device, cfg=None, out=OUT) -> dict:
+    """J: two worker processes (``--phase-j-worker``) over gloo on the one
+    card, held to the one-process runs of this process.  The workers run
+    while this process builds the host systems; its device work starts
+    once they have ended."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        read_exodus,
+        write_exodus,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.io.exodus import (
+        read_exodus_node_data,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.io.mesh import (
+        boundary_value_from_sets,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import partition_rcb
+
+    t0 = time.perf_counter()
+    cfg = {**J_FULL, **(cfg or {})}
+    n = cfg["hex_box"]
+    cfg.setdefault("hex_exo", f"box{n}_hex8.exo")
+    out.mkdir(parents=True, exist_ok=True)
+    exo = out / cfg["hex_exo"]
+    if not exo.exists():
+        write_exodus(str(exo), box_mesh(n, n, n, "HEX8"))
+    rendezvous = out / "phase_j.rendezvous"
+    for f in [*out.glob("phase_j.rank*.json"), *out.glob("j3_*"),
+              rendezvous]:
+        f.unlink(missing_ok=True)
+    addr = f"file://{rendezvous}"
+    sys.stdout.flush()
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__)), "--phase-j-worker",
+         str(r), str(J_WORLD), addr, str(out), json.dumps(cfg)], cwd=REPO)
+        for r in range(J_WORLD)]
+    deadline = time.perf_counter() + J_TIMEOUT
+    try:
+        # The host side of the references, while the workers run: the
+        # global system and the RCB owner of every free row (the same
+        # function of the node coordinates the workers compute), J3's.
+        sy = assemble_heat_system(read_exodus(str(exo)))
+        num_nodes, coords, node_sets = read_exodus_node_data(str(exo))
+        is_bnd, _ = boundary_value_from_sets(num_nodes, node_sets)
+        owner = partition_rcb(coords[~is_bnd], J_PARTS).astype(np.int32)
+        host = dict(hex=(sy, owner), tet=_tet_system(cfg))
+    finally:
+        _wait_workers(procs, deadline)
+    t_workers = time.perf_counter() - t0
+    w = [json.loads((out / f"phase_j.rank{r}.json").read_text())
+         for r in range(J_WORLD)]
+    refs = _j_references(device, host)
+    ks = J_PARTS // J_WORLD
+    for tag in ("J1", "J2", "J3"):
+        its = {r[tag]["iterations"] for r in w}
+        check(len(its) == 1, f"[{tag}] the processes stopped at {its}")
+    for r in w:
+        j1, j2, j3 = r["J1"], r["J2"], r["J3"]
+        check(abs(j1["iterations"] - refs["J1"]["iterations"]) <= 1,
+              f"[J1] rank {r['rank']}: {j1['iterations']} iterations, one "
+              f"process {refs['J1']['iterations']}")
+        check(j2["storage"] == refs["J2"]["storage"], "[J2] storage differs")
+        check(_within(j2["iterations"], refs["J2"]["iterations"]),
+              f"[J2] rank {r['rank']}: {j2['iterations']} iterations, one "
+              f"process {refs['J2']['iterations']}")
+        check(_within(j3["iterations"], refs["J3"]["iterations"]),
+              f"[J3] rank {r['rank']}: {j3['iterations']} iterations, one "
+              f"process {refs['J3']['iterations']}")
+        check(j2["parts"] == ks and j1["local_parts"] == ks,
+              f"[J] rank {r['rank']} holds {j2['parts']} parts")
+    check(w[0]["J1"].get("bit_identical") is True,
+          "[J1] rank 0 did not check its blocks")
+    xs = [np.load(out / f"j3_x.rank{r}.npy") for r in range(J_WORLD)]
+    check(all(np.array_equal(xs[0], x) for x in xs[1:]),
+          "[J3] the processes' answers differ")
+    x1 = refs["J3"].pop("x")
+    rel = float(np.linalg.norm(xs[0] - x1) / np.linalg.norm(x1))
+    check(rel <= 1e-5, f"[J3] answer {rel:.3e} from one process's")
+    blocks = {}
+    for r in range(J_WORLD):
+        with np.load(out / f"j3_ck.proc{r}.npz") as z:
+            blocks.update({int(key.rsplit("__", 1)[1]): z[key]
+                           for key in z.files})
+    ck = np.concatenate([blocks[i] for i in sorted(blocks)])
+    check(sorted(blocks) == list(range(J_PARTS)) and np.array_equal(
+        ck, np.load(out / "j3_iterate.npy")),
+        "[J3] the checkpoint does not reassemble the iterate")
+    errs = {}
+    for r in w:
+        for key, e in r.pop("errs").items():
+            errs[key] = max(errs.get(key, 0.0), e)
+    wall = time.perf_counter() - t0
+    log(f"[J] passed: J1 {[r['J1']['iterations'] for r in w]} / "
+        f"{refs['J1']['iterations']} iterations, J2 "
+        f"{[r['J2']['iterations'] for r in w]} / {refs['J2']['iterations']}, "
+        f"J3 {[r['J3']['iterations'] for r in w]} / "
+        f"{refs['J3']['iterations']} (answer {rel:.2e} from one process's); "
+        f"workers {t_workers:.1f} s, phase {wall:.1f} s")
+    return dict(workers=w, one_process=refs, j3_relerr=rel,
+                checkpoint_rows=sorted(blocks), errs=errs,
+                workers_s=t_workers, wall_s=wall)
+
+
+def phase_j_launches(run_j: dict, name: str) -> dict:
+    """One kernel's launches in each worker's counted J2 solve."""
+    return {f"J2 rank {r['rank']}": r["J2"]["counts"][name]["launches"]
+            for r in run_j["workers"]}
+
+
+def phase_j_process(result: str) -> int:
+    """Phase J in a process of its own (``python3 chip_smoke.py --phase-j
+    RESULT``, started by :func:`run_phase_j`, or alone): build the kernels
+    (the workers load them), run :func:`phase_j` and write its record to
+    ``RESULT``; every line it logs carries the card's name and power
+    limit."""
+    global LOG_TAG
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _kernels.build_kernels()  # the workers load them
+    card = card_line()
+    LOG_TAG = f" [{card}]"
+    rec = phase_j(torch.device("cuda", 0))
+    rec["card"] = card
+    pathlib.Path(result).write_text(json.dumps(rec))
+    return 0
+
+
+def run_phase_j(timeout: float = 900.0) -> dict:
+    """Run :func:`phase_j_process` in a child process on the same card and
+    return its record; fails if the child does."""
+    result = OUT / "phase_j.json"
+    result.unlink(missing_ok=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                           "--phase-j", str(result)], cwd=REPO,
+                          timeout=timeout)
+    check(proc.returncode == 0 and result.exists(),
+          f"[J] the phase J process exited with {proc.returncode}")
+    return json.loads(result.read_text())
+
+
+# ---------------------------------------------------------------------------
 # D. Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -4162,11 +4764,14 @@ def main() -> int:
                              a_inner=mr_a.inner_iterations,
                              g_cg=run_g["cg"]["iterations"]))
     log(f"[I] done at {time.perf_counter() - t_start:.1f} s")
+    run_j = run_phase_j()
+    log(f"[J] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
     errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
     for key, e in [*run_f.pop("errs").items(), *run_g.pop("errs").items(),
-                   *run_h.pop("errs").items(), *run_i.pop("errs").items()]:
+                   *run_h.pop("errs").items(), *run_i.pop("errs").items(),
+                   *run_j.pop("errs").items()]:
         errs[key] = max(errs.get(key, 0.0), e)
 
     # ---- E. timing and records --------------------------------------------
@@ -4222,6 +4827,7 @@ def main() -> int:
         "box10m": run_g,
         "domain_decomposed": run_h,
         "slab_engines": run_i,
+        "multi_process": run_j,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
@@ -4258,6 +4864,7 @@ def main() -> int:
             run: c.get(k.name, 0) for run, c in run_g["launches"].items()}
         extra["phase_h_launches"] = phase_h_launches(run_h, k.name)
         extra["phase_i_launches"] = phase_i_launches(run_i, k.name)
+        extra["phase_j_launches"] = phase_j_launches(run_j, k.name)
         if k.name == "pad_stencil":
             # Phase I's instances: kernel 3 on every slab's window, f32 and
             # f64, at 1M (I2) and 10M (I3) over 4 parts.
@@ -4311,6 +4918,10 @@ if __name__ == "__main__":
             sys.exit(phase_h_process(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--phase-i"]:
             sys.exit(phase_i_process(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--phase-j"]:
+            sys.exit(phase_j_process(sys.argv[2]))
+        if sys.argv[1:2] == ["--phase-j-worker"]:
+            sys.exit(phase_j_worker(*sys.argv[2:7]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

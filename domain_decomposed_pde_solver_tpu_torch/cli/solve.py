@@ -392,7 +392,7 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
                     from ..parallel.schwarz import build_block_amg
 
                     block_amg = build_block_amg(A, plan, dtype=dtype,
-                                                device=device)
+                                                device=device, mesh=op.mesh)
                     if block_amg is None:
                         print("warning: AMG build failed; using Jacobi")
     out.update(operator=op, precond=halo_amg or block_amg)

@@ -9,12 +9,14 @@ operators and Krylov solvers, the block-Schwarz AMG and ILU
 preconditioners and the global halo AMG; over z-slabs of a structured
 grid, the slab DIA, lattice-stencil and pad-stencil (kernel 3 per slab)
 operators, the brick-Schwarz preconditioner, the global slab AMG on
-either fine level and the f64 refinement over the slabs.  The
-multi-process path (``ROADMAP.md``, Queue 1, item 9c) is not ported
-yet."""
+either fine level and the f64 refinement over the slabs.  Over several
+processes (``torch.distributed``, :mod:`.multihost`), each process runs
+the same programs over its own parts (:mod:`.collectives`); the
+distributed assembly is :mod:`.distassembly` (not exported, as in JAX)."""
 
 from .decompose import decompose_mesh, write_decomposition
 from .halo import HaloPlan, build_halo_plan
+from .multihost import initialize_multihost, multihost_slab_cg_solve, put_global
 from .haloamg import HaloAMG, build_halo_amg, halo_amg_cg_solve
 from .ownership import node_ownership_from_element_partition
 from .partition import (
@@ -102,4 +104,7 @@ __all__ = [
     "sharded_cg_solve",
     "sharded_gmres_solve",
     "sharded_power_method",
+    "initialize_multihost",
+    "multihost_slab_cg_solve",
+    "put_global",
 ]

@@ -33,7 +33,7 @@ from ..solvers.cg import cg_solve
 from ..solvers.precond.amg import AMGPreconditioner, smoothed_aggregation_setup
 from ..solvers.precond.cheby import chebyshev_smooth
 from .halo import HaloPlan
-from .sharded import psum, psum_dot
+from .sharded import psum
 
 __all__ = ["HaloAMG", "build_halo_amg", "halo_amg_cg_solve"]
 
@@ -77,7 +77,7 @@ class _HaloAMGBlock:
         ts = self.tval * s
         parts = ts.new_zeros(ts.shape[0] * self.n_pad_c)
         parts.index_add_(0, self.flat_agg, ts.reshape(-1))
-        return psum(parts.view(ts.shape[0], self.n_pad_c))
+        return psum(parts.view(ts.shape[0], self.n_pad_c), self.A.mesh)
 
     def _p_apply(self, x_c: torch.Tensor) -> torch.Tensor:
         """``P x_c`` for the coarse vector -> ``(P, n_local)``."""
@@ -142,12 +142,16 @@ def build_halo_amg(
 
 
 def halo_amg_block(op, hamg: HaloAMG) -> _HaloAMGBlock:
-    """The apply of ``hamg`` over ``op``'s parts, on ``op``'s device."""
+    """The apply of ``hamg`` over ``op``'s parts, on ``op``'s device; over
+    a mesh of several processes, its local parts' level-0 pieces, and every
+    process runs the same coarse tail on the same gathered coarse
+    residual."""
     dev = op.device
-    P_ = hamg.agg.shape[0]
+    P_ = op.mesh.local_parts
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(op.mesh.local(a))).to(
+            dev)
 
     agg = put(hamg.agg.astype(np.int64))
     flat = agg + hamg.n_pad_c * torch.arange(P_, device=dev)[:, None]
@@ -176,5 +180,5 @@ def halo_amg_cg_solve(
     b = op.put_vector(b_host)
     x0 = op.put_vector(x0_host)
     res = cg_solve(op, b, x0, precond=halo_amg_block(op, hamg), tol=tol,
-                   maxiter=maxiter, dot=psum_dot)
+                   maxiter=maxiter, dot=op.mesh.dot)
     return op.get_vector(res.x), res

@@ -31,6 +31,7 @@ from ..ops.csr import CSRMatrix, coo_to_csr
 from ..solvers.precond.amg import AMGPreconditioner, smoothed_aggregation_setup
 from ..utils.device import resolve_device
 from .halo import HaloPlan
+from .sharded import DeviceMesh, all_parts
 
 __all__ = [
     "BlockPrecond",
@@ -43,12 +44,30 @@ __all__ = [
 @dataclasses.dataclass
 class BlockPrecond:
     """One preconditioner per part, each applied to its part's rows of a
-    ``(P, n_local)`` residual, with no communication."""
+    ``(P, n_local)`` residual (over a process mesh, one per local part of
+    a ``(k, n_local)`` one), with no communication."""
 
     parts: List[Callable]
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        if r.shape[0] != len(self.parts):
+            raise ValueError(f"a residual of {r.shape[0]} parts for "
+                             f"{len(self.parts)} part preconditioners")
         return torch.stack([m(r[p]) for p, m in enumerate(self.parts)])
+
+
+def local_parts(plan: HaloPlan, mesh: Optional[DeviceMesh]) -> range:
+    """The part ids a per-part build covers: the mesh's local parts, or
+    all of the plan's without a mesh."""
+    if mesh is None:
+        return range(plan.nparts)
+    return range(mesh.parts_lo, mesh.parts_lo + mesh.local_parts)
+
+
+def agree(value: int, mesh: Optional[DeviceMesh]) -> int:
+    """The largest of every process's ``value`` over ``mesh`` (``value``
+    without one): a build's decision every process takes alike."""
+    return int(value) if mesh is None else mesh.max(value)
 
 
 def build_coarse_correction(A: CSRMatrix, plan: HaloPlan,
@@ -75,16 +94,21 @@ class TwoLevelPrecond:
     """Block-Schwarz local cycle + global partition-constant coarse solve:
     ``M(r) = M_local(r) + Z (Z^T A Z)^{-1} Z^T r``.  The coarse term is the
     parts' residual sums (JAX's ``all_gather`` of P scalars) and a
-    ``(P, P)`` product; ``valid`` masks real rows against padding."""
+    ``(P, P)`` product; ``valid`` masks real rows against padding.  Over
+    a ``mesh`` of several processes ``valid`` and the residual hold the
+    local parts, and every process gathers all P sums."""
 
     local: Callable
     Ac_inv: torch.Tensor  # (P, P)
     valid: torch.Tensor  # (P, n_local) bool
+    mesh: Optional[DeviceMesh] = None
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         x = self.local(r)
-        rbars = (r * self.valid).sum(dim=1)  # (P,)
+        rbars = all_parts((r * self.valid).sum(dim=1), self.mesh)  # (P,)
         coef = torch.mv(self.Ac_inv.to(r.dtype), rbars)
+        if self.mesh is not None:
+            coef = self.mesh.local(coef)
         return x + coef[:, None] * self.valid
 
 
@@ -123,13 +147,17 @@ def build_block_amg(
     max_levels: int = 4,
     coarse_size: int = 64,
     device=None,
+    mesh: Optional[DeviceMesh] = None,
     **amg_kwargs,
 ) -> Optional[BlockPrecond]:
     """The per-part AMG hierarchies as a :class:`BlockPrecond` (pass it as
     ``block_amg`` to :func:`.sharded.sharded_cg_solve`), on ``device``
-    (default: the card).  Returns ``None`` if a uniform structure could not
-    be built (the caller falls back to Jacobi), as JAX does."""
+    (default: the card); over a ``mesh`` of several processes, this
+    process's parts', the common depth and the outcome agreed across the
+    processes.  Returns ``None`` if a uniform structure could not be built
+    (the caller falls back to Jacobi), as JAX does."""
     rows, pr, pc = _block_expansions(A, plan)
+    mine = local_parts(plan, mesh)
 
     def setup(p, levels):
         local = _local_diagonal_block(A, plan, p, rows, pr, pc)
@@ -139,17 +167,18 @@ def build_block_amg(
             **amg_kwargs,
         )
 
-    parts_M: List[AMGPreconditioner] = [
-        setup(p, max_levels) for p in range(plan.nparts)]
-    n_levels = min(len(m.levels) for m in parts_M)
+    parts_M: List[AMGPreconditioner] = [setup(p, max_levels) for p in mine]
+    n_levels = -agree(-min(len(m.levels) for m in parts_M), mesh)
     if n_levels == 0:
         return None
     # Rebuild any deeper hierarchies at the common depth.
-    for p, m in enumerate(parts_M):
+    uneven = False
+    for i, m in enumerate(parts_M):
         if len(m.levels) != n_levels:
-            parts_M[p] = setup(p, n_levels + 1)
-            if len(parts_M[p].levels) != n_levels:
-                return None
-    if any(m.coarse_inv.dim() != 2 for m in parts_M):
-        return None  # mixed dense/diagonal coarse solves: bail to Jacobi
+            parts_M[i] = setup(mine[i], n_levels + 1)
+            uneven = uneven or len(parts_M[i].levels) != n_levels
+    # Mixed dense/diagonal coarse solves: bail to Jacobi.
+    mixed = any(m.coarse_inv.dim() != 2 for m in parts_M)
+    if agree(uneven or mixed, mesh):
+        return None
     return BlockPrecond(parts=parts_M)

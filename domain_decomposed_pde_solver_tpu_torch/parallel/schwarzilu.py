@@ -22,7 +22,14 @@ import torch
 from ..ops.csr import CSRMatrix
 from ..solvers.precond.ilu import ilu0_preconditioner, ilut_preconditioner
 from .halo import HaloPlan
-from .schwarz import BlockPrecond, _block_expansions, _local_diagonal_block
+from .schwarz import (
+    BlockPrecond,
+    _block_expansions,
+    _local_diagonal_block,
+    agree,
+    local_parts,
+)
+from .sharded import DeviceMesh
 
 __all__ = ["build_block_ilu"]
 
@@ -35,6 +42,7 @@ def build_block_ilu(
     fill_factor: float = 1.0,
     droptol: float = 0.0,
     device=None,
+    mesh: Optional[DeviceMesh] = None,
 ) -> Optional[BlockPrecond]:
     """Per-part ILU(0)/ILUT preconditioners (pass as ``block_precond`` to
     :func:`.sharded.sharded_gmres_solve` or ``block_amg`` to
@@ -44,12 +52,15 @@ def build_block_ilu(
     ``kind``: ``"ilut"`` (the reference's Ifpack2 defaults: level-of-fill
     1.0, drop tolerance 0, ``BelosMueLuSolver.cpp:92-97``) or ``"ilu0"``.
     Returns ``None`` when a part's block hits a zero pivot (the caller falls
-    back to Jacobi)."""
+    back to Jacobi).  Over a ``mesh`` of several processes each factors its
+    own parts, and a zero pivot in any process gives ``None`` in all (the
+    reference's per-rank ILUT under ``mpirun``)."""
     if kind not in ("ilut", "ilu0"):
         raise ValueError(f"unknown ILU kind: {kind!r}")
     rows, pr, pc = _block_expansions(A, plan)
     parts = []
-    for p in range(plan.nparts):
+    pivot = False
+    for p in local_parts(plan, mesh):
         local = _local_diagonal_block(A, plan, p, rows, pr, pc)
         try:
             if kind == "ilut":
@@ -61,6 +72,9 @@ def build_block_ilu(
                 m = ilu0_preconditioner(local, n_pad=plan.n_local,
                                         dtype=dtype, device=device)
         except ZeroDivisionError:
-            return None
+            pivot = True
+            break
         parts.append(m)
+    if agree(pivot, mesh):
+        return None
     return BlockPrecond(parts=parts)

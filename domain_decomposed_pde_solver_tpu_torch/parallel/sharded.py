@@ -27,9 +27,15 @@ part's block over its extended-local space as a square sliced-ELL operator
 and runs it on the sliced-ELL SpMV kernel (``csrc/spmv.cu``), one launch
 per part.
 
-The mesh spans one device.  JAX needs one device per part; the card
-machine has one GPU, and spreading parts over several devices (processes
-with ``torch.distributed``) is ``ROADMAP.md`` Queue 1, item 9c.
+The mesh spans one device in each process.  JAX needs one device per
+part; the card machine has one GPU.  With ``torch.distributed``
+initialised over several processes (:mod:`.multihost`), each process holds
+its own parts ``[rank*k, (rank+1)*k)`` on its own device as ``(k, ...)``
+tensors.  The mesh says which: the collectives above take it, and talk
+to the other processes (:mod:`.collectives`) only over a mesh of several
+processes; with none, or a mesh of one, they run the one-controller code
+whatever process group exists.  The Krylov loops run as they are, with the
+mesh's dot (:meth:`DeviceMesh.dot`).
 """
 
 from __future__ import annotations
@@ -48,6 +54,13 @@ from ..solvers.power import PowerResult, power_method
 from ..solvers.precond.chebyshev import ChebyshevPreconditioner
 from ..solvers.precond.jacobi import DiagonalPreconditioner
 from ..utils.device import resolve_device
+from .collectives import (
+    exchange_rows,
+    gather_parts,
+    max_scalar,
+    process_rank,
+    process_world,
+)
 from .halo import HaloPlan
 
 __all__ = [
@@ -66,21 +79,52 @@ __all__ = [
 ]
 
 AXIS = "parts"
-_SPANS_DEVICES = ("a mesh over more than one device (ROADMAP.md, Queue 1, "
-                  "item 9c: multi-process)")
+_SPANS_DEVICES = ("one process drives one device: run a process per device "
+                  "(parallel.multihost.initialize_multihost)")
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceMesh:
-    """A 1-D mesh of ``nparts`` parts along :data:`AXIS`, all on
-    ``device``."""
+    """A 1-D mesh of ``nparts`` parts along :data:`AXIS`.  Over ``world``
+    processes, process ``rank`` holds the parts ``[parts_lo, parts_lo +
+    local_parts)`` on ``device``; with one process, all of them."""
 
     nparts: int
     device: torch.device
+    rank: int = 0
+    world: int = 1
 
     @property
     def shape(self) -> dict:
         return {AXIS: self.nparts}
+
+    @property
+    def local_parts(self) -> int:
+        return self.nparts // self.world
+
+    @property
+    def parts_lo(self) -> int:
+        return self.rank * self.local_parts
+
+    def local(self, arr):
+        """This process's block of a part-major ``(nparts, ...)`` array
+        (numpy or torch): its rows ``[parts_lo, parts_lo + local_parts)``,
+        JAX's ``_local_rows``; the whole array with one process."""
+        if arr.shape[0] != self.nparts:
+            raise ValueError(f"an array of {arr.shape[0]} parts on a mesh "
+                             f"of {self.nparts}")
+        if self.world == 1:
+            return arr
+        return arr[self.parts_lo: self.parts_lo + self.local_parts]
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """:func:`psum_dot` over this mesh: the dot the Krylov loops take."""
+        return psum_dot(a, b, self)
+
+    def max(self, value: int) -> int:
+        """The largest of every process's host ``value`` over this mesh: a
+        decision every process takes alike."""
+        return int(value) if self.world == 1 else max_scalar(value)
 
 
 def _device_key(d) -> tuple:
@@ -92,59 +136,131 @@ def make_device_mesh(nparts: int,
                      devices: Optional[Sequence] = None) -> DeviceMesh:
     """The mesh of ``nparts`` parts, JAX's name (``sharded.py:45`` there).
 
-    Every part lies on one device: ``devices[0]`` when a list is given,
-    else the card (``resolve_device(None)``).  Unlike JAX's, this mesh
-    always fits, however many parts it has.  A list that names two
-    different devices raises ``NotImplementedError``: the port never places
-    parts on devices silently."""
+    One process: every part lies on one device, ``devices[0]`` when a list
+    is given, else the card (``resolve_device(None)``); unlike JAX's, this
+    mesh always fits, however many parts it has.  With ``torch.distributed``
+    initialised over ``world > 1`` processes: this process's ``nparts /
+    world`` parts, on ``devices[0]`` or else the card ``cuda:(rank %
+    device_count)``; ``nparts % world != 0`` raises ``ValueError``, as
+    JAX's ``_local_rows``.  A list that names two different devices raises
+    ``NotImplementedError``: the port never places parts on devices
+    silently."""
     if nparts < 1:
         raise ValueError(f"nparts must be >= 1, got {nparts}")
+    world = process_world()
+    if world > 1 and nparts % world:
+        raise ValueError(f"nparts={nparts} not divisible by {world} processes")
+    rank = process_rank()
     if devices is None:
-        return DeviceMesh(nparts, resolve_device(None))
+        dev = None
+        if world > 1 and torch.cuda.is_available():
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+        return DeviceMesh(nparts, resolve_device(dev), rank, world)
     devs = list(devices)[:nparts]
     if not devs:
         raise ValueError("devices is empty")
     if len({_device_key(d) for d in devs}) > 1:
         raise NotImplementedError(
             f"devices {[str(d) for d in devs]}: {_SPANS_DEVICES}")
-    return DeviceMesh(nparts, resolve_device(devs[0]))
+    return DeviceMesh(nparts, resolve_device(devs[0]), rank, world)
 
 
 # ---------------------------------------------------------------------------
-# The collectives, on (P, n_local) tensors
+# The collectives, on (P, n_local) tensors (across processes: (k, n_local))
 # ---------------------------------------------------------------------------
 
 
-def halo_index(plan: HaloPlan) -> np.ndarray:
-    """``(P, P*H)`` int64: the position in the flattened ``(P, n_local)``
-    vector of every halo slot, ``[p, q*H + s] = q*n_local + send_idx[q, p,
-    s]`` (JAX's ``take`` of the send buffer and ``all_to_all``)."""
+def part_blocks(plan: HaloPlan, mesh: DeviceMesh) -> tuple:
+    """``(ell_cols, ell_vals, send_idx)`` of the mesh's local parts: cut
+    from a plan that holds all P parts' blocks, or taken whole from a plan
+    that holds only this process's
+    (:func:`.distassembly.assemble_heat_multihost`)."""
+    blocks = (plan.ell_cols, plan.ell_vals, plan.send_idx)
+    held = plan.ell_cols.shape[0]
+    if held == plan.nparts:
+        return tuple(mesh.local(a) for a in blocks)
+    if held != mesh.local_parts:
+        raise ValueError(f"a plan holding {held} of {plan.nparts} parts' "
+                         f"blocks on a process of {mesh.local_parts}")
+    return blocks
+
+
+def halo_index(plan: HaloPlan, mesh: Optional[DeviceMesh] = None
+               ) -> np.ndarray:
+    """One process: ``(P, P*H)`` int64, the position in the flattened
+    ``(P, n_local)`` vector of every halo slot, ``[p, q*H + s] =
+    q*n_local + send_idx[q, p, s]`` (JAX's ``take`` of the send buffer and
+    ``all_to_all``).  Across processes: ``(k, P, H)``, the position in the
+    flattened local ``(k, n_local)`` vector of every value a local part
+    sends, ``[p, q, s] = p*n_local + send_idx[p, q, s]``."""
     P_, H, n = plan.nparts, plan.halo_width, plan.n_local
+    if mesh is not None and mesh.world > 1:
+        send = part_blocks(plan, mesh)[2].astype(np.int64)
+        return send + n * np.arange(send.shape[0], dtype=np.int64)[
+            :, None, None]
     src = plan.send_idx.astype(np.int64).transpose(1, 0, 2)  # [p, q, s]
     return (src + n * np.arange(P_, dtype=np.int64)[None, :, None]
             ).reshape(P_, P_ * H)
 
 
-def halo_exchange(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+def across_processes(values: torch.Tensor,
+                     mesh: Optional[DeviceMesh]) -> bool:
+    """Whether a collective over ``mesh`` crosses processes; over several,
+    ``values`` must hold the mesh's local parts."""
+    if mesh is None or mesh.world == 1:
+        return False
+    if values.shape[0] != mesh.local_parts:
+        raise ValueError(f"{values.shape[0]} parts on a process holding "
+                         f"{mesh.local_parts}")
+    return True
+
+
+def all_parts(values: torch.Tensor,
+              mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """Every part's ``values`` (leading axis): over a ``mesh`` of several
+    processes the local parts' gathered from every process, in part order
+    (every process calls it); else ``values`` itself."""
+    return gather_parts(values) if across_processes(values, mesh) else values
+
+
+def halo_exchange(x: torch.Tensor, index: torch.Tensor,
+                  mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """``x (P, n_local)`` -> ``halo (P, P*H)``: part p's halo, the values
     its columns read from the other parts (``index`` from
-    :func:`halo_index`).  One gather."""
-    return x.reshape(-1)[index]
+    :func:`halo_index`).  One gather.
+
+    Over a ``mesh`` of several processes ``x`` is ``(k, n_local)`` and
+    ``index`` ``(k, P, H)``: the local send buffers, one ``all_to_all``
+    between the processes, and each local part's ``(P*H)`` halo in the
+    same order."""
+    if not across_processes(x, mesh):
+        return x.reshape(-1)[index]
+    k, P_, H = index.shape
+    w = P_ // k
+    send = x.reshape(-1)[index].view(k, w, k, H).permute(1, 0, 2, 3)
+    recv = exchange_rows(send)  # [source process, its part, my part, s]
+    return recv.permute(2, 0, 1, 3).reshape(k, P_ * H)
 
 
-def psum(values: torch.Tensor) -> torch.Tensor:
+def psum(values: torch.Tensor,
+         mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """Sum of per-part values (leading axis) added in part order:
-    ``((v0 + v1) + v2) + ...``, JAX's ``psum`` with a fixed order."""
+    ``((v0 + v1) + v2) + ...``, JAX's ``psum`` with a fixed order.  Over a
+    ``mesh`` of several processes ``values`` holds the local parts': every
+    part's value is gathered first, so every process adds the same P
+    values alike."""
+    values = all_parts(values, mesh)
     total = values[0]
     for p in range(1, values.shape[0]):
         total = total + values[p]
     return total
 
 
-def psum_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def psum_dot(a: torch.Tensor, b: torch.Tensor,
+             mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """The global dot of two ``(P, n_local)`` vectors: each part's dot,
-    then :func:`psum` (JAX's ``_psum_dot``)."""
-    return psum((a * b).sum(dim=1))
+    then :func:`psum` over ``mesh`` (JAX's ``_psum_dot``)."""
+    return psum((a * b).sum(dim=1), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -156,20 +272,23 @@ def psum_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class ShardedOperator:
     """A partitioned sparse operator: each part's ELL block over its
     extended-local space ``[x_own (n_local) | halo (P*H)]``, and the
-    exchange plan.  ``matvec`` takes and returns ``(P, n_local)``."""
+    exchange plan.  ``matvec`` takes and returns ``(P, n_local)``; over a
+    mesh of several processes the operator holds its local parts only
+    (``(k, ...)`` tensors) and runs the halo exchange across them
+    (:meth:`source`)."""
 
     mesh: DeviceMesh
     plan: HaloPlan
     cols: torch.Tensor  # (P, n_local, K) int64 extended-local columns
     vals: torch.Tensor  # (P, n_local, K)
-    halo_idx: torch.Tensor  # (P, P*H) int64 into the flattened x
+    halo_idx: torch.Tensor  # halo_index(plan, mesh)
     flat_cols: torch.Tensor  # (P, n_local*K) int64: cols through the exchange
 
     @classmethod
     def from_plan(cls, plan: HaloPlan, mesh: DeviceMesh,
                   dtype=None) -> "ShardedOperator":
-        """Upload the plan's blocks to ``mesh.device``; values in ``dtype``
-        (numpy or torch; default the plan's)."""
+        """Upload the plan's blocks of the mesh's parts to ``mesh.device``;
+        values in ``dtype`` (numpy or torch; default the plan's)."""
         return cls(**_base_fields(plan, mesh, dtype))
 
     @property
@@ -189,23 +308,45 @@ class ShardedOperator:
         return self.plan.n_local
 
     def put_vector(self, x_global) -> torch.Tensor:
-        """Host ``(n_global,)`` -> ``(P, n_local)`` in the operator's dtype
-        on its device (zeros on padding rows)."""
-        xp = self.plan.scatter_vector(
-            np.asarray(x_global, dtype=_np_dtype(self.dtype)))
-        return torch.from_numpy(xp).to(self.device)
+        """Host ``(n_global,)`` -> ``(P, n_local)`` (across processes this
+        process's ``(k, n_local)``) in the operator's dtype on its device
+        (zeros on padding rows)."""
+        xp = self.mesh.local(self.plan.scatter_vector(
+            np.asarray(x_global, dtype=_np_dtype(self.dtype))))
+        return torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
 
     def get_vector(self, x: torch.Tensor) -> np.ndarray:
-        """``(P, n_local)`` -> host ``(n_global,)`` in original row order."""
-        return self.plan.gather_vector(x.detach().cpu().numpy())
+        """``(P, n_local)`` -> host ``(n_global,)`` in original row order
+        (across processes every process's parts are gathered first: every
+        process calls it)."""
+        return self.plan.gather_vector(
+            all_parts(x.detach(), self.mesh).cpu().numpy())
+
+    def diagonal(self) -> torch.Tensor:
+        """The diagonal of the held parts' rows, ``(P, n_local)`` (across
+        processes ``(k, n_local)``), 0 on padding rows: the Jacobi
+        preconditioner of a system whose global matrix no process holds
+        (:func:`.distassembly.assemble_heat_multihost`)."""
+        own = torch.arange(self.n_local, device=self.device)[None, :, None]
+        return (self.vals * (self.cols == own)).sum(dim=2)
+
+    def source(self, x: torch.Tensor) -> torch.Tensor:
+        """The flattened vector the local products gather from: ``x``
+        itself on one process; across processes ``x`` then every local
+        part's halo from :func:`halo_exchange`."""
+        if self.mesh.world == 1:
+            return x.reshape(-1)
+        return torch.cat([x.reshape(-1), halo_exchange(
+            x, self.halo_idx, self.mesh).reshape(-1)])
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """``y = A x`` over the parts: every part's ELL row sum over its
-        extended-local vector.  The exchange and the column gather are
-        composed into one gather (``flat_cols``); the products and their
-        order are JAX's ``_local_spmv``."""
+        extended-local vector.  With one process the exchange and the
+        column gather are composed into one gather (``flat_cols``); across
+        processes ``flat_cols`` indexes ``[x | halo]``.  The products and
+        their order are JAX's ``_local_spmv``."""
         P_, n, K = self.cols.shape
-        xg = x.reshape(-1)[self.flat_cols].view(P_, n, K)
+        xg = self.source(x)[self.flat_cols].view(P_, n, K)
         return (self.vals * xg).sum(dim=2)
 
 
@@ -215,48 +356,67 @@ def _np_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+def _halo_positions(plan: HaloPlan, mesh: DeviceMesh,
+                    hidx: np.ndarray) -> np.ndarray:
+    """``(k, P*H)``: where each local part's halo slots lie in
+    :meth:`ShardedOperator.source`'s vector (one process: ``hidx`` itself,
+    positions in ``x``; across processes after the ``k*n_local`` own
+    values)."""
+    if mesh.world == 1:
+        return hidx
+    k, PH = mesh.local_parts, plan.nparts * plan.halo_width
+    return k * plan.n_local + np.arange(k * PH, dtype=np.int64).reshape(k, PH)
+
+
 def _base_fields(plan: HaloPlan, mesh: DeviceMesh, dtype) -> dict:
     if mesh.nparts != plan.nparts:
         raise ValueError(f"mesh of {mesh.nparts} parts for a plan of "
                          f"{plan.nparts}")
     dev = mesh.device
-    vals = plan.ell_vals if dtype is None else plan.ell_vals.astype(
-        _np_dtype(dtype))
-    hidx = halo_index(plan)
-    n = plan.n_local
-    cols = plan.ell_cols.astype(np.int64)
-    own = n * np.arange(plan.nparts, dtype=np.int64)[:, None, None] + cols
+    ell_cols, ell_vals = part_blocks(plan, mesh)[:2]
+    vals = ell_vals if dtype is None else ell_vals.astype(_np_dtype(dtype))
+    hidx = halo_index(plan, mesh)
+    halo_pos = _halo_positions(plan, mesh, hidx)
+    n, k = plan.n_local, ell_cols.shape[0]
+    cols = ell_cols.astype(np.int64)
+    own = n * np.arange(k, dtype=np.int64)[:, None, None] + cols
     flat = np.where(
         cols < n, own,
-        np.take_along_axis(hidx, np.maximum(cols - n, 0).reshape(
-            plan.nparts, -1), axis=1).reshape(cols.shape))
+        np.take_along_axis(halo_pos, np.maximum(cols - n, 0).reshape(
+            k, -1), axis=1).reshape(cols.shape))
     return dict(
         mesh=mesh,
         plan=plan,
         cols=torch.from_numpy(cols).to(dev),
         vals=torch.from_numpy(np.ascontiguousarray(vals)).to(dev),
         halo_idx=torch.from_numpy(hidx).to(dev),
-        flat_cols=torch.from_numpy(flat.reshape(plan.nparts, -1)).to(dev),
+        flat_cols=torch.from_numpy(flat.reshape(k, -1)).to(dev),
     )
 
 
-def _bsg_storage(vals: np.ndarray) -> str:
+def _bsg_storage(vals: np.ndarray, mesh: DeviceMesh) -> str:
     """JAX's rule for the sharded blocks (``sharded.py:127-137`` there),
     decided once on the global values so every part stores alike:
-    bfloat16 when every value survives it, else float32."""
+    bfloat16 when every value survives it, else float32.  Across processes
+    each holds its parts' values, and the processes agree on the rule."""
     from ..ops.dia import _bf16_exact
 
-    return "bfloat16" if _bf16_exact(np.asarray(vals).ravel()) else "float32"
+    inexact = mesh.max(not _bf16_exact(np.asarray(vals).ravel()))
+    return "float32" if inexact else "bfloat16"
 
 
 def part_block_csr(plan: HaloPlan, p: int) -> CSRMatrix:
     """Part ``p``'s block as a square CSR over its extended-local space
     (``n_local + P*H`` rows and columns; the halo rows are empty), from
     the plan's nonzero ELL slots, as JAX builds it."""
-    nparts, n_local, K = plan.ell_cols.shape
-    n_ext = n_local + nparts * plan.halo_width
-    cols = np.asarray(plan.ell_cols[p])
-    vals = np.asarray(plan.ell_vals[p], dtype=np.float64)
+    return _block_csr(plan.ell_cols[p], plan.ell_vals[p],
+                      plan.n_local + plan.nparts * plan.halo_width)
+
+
+def _block_csr(cols: np.ndarray, vals: np.ndarray, n_ext: int) -> CSRMatrix:
+    n_local, K = cols.shape
+    cols = np.asarray(cols)
+    vals = np.asarray(vals, dtype=np.float64)
     rows = np.repeat(np.arange(n_local), K)
     nz = vals.reshape(-1) != 0
     r, c, v = rows[nz], cols.reshape(-1)[nz], vals.reshape(-1)[nz]
@@ -277,36 +437,41 @@ class BSGShardedOperator(ShardedOperator):
     (:func:`_bsg_storage`).  Its ``P*H`` halo rows and the padding to a
     multiple of 1024 are empty rows (slices of width 0), which give 0.
 
-    ``matvec``: one gather builds every part's padded extended-local vector
-    (own values, halo, zeros), then one kernel launch per part; the first
-    ``n_local`` rows of each are the answer."""
+    ``matvec``: one gather builds every local part's padded extended-local
+    vector (own values, halo, zeros), then one kernel launch per local
+    part; the first ``n_local`` rows of each are the answer.  Across
+    processes each packs and launches only its own parts, after the halo
+    exchange."""
 
     parts: List[BSGMatrix] = dataclasses.field(default_factory=list)
-    ext_idx: Optional[torch.Tensor] = None  # (P, n_pad) into [x | 0]
+    ext_idx: Optional[torch.Tensor] = None  # (P, n_pad) into [source | 0]
 
     @classmethod
     def from_plan(cls, plan: HaloPlan, mesh: DeviceMesh,
                   dtype=None) -> "BSGShardedOperator":
         base = _base_fields(plan, mesh, dtype)
-        storage = _bsg_storage(plan.ell_vals)
-        parts = [bsg_from_csr(part_block_csr(plan, p), reorder=False,
+        ell_cols, ell_vals = part_blocks(plan, mesh)[:2]
+        storage = _bsg_storage(ell_vals, mesh)
+        n_ext = plan.n_local + plan.nparts * plan.halo_width
+        parts = [bsg_from_csr(_block_csr(c, v, n_ext), reorder=False,
                               storage=storage, layout="dense",
                               device=mesh.device)
-                 for p in range(plan.nparts)]
+                 for c, v in zip(ell_cols, ell_vals)]
         n_pad = parts[0].n_pad
-        n, zero = plan.n_local, plan.nparts * plan.n_local
-        ext = np.full((plan.nparts, n_pad), zero, dtype=np.int64)
-        ext[:, :n] = (n * np.arange(plan.nparts, dtype=np.int64)[:, None]
+        n, k = plan.n_local, ell_cols.shape[0]
+        halo_pos = _halo_positions(plan, mesh, base["halo_idx"].cpu().numpy())
+        zero = k * n + (0 if mesh.world == 1 else halo_pos.size)
+        ext = np.full((k, n_pad), zero, dtype=np.int64)
+        ext[:, :n] = (n * np.arange(k, dtype=np.int64)[:, None]
                       + np.arange(n, dtype=np.int64)[None, :])
-        hidx = base["halo_idx"].cpu().numpy()
-        ext[:, n: n + hidx.shape[1]] = hidx
+        ext[:, n: n + halo_pos.shape[1]] = halo_pos
         return cls(**base, parts=parts,
                    ext_idx=torch.from_numpy(ext).to(mesh.device))
 
     def extended(self, x: torch.Tensor) -> torch.Tensor:
         """``(P, n_pad)``: each part's own values, its halo, then zeros —
         the input of its local product."""
-        xz = torch.cat([x.reshape(-1), x.new_zeros(1)])
+        xz = torch.cat([self.source(x), x.new_zeros(1)])
         return xz[self.ext_idx]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -317,7 +482,7 @@ class BSGShardedOperator(ShardedOperator):
 
 
 # ---------------------------------------------------------------------------
-# Solvers: the single-device loops over (P, n_local) vectors
+# Solvers: the single-device loops over (P, n_local) vectors, the mesh's dot
 # ---------------------------------------------------------------------------
 
 
@@ -356,8 +521,12 @@ def sharded_cg_solve(
       :func:`.schwarz.build_block_amg` or :func:`.schwarzilu.build_block_ilu`
       (it replaces Jacobi, as in JAX);
     - ``coarse_inv`` + ``row_valid`` (:func:`.schwarz.build_coarse_correction`,
-      the plan's ``row_valid``) add the partition-constant coarse
-      correction: two-level Schwarz (:class:`.schwarz.TwoLevelPrecond`)."""
+      the plan's ``row_valid`` of the mesh's parts) add the
+      partition-constant coarse correction: two-level Schwarz
+      (:class:`.schwarz.TwoLevelPrecond`).
+
+    Over a mesh of several processes every vector and per-part
+    preconditioner holds this process's parts (build them with ``mesh=``)."""
     M = _diag_precond(op, b, precond_diag, cheb_lmax, cheb_degree)
     if block_amg is not None:
         M = block_amg
@@ -366,9 +535,10 @@ def sharded_cg_solve(
 
         if M is None:
             M = DiagonalPreconditioner(torch.ones_like(b))
-        M = TwoLevelPrecond(local=M, Ac_inv=coarse_inv, valid=row_valid)
+        M = TwoLevelPrecond(local=M, Ac_inv=coarse_inv, valid=row_valid,
+                            mesh=op.mesh)
     return cg_solve(op, b, x0, precond=M, tol=tol, maxiter=maxiter,
-                    dot=psum_dot)
+                    dot=op.mesh.dot)
 
 
 def sharded_cg_chunk(
@@ -389,7 +559,7 @@ def sharded_cg_chunk(
     unbroken solve's recurrence bit for bit."""
     M = _diag_precond(op, b, precond_diag, cheb_lmax, cheb_degree)
     return cg_solve_with_state(op, b, x, state=state, precond=M, tol=tol,
-                               maxiter=maxiter, dot=psum_dot)
+                               maxiter=maxiter, dot=op.mesh.dot)
 
 
 def sharded_gmres_solve(
@@ -413,7 +583,7 @@ def sharded_gmres_solve(
     if block_precond is not None:
         M = block_precond
     return gmres_solve(op, b, x0, precond=M, restart=restart, tol=tol,
-                       maxiter=maxiter, dot=psum_dot)
+                       maxiter=maxiter, dot=op.mesh.dot)
 
 
 def sharded_power_method(
@@ -427,4 +597,4 @@ def sharded_power_method(
     """The power method over the parts — ``ExodusMatrixTest`` under
     ``mpirun`` (``ExodusMatrixTest.cpp:131-171``)."""
     return power_method(op, z0, maxiter=maxiter, tol=tol,
-                        check_every=check_every, dot=psum_dot)
+                        check_every=check_every, dot=op.mesh.dot)

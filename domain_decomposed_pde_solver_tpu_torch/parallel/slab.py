@@ -11,8 +11,16 @@ parts from one controller on one device (``parallel/sharded.py``), so
   (``scatter_vector`` / ``gather_vector``);
 - the exchange is an explicit function on it: part p receives p - 1's
   last strip and p + 1's first strip, the ring ends zeros
-  (:func:`neighbour_strips`);
+  (:func:`neighbour_strips`; over a mesh of several processes a local
+  ``(k, slab)`` tensor, with the outer strips from the neighbouring
+  processes, :func:`.collectives.ring_strips`);
 - dots are :func:`.sharded.psum_dot`, added in part order.
+
+Every slab engine runs across processes: over a mesh of several, each
+process uploads only its slabs and gets the full answer back.  The slab
+plans here are host arrays, laid out at solve time over the mesh given;
+the hierarchies (:mod:`.slabamg`, :mod:`.slabpad` and the others) upload
+at build time and keep the mesh they were built over (:func:`plan_mesh`).
 
 Two slab operators, both plain PyTorch as in JAX (XLA static slices there,
 no Pallas kernel): :class:`SlabDIAOperator`, the DIA product over the
@@ -33,7 +41,8 @@ from ..ops.dia import DIAMatrix, _torch_dtype, pack_dia_host
 from ..ops.stencil import stencil_core
 from ..solvers.cg import cg_solve
 from ..solvers.precond.jacobi import DiagonalPreconditioner
-from .sharded import DeviceMesh, make_device_mesh, psum_dot
+from .collectives import ring_strips
+from .sharded import DeviceMesh, across_processes, all_parts, make_device_mesh
 
 __all__ = [
     "SlabDIAOperator",
@@ -47,17 +56,24 @@ __all__ = [
 ]
 
 
-def neighbour_strips(x: torch.Tensor, width: int):
+def neighbour_strips(x: torch.Tensor, width: int,
+                     mesh: Optional[DeviceMesh] = None):
     """The ring exchange of a ``(P, slab)`` vector (JAX's two
     ``ppermute`` shifts): ``(left, right)``, each ``(P, width)``, with
     ``left[p]`` part p - 1's last ``width`` entries and ``right[p]`` part
-    p + 1's first, zeros at the ring ends."""
+    p + 1's first, zeros at the ring ends.  Over a ``mesh`` of several
+    processes ``x`` holds the local parts ``(k, slab)``, and the first and
+    last local parts get their outer strips from the neighbouring
+    processes."""
     P_ = x.shape[0]
     left = x.new_zeros((P_, width))
     right = x.new_zeros((P_, width))
     if P_ > 1:
         left[1:] = x[:-1, x.shape[1] - width:]
         right[:-1] = x[1:, :width]
+    if across_processes(x, mesh):
+        left[0], right[-1] = ring_strips(x[0, :width],
+                                         x[-1, x.shape[1] - width:])
     return left, right
 
 
@@ -181,16 +197,19 @@ def build_slab_plan(A, nparts: int, dtype=np.float32,
 @dataclasses.dataclass
 class SlabDIAOperator:
     """The slab DIA product over all parts: ``data`` is ``(P, ndiags,
-    slab)`` on the device; ``matvec`` takes and returns ``(P, slab)``."""
+    slab)`` on the device; ``matvec`` takes and returns ``(P, slab)``.
+    ``mesh``: over several processes, ``data`` and the vectors hold the
+    mesh's local parts."""
 
     data: torch.Tensor
     offsets: Tuple[int, ...]
     halo: int
     slab: int
+    mesh: Optional[DeviceMesh] = None
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         H, S = self.halo, self.slab
-        left, right = neighbour_strips(x, H)
+        left, right = neighbour_strips(x, H, self.mesh)
         x_ext = torch.cat([left, x, right], dim=1)  # (P, S + 2H)
         y = torch.zeros_like(x)
         for d, off in enumerate(self.offsets):
@@ -209,7 +228,7 @@ class SlabStencilOperator:
     each part's product is :func:`..ops.stencil.stencil_core` on its layers
     with those two strips, plus ``corr * x``; ``mask`` zeroes the rows past
     the global grid so dots stay exact.  ``corr`` and ``mask`` are ``(P,
-    slab)``."""
+    slab)``; over a ``mesh`` of several processes, the local parts'."""
 
     pats: torch.Tensor  # (ndiags, p, p, p)
     const_vals: torch.Tensor  # (n_groups,)
@@ -220,6 +239,7 @@ class SlabStencilOperator:
     group_const: tuple
     dims_local: Tuple[int, int, int]
     period: int
+    mesh: Optional[DeviceMesh] = None
 
     @property
     def slab(self) -> int:
@@ -228,7 +248,7 @@ class SlabStencilOperator:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         mx, my, mz_p = self.dims_local
-        lo, hi = neighbour_strips(x, mx * my)
+        lo, hi = neighbour_strips(x, mx * my, self.mesh)
         y = torch.stack([
             stencil_core(
                 x[p].reshape(mz_p, my, mx), lo[p].reshape(my, mx),
@@ -274,15 +294,18 @@ def _mesh(mesh: Optional[DeviceMesh], nparts: int) -> DeviceMesh:
 
 
 def plan_mesh(plan, mesh: Optional[DeviceMesh]) -> DeviceMesh:
-    """``mesh``, or one of the parts of ``plan`` (a slab plan or
-    hierarchy: ``nparts`` and ``device``) on its device; a mesh on another
-    device or of another size raises."""
-    if mesh is None:
-        return make_device_mesh(plan.nparts, [plan.device])
-    if mesh.nparts != plan.nparts or mesh.device != plan.device:
-        raise ValueError(f"mesh of {mesh.nparts} parts on {mesh.device} for "
-                         f"{plan.nparts} parts on {plan.device}")
-    return mesh
+    """The mesh ``plan`` (a slab plan or hierarchy on a device: ``mesh``,
+    ``nparts``, ``device``) holds its parts over: its ``mesh``, or one
+    process over all its parts on its device for a plan made without one;
+    a ``mesh`` given must be that one (another size, device or process
+    layout raises)."""
+    own = plan.mesh or DeviceMesh(plan.nparts, plan.device)
+    if mesh is not None and mesh != own:
+        raise ValueError(
+            f"mesh of {mesh.nparts} parts on {mesh.device} (process "
+            f"{mesh.rank} of {mesh.world}) for a plan of {own.nparts} parts "
+            f"on {own.device} (process {own.rank} of {own.world})")
+    return own
 
 
 def slab_stencil_cg_solve(S, nparts: int, b: np.ndarray, x0: np.ndarray, *,
@@ -292,32 +315,36 @@ def slab_stencil_cg_solve(S, nparts: int, b: np.ndarray, x0: np.ndarray, *,
     """CG over z-layer slabs of a lattice-stencil operator, in float32 as
     JAX's (its vectors, correction and patterns are float32 whatever the
     operator's dtype).  Returns ``(x_host, CGResult)`` or None if the
-    operator cannot be split into layer slabs."""
+    operator cannot be split into layer slabs.  Over a ``mesh`` of several
+    processes each uploads only its slabs, the result's ``x`` is its
+    ``(k, slab)`` iterate and ``x_host`` the full answer."""
     built = build_slab_stencil(S, nparts)
     if built is None:
         return None
     dims_local, corr_p, mask_p, meta = built
     slab = corr_p.shape[1]
     n = S.n_rows
-    dev = _mesh(mesh, nparts).device
+    mesh = _mesh(mesh, nparts)
+    dev = mesh.device
 
     def scatter(v):
         out = np.zeros((nparts, slab), dtype=np.float32)
         out.reshape(-1)[:n] = v
-        return _upload(out, dev)
+        return _upload(mesh.local(out), dev)
 
     d = S.diagonal_padded(fill=1.0).cpu().numpy()[:n]
     inv_d = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 1.0)
     op = SlabStencilOperator(
         pats=S.pats.to(device=dev, dtype=torch.float32),
         const_vals=S.const_vals.to(device=dev, dtype=torch.float32),
-        corr=_upload(corr_p, dev), mask=_upload(mask_p, dev), **meta)
+        corr=_upload(mesh.local(corr_p), dev),
+        mask=_upload(mesh.local(mask_p), dev), mesh=mesh, **meta)
     M = (DiagonalPreconditioner(scatter(inv_d.astype(np.float32)))
          if jacobi else None)
     res = cg_solve(op, scatter(np.asarray(b, np.float32)),
                    scatter(np.asarray(x0, np.float32)), precond=M, tol=tol,
-                   maxiter=maxiter, dot=psum_dot)
-    return res.x.cpu().numpy().reshape(-1)[:n], res
+                   maxiter=maxiter, dot=mesh.dot)
+    return all_parts(res.x, mesh).cpu().numpy().reshape(-1)[:n], res
 
 
 def slab_cg_solve(plan: SlabDIAPlan, b: np.ndarray, x0: np.ndarray, *,
@@ -328,15 +355,20 @@ def slab_cg_solve(plan: SlabDIAPlan, b: np.ndarray, x0: np.ndarray, *,
 
     ``brick_precond``: a :class:`.slabbrick.SlabBrickPrecond`; every part
     then preconditions with its communication-free two-level brick cycle
-    instead of Jacobi.  Returns ``(x_host, CGResult)``."""
-    dev = _mesh(mesh, plan.nparts).device
-    data = _upload(plan.data, dev)
+    instead of Jacobi.  Over a ``mesh`` of several processes
+    each uploads only its slabs (JAX's ``multihost_slab_cg_solve``), the
+    result's ``x`` is its ``(k, slab)`` iterate and ``x_host`` the full
+    answer.  Returns ``(x_host, CGResult)``."""
+    mesh = _mesh(mesh, plan.nparts)
+    dev = mesh.device
+    data = _upload(mesh.local(plan.data), dev)
     op = SlabDIAOperator(data=data, offsets=plan.offsets, halo=plan.halo,
-                         slab=plan.slab)
-    b_s = _upload(plan.scatter_vector(b, dtype=plan.data.dtype), dev)
-    x0_s = _upload(plan.scatter_vector(x0, dtype=plan.data.dtype), dev)
+                         slab=plan.slab, mesh=mesh)
+    dt = plan.data.dtype
+    b_s = _upload(mesh.local(plan.scatter_vector(b, dtype=dt)), dev)
+    x0_s = _upload(mesh.local(plan.scatter_vector(x0, dtype=dt)), dev)
     if brick_precond is not None:
-        M = brick_precond.block(dev)
+        M = brick_precond.block(dev, mesh)
     elif jacobi:
         if 0 in plan.offsets:
             d = data[:, plan.offsets.index(0)]
@@ -347,5 +379,5 @@ def slab_cg_solve(plan: SlabDIAPlan, b: np.ndarray, x0: np.ndarray, *,
     else:
         M = None
     res = cg_solve(op, b_s, x0_s, precond=M, tol=tol, maxiter=maxiter,
-                   dot=psum_dot)
-    return plan.gather_vector(res.x), res
+                   dot=mesh.dot)
+    return plan.gather_vector(all_parts(res.x, mesh)), res

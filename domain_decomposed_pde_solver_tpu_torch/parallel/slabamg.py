@@ -16,7 +16,9 @@ up to the dots' summation order).
   JAX's ``all_gather`` is the reshape of the ``(P, slab_c)`` tensor.
 - **Coarse tail replicated.**  Levels 1 and below are the port's
   single-device levels (DIA and sliced-ELL kernels on the card).  JAX runs
-  one copy per device; the port's one device runs it once.
+  one copy per device; the port's one device runs it once, and over a
+  mesh of several processes every process runs it on the same gathered
+  coarse residual and keeps its parts' rows of the answer.
 
 Set-up reuses :func:`..solvers.precond.amg.smoothed_aggregation_setup`
 for the global hierarchy, then splits level 0.
@@ -40,7 +42,7 @@ from ..solvers.precond.amg import (
     smoothed_aggregation_setup,
 )
 from ..solvers.precond.cheby import chebyshev_smooth
-from .sharded import DeviceMesh, psum_dot
+from .sharded import DeviceMesh, all_parts, make_device_mesh
 from .slab import (
     SlabDIAOperator,
     SlabDIAPlan,
@@ -84,7 +86,8 @@ def coarse_scatter(x_c: torch.Tensor, nparts: int,
 @dataclasses.dataclass(kw_only=True)
 class SlabVCycle:
     """The global V-cycle over ``(P, slab)`` vectors, a CG preconditioner;
-    its level-0 pieces live on one device from the build on.
+    its level-0 pieces live on one device from the build on (over a
+    ``mesh`` of several processes, the local parts' ``(k, slab)``).
 
     The fine level is ``A`` (any slab operator with ``matvec`` on ``(P,
     slab)``); the brick transfers are local to each part's ``dims_local``
@@ -105,6 +108,7 @@ class SlabVCycle:
     dims_local: Tuple[int, int, int]  # (mx, my, layers) per-part grid
     brick: int
     pad: Optional[Tuple[int, int]] = None  # (myp, mxp) of a padded slab
+    mesh: Optional[DeviceMesh] = None  # the mesh the build laid out
 
     @property
     def slab_c(self) -> int:
@@ -118,7 +122,7 @@ class SlabVCycle:
 
     @property
     def nparts(self) -> int:
-        return self.tval.shape[0]
+        return self.tval.shape[0] if self.mesh is None else self.mesh.nparts
 
     def _smooth(self, x, b, x_zero: bool = False):
         # lmax in the working dtype, so the Chebyshev bounds round as JAX's.
@@ -133,10 +137,12 @@ class SlabVCycle:
         # R = T^T (I - A S): the smoothing half, then the brick sums.
         w = r - matvec(x)
         s = w - matvec(self.scale * w)
-        r_c = coarse_gather(
-            brick_sum(self.tval * s, self.dims_local, self.brick, self.pad),
-            self.n_pad_c, self.mask)
-        x_c = coarse_scatter(self.tail(r_c), r.shape[0], self.slab_c)
+        r_c_parts = all_parts(brick_sum(self.tval * s, self.dims_local,
+                                        self.brick, self.pad), self.mesh)
+        r_c = coarse_gather(r_c_parts, self.n_pad_c, self.mask)
+        x_c = coarse_scatter(self.tail(r_c), r_c_parts.shape[0], self.slab_c)
+        if self.mesh is not None:
+            x_c = self.mesh.local(x_c)
         # P = (I - S A) T.
         t = self.tval * brick_expand(x_c, self.dims_local, self.brick,
                                      self.pad)
@@ -160,10 +166,13 @@ def build_slab_amg(
     brick: int = 6,
     dtype=np.float32,
     device=None,
+    mesh: Optional[DeviceMesh] = None,
     **amg_kwargs,
 ) -> Optional[SlabAMG]:
     """Build the partitioned hierarchy; the coarse tail lives on
-    ``device`` (default: the card).  None when the problem does not fit
+    ``device`` (default: the card), the level-0 pieces over ``mesh``
+    (default :func:`.sharded.make_device_mesh` on that device: over several
+    processes, this process's parts).  None when the problem does not fit
     the slab-brick layout (unstructured fine level, slabs thinner than the
     bandwidth, or a z-extent not splittable into whole bricks)."""
     mx, my, mz = (int(v) for v in grid_dims)
@@ -186,13 +195,18 @@ def build_slab_amg(
 
     n = A.n_rows
     dev = M.coarse_inv.device
+    if mesh is None:
+        mesh = make_device_mesh(nparts, [dev])
+    elif mesh.nparts != nparts or mesh.device != dev:
+        raise ValueError(f"mesh of {mesh.nparts} parts on {mesh.device} for "
+                         f"{nparts} slabs on {dev}")
     d = np.asarray(A.diagonal())
     d = np.where(d != 0, d, 1.0)
 
     def _split(v):
         out = np.zeros((plan.nparts, plan.slab), dtype=np.dtype(dtype))
         out.reshape(-1)[:n] = v[:n]
-        return _upload(out, dev)
+        return _upload(mesh.local(out), dev)
 
     n_pad_c = (int(M.levels[1].A.n_pad) if len(M.levels) > 1
                else int(M.coarse_inv.shape[-1]))
@@ -207,11 +221,12 @@ def build_slab_amg(
         op = SlabStencilOperator(
             pats=st.pats.to(device=dev, dtype=torch.float32),
             const_vals=st.const_vals.to(device=dev, dtype=torch.float32),
-            corr=_upload(corr, dev), mask=_upload(mask, dev), **meta)
+            corr=_upload(mesh.local(corr), dev),
+            mask=_upload(mesh.local(mask), dev), mesh=mesh, **meta)
     else:
-        op = SlabDIAOperator(data=_upload(plan.data, dev),
+        op = SlabDIAOperator(data=_upload(mesh.local(plan.data), dev),
                              offsets=plan.offsets, halo=plan.halo,
-                             slab=plan.slab)
+                             slab=plan.slab, mesh=mesh)
     return SlabAMG(
         plan=plan,
         A=op,
@@ -228,6 +243,7 @@ def build_slab_amg(
         n_pad_c=n_pad_c,
         dims_local=(mx, my, mz_p),
         brick=brick,
+        mesh=mesh,
     )
 
 
@@ -235,13 +251,18 @@ def slab_amg_cg_solve(samg: SlabAMG, b: np.ndarray, x0: np.ndarray, *,
                       mesh: Optional[DeviceMesh] = None, tol: float = 1e-12,
                       maxiter: int = 300):
     """CG over the slabs preconditioned by the global hierarchy, in the
-    dtype the hierarchy was built in, on its device (``mesh`` must name
-    that device).  Returns ``(x_host, CGResult)``."""
+    dtype the hierarchy was built in, on its device, over the mesh it was
+    built over (``mesh``, if given, must be that one).  Returns
+    ``(x_host, CGResult)``; over several processes the result's ``x`` is
+    this process's ``(k, slab)`` iterate and ``x_host`` the full answer."""
     plan = samg.plan
     dev = samg.device
-    plan_mesh(samg, mesh)
+    mesh = plan_mesh(samg, mesh)
     vdt = plan.data.dtype
-    res = cg_solve(samg.A, _upload(plan.scatter_vector(b, dtype=vdt), dev),
-                   _upload(plan.scatter_vector(x0, dtype=vdt), dev),
-                   precond=samg, tol=tol, maxiter=maxiter, dot=psum_dot)
-    return plan.gather_vector(res.x), res
+
+    def put(v):
+        return _upload(mesh.local(plan.scatter_vector(v, dtype=vdt)), dev)
+
+    res = cg_solve(samg.A, put(b), put(x0), precond=samg, tol=tol,
+                   maxiter=maxiter, dot=mesh.dot)
+    return plan.gather_vector(all_parts(res.x, mesh)), res

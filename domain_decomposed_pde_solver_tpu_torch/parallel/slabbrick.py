@@ -16,6 +16,10 @@ reductions):
 - optionally the additive slab-mean (Nicolaides) correction: each part's
   residual sum, JAX's scalar ``all_gather``, times a ``(P, P)`` inverse.
 
+Over a mesh of several processes each holds its parts' blocks
+(:meth:`SlabBrickPrecond.block`), and the slab-mean correction gathers
+every part's sum.
+
 The host set-up (the Galerkin blocks and ``np.linalg.inv``) is JAX's,
 copied.
 """
@@ -23,12 +27,13 @@ copied.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..solvers.precond.cheby import chebyshev_smooth
+from .sharded import DeviceMesh, all_parts
 from .slab import SlabDIAPlan, brick_expand, brick_sum
 
 __all__ = ["SlabBrickBlock", "SlabBrickPrecond", "build_slab_brick_precond"]
@@ -37,7 +42,8 @@ __all__ = ["SlabBrickBlock", "SlabBrickPrecond", "build_slab_brick_precond"]
 @dataclasses.dataclass
 class SlabBrickBlock:
     """The two-level cycle of every part, on one device: a CG
-    preconditioner over ``(P, slab)`` vectors."""
+    preconditioner over ``(P, slab)`` vectors (over a ``mesh`` of several
+    processes, its local parts' ``(k, slab)``)."""
 
     data: torch.Tensor  # (P, ndiags, slab) local DIA data
     coarse_inv: torch.Tensor  # (P, nc, nc) dense inverse of T^T A_loc T
@@ -49,6 +55,7 @@ class SlabBrickBlock:
     brick: int
     smooth_steps: int = 2
     use_global: bool = False
+    mesh: Optional[DeviceMesh] = None
 
     def _matvec_local(self, x: torch.Tensor) -> torch.Tensor:
         """Block-diagonal product: the slab DIA form with a zero halo."""
@@ -78,8 +85,11 @@ class SlabBrickBlock:
         x = x + brick_expand(xc.squeeze(-1), self.local_dims, self.brick)
         x = self._smooth(x, r)
         if self.use_global:
-            rg = r.sum(dim=1)  # JAX's all_gather of each part's sum
+            # JAX's all_gather of each part's sum.
+            rg = all_parts(r.sum(dim=1), self.mesh)
             xg = torch.mv(self.acc_inv.to(rg.dtype), rg)
+            if self.mesh is not None:
+                xg = self.mesh.local(xg)
             x = x + xg[:, None]
         return x
 
@@ -101,16 +111,22 @@ class SlabBrickPrecond:
     smooth_steps: int = 2
     use_global: bool = False
 
-    def block(self, device) -> SlabBrickBlock:
-        def put(a):
+    def block(self, device,
+              mesh: Optional[DeviceMesh] = None) -> SlabBrickBlock:
+        """The cycles on ``device``; over a ``mesh`` of several processes,
+        its parts' only."""
+        def put(a, per_part=True):
+            if per_part and mesh is not None:
+                a = mesh.local(a)
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         return SlabBrickBlock(
             data=put(self.data), coarse_inv=put(self.coarse_inv),
-            inv_diag=put(self.inv_diag), acc_inv=put(self.acc_inv),
+            inv_diag=put(self.inv_diag),
+            acc_inv=put(self.acc_inv, per_part=False),
             offsets=self.offsets, slab=self.slab, local_dims=self.local_dims,
             brick=self.brick, smooth_steps=self.smooth_steps,
-            use_global=self.use_global,
+            use_global=self.use_global, mesh=mesh,
         )
 
 

@@ -26,7 +26,10 @@ so dots need no mask), the exchange builds every part's window with one
 strided copy of the owned layers and two strip copies
 (:meth:`SlabPadStencilOperator.extended`), then one launch per part.  On
 a CPU tensor each window takes the kernel's plain version
-(:func:`..ops.stencil_kernel.pad_window_reference`).
+(:func:`..ops.stencil_kernel.pad_window_reference`).  Over a mesh of
+several processes a plan holds its process's parts, and the first and
+last local windows take their outer layers from the neighbouring
+processes (:func:`.collectives.ring_strips`).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from ..ops.stencil_kernel import (
 )
 from ..solvers.cg import cg_solve
 from ..solvers.precond.jacobi import DiagonalPreconditioner
-from .sharded import DeviceMesh, psum_dot
+from .collectives import ring_strips
+from .sharded import DeviceMesh, across_processes, all_parts, make_device_mesh
 from .slab import plan_mesh
 
 __all__ = [
@@ -66,7 +70,9 @@ class SlabPadStencilOperator:
     :class:`..ops.stencil_kernel.PadStencilOperator` semantics on the
     local dims ``(mx, my, L)``.  ``matvec`` takes and returns ``(P,
     L*myp*mxp)`` in float32 or float64 (the f64 residual of
-    :mod:`.slabpadmixed` runs the kernel's double instance)."""
+    :mod:`.slabpadmixed` runs the kernel's double instance).  Over a
+    ``mesh`` of several processes every ``(P, ...)`` is this process's
+    ``(k, ...)``."""
 
     pats: torch.Tensor  # (ndiags, p, p, p) f32: the plain version's
     const_vals: torch.Tensor  # (n_groups,) f32
@@ -81,6 +87,7 @@ class SlabPadStencilOperator:
     myp: int
     mxp: int
     bz: int
+    mesh: Optional[DeviceMesh] = None
     _tables: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     @property
@@ -120,7 +127,8 @@ class SlabPadStencilOperator:
     def extended(self, x: torch.Tensor) -> torch.Tensor:
         """The halo exchange: ``(P, L*layer)`` -> every part's window
         ``(P, (L+2)*layer)``, its owned layers between part p - 1's last
-        layer and part p + 1's first (zeros at the ring ends)."""
+        layer and part p + 1's first (zeros at the ring ends; across
+        processes the outer ones from the neighbouring processes)."""
         P_, L = x.shape[0], self.L
         layer = self.myp * self.mxp
         x3 = x.reshape(P_, L, layer)
@@ -131,6 +139,9 @@ class SlabPadStencilOperator:
         if P_ > 1:
             xe[1:, 0] = x3[:-1, L - 1]
             xe[:-1, L + 1] = x3[1:, 0]
+        if across_processes(x, self.mesh):
+            xe[0, 0], xe[P_ - 1, L + 1] = ring_strips(x3[0, 0],
+                                                      x3[P_ - 1, L - 1])
         return xe.reshape(P_, -1)
 
     def window_products(self, xe: torch.Tensor) -> torch.Tensor:
@@ -152,7 +163,9 @@ class SlabPadStencilOperator:
 class SlabPadPlan:
     """The P-way z-slab split of a pad-stencil operator: JAX's fields, the
     device arrays as tensors on the operator's device, plus the patterns
-    the plain version reads."""
+    the plain version reads.  ``mesh``: the mesh the device arrays are laid
+    out over (over several processes ``corr_ext`` and ``inv_diag`` hold
+    this process's parts; None: all parts, one process)."""
 
     nparts: int
     L: int  # owned layers per part
@@ -167,6 +180,7 @@ class SlabPadPlan:
     meta: dict  # taps/groups/group_const/period
     pats: torch.Tensor  # (ndiags, p, p, p) f32
     const_vals: torch.Tensor  # (n_groups,) f32
+    mesh: Optional[DeviceMesh] = None
 
     @property
     def slab(self) -> int:
@@ -187,30 +201,40 @@ class SlabPadPlan:
         return out.reshape(self.nparts, self.slab)
 
     def put_vector(self, x: np.ndarray, dtype=np.float32) -> torch.Tensor:
-        """:meth:`scatter_vector` on the plan's device."""
-        return torch.from_numpy(self.scatter_vector(x, dtype)).to(self.device)
+        """:meth:`scatter_vector` on the plan's device (this process's
+        parts over a mesh of several)."""
+        xs = self.scatter_vector(x, dtype)
+        if self.mesh is not None:
+            xs = np.ascontiguousarray(self.mesh.local(xs))
+        return torch.from_numpy(xs).to(self.device)
 
     def gather_vector(self, x_parts) -> np.ndarray:
+        """The logical ``(n_rows,)`` host vector of a ``(P, slab)`` one, or
+        over a mesh of several processes of this process's ``(k, slab)``
+        (every process's parts gathered: every process calls it)."""
         if isinstance(x_parts, torch.Tensor):
-            x_parts = x_parts.detach().cpu().numpy()
+            x_parts = all_parts(x_parts, self.mesh).detach().cpu().numpy()
         mx, my, mz = self.dims
         x3 = np.asarray(x_parts).reshape(self.nparts * self.L, self.myp,
                                          self.mxp)
         return np.ascontiguousarray(x3[:mz, 1: my + 1, :mx]).reshape(-1)
 
     def make_ops(self) -> SlabPadStencilOperator:
-        """The operator over all parts, on the plan's device."""
+        """The operator over the plan's parts, on its device."""
         mx, my, _ = self.dims
+        zlims = self.zlims if self.mesh is None else self.mesh.local(
+            self.zlims)
         return SlabPadStencilOperator(
             pats=self.pats,
             const_vals=self.const_vals,
             quads=self.quads,
-            corr_ext=self.corr_ext.reshape(self.nparts, -1),
-            zlim=tuple(int(z) for z in self.zlims[:, 0, 1]),
+            corr_ext=self.corr_ext.reshape(self.corr_ext.shape[0], -1),
+            zlim=tuple(int(z) for z in zlims[:, 0, 1]),
             dims_local=(mx, my, self.L),
             myp=self.myp,
             mxp=self.mxp,
             bz=self.bz,
+            mesh=self.mesh,
             **self.meta,
         )
 
@@ -239,10 +263,15 @@ def slab_layers(mz: int, nparts: int, bz: int, z_align: int = 1):
 
 
 def build_slab_pad_stencil(A: PadStencilOperator, nparts: int,
-                           z_align: int = 1) -> Optional[SlabPadPlan]:
+                           z_align: int = 1,
+                           mesh: Optional[DeviceMesh] = None
+                           ) -> Optional[SlabPadPlan]:
     """Split a :class:`PadStencilOperator` into P z-layer slabs on its
-    device; None when the grid has too few layers for P slabs or no L
-    satisfies the rules (:func:`slab_layers`)."""
+    device, laid out over ``mesh`` (default
+    :func:`.sharded.make_device_mesh` on that device: over several
+    processes, this process's parts); None when the grid has too few
+    layers for P slabs or no L satisfies the rules
+    (:func:`slab_layers`)."""
     mx, my, mz = A.dims
     bz = A.bz
     L = slab_layers(mz, nparts, bz, z_align)
@@ -271,11 +300,13 @@ def build_slab_pad_stencil(A: PadStencilOperator, nparts: int,
 
     meta = dict(taps=A.taps, groups=A.groups, group_const=A.group_const,
                 period=A.period)
+    if mesh is None:
+        mesh = make_device_mesh(nparts, [A.corr.device])
     return SlabPadPlan(
         nparts=nparts, L=L, dims=A.dims, myp=myp, mxp=mxp, bz=bz,
         quads=A.quads.cpu().numpy().astype(np.float32), zlims=zlims,
-        corr_ext=corr_ext.reshape(nparts, (L + 2) * myp, mxp),
-        inv_diag=inv_diag, meta=meta,
+        corr_ext=mesh.local(corr_ext.reshape(nparts, (L + 2) * myp, mxp)),
+        inv_diag=mesh.local(inv_diag), meta=meta, mesh=mesh,
         pats=A.pats.to(torch.float32), const_vals=A.const_vals.to(
             torch.float32),
     )
@@ -285,11 +316,11 @@ def slab_pad_cg_solve(plan: SlabPadPlan, b: np.ndarray, x0: np.ndarray, *,
                       mesh: Optional[DeviceMesh] = None, tol: float = 1e-12,
                       maxiter: int = 1000, jacobi: bool = True):
     """CG over the slabs with kernel 3 as each part's product, float32, on
-    the plan's device (``mesh``, if given, must name it).  Returns
-    ``(x_host, CGResult)``."""
-    plan_mesh(plan, mesh)
+    the plan's device over its mesh (``mesh``, if given, must be that
+    one).  Returns ``(x_host, CGResult)``."""
+    mesh = plan_mesh(plan, mesh)
     op = plan.make_ops()
     M = DiagonalPreconditioner(plan.inv_diag) if jacobi else None
     res = cg_solve(op, plan.put_vector(b), plan.put_vector(x0), precond=M,
-                   tol=tol, maxiter=maxiter, dot=psum_dot)
+                   tol=tol, maxiter=maxiter, dot=mesh.dot)
     return plan.gather_vector(res.x), res

@@ -16,7 +16,8 @@ brick hierarchy of :mod:`.slabamg` with the slab pad-stencil operator of
   fine-level product.  The restriction gathers the coarse residual (the
   reshape of ``(P, slab_c)``), padded or cut to the tail's length and
   masked past the true coarse rows.
-- **Coarse tail**: the port's single-device levels, run once.
+- **Coarse tail**: the port's single-device levels, run once (over a mesh
+  of several processes, once in each on the gathered coarse residual).
 
 Set-up reuses ``smoothed_aggregation_setup(level_info_out=...)`` for the
 global level-0 pieces, so iteration counts are the single-device
@@ -38,7 +39,7 @@ from ..ops.stencil import stencil_parts_from_packed
 from ..ops.stencil_kernel import pad_stencil_from_parts
 from ..solvers.cg import cg_solve
 from ..solvers.precond.amg import AMGPreconditioner, smoothed_aggregation_setup
-from .sharded import DeviceMesh, psum_dot
+from .sharded import DeviceMesh
 from .slabamg import SlabVCycle
 from .slab import plan_mesh
 from .slabpad import SlabPadPlan, build_slab_pad_stencil
@@ -78,6 +79,7 @@ def build_slab_pad_amg(
     pad_op=None,
     brick: int = 6,
     device=None,
+    mesh: Optional[DeviceMesh] = None,
     **amg_kwargs,
 ) -> Optional[SlabPadAMG]:
     """Build the pad-engine partitioned hierarchy (float32, the kernel's
@@ -90,7 +92,9 @@ def build_slab_pad_amg(
     ``pad_stencil_from_parts``); built from the CSR on ``device`` (default
     the card) when omitted.  The slab rules ``L ≡ -2 (mod bz)`` and ``L ≡ 0
     (mod brick)`` are solvable only when ``gcd(bz, brick)`` divides 2; if
-    they are not, the operator is rebuilt with ``bz = 4``, as in JAX."""
+    they are not, the operator is rebuilt with ``bz = 4``, as in JAX.
+    ``mesh``: the level-0 layout (:func:`.slabpad.build_slab_pad_stencil`'s
+    default: over several processes, this process's parts)."""
     mx, my, mz = (int(v) for v in grid_dims)
     if mx * my * mz != A.n_rows:
         return None
@@ -98,11 +102,12 @@ def build_slab_pad_amg(
         pad_op = _pad_op_from_csr(A, grid_dims, device)
         if pad_op is None:
             return None
-    plan = build_slab_pad_stencil(pad_op, nparts, z_align=brick)
+    plan = build_slab_pad_stencil(pad_op, nparts, z_align=brick, mesh=mesh)
     if plan is None and math.gcd(pad_op.bz, brick) > 2:
         pad_op = _pad_op_from_csr(A, grid_dims, pad_op.device, bz=4)
         if pad_op is not None:
-            plan = build_slab_pad_stencil(pad_op, nparts, z_align=brick)
+            plan = build_slab_pad_stencil(pad_op, nparts, z_align=brick,
+                                          mesh=mesh)
     if plan is None:
         return None
 
@@ -119,7 +124,7 @@ def build_slab_pad_amg(
     # Level-0 pieces embedded into the owned stacked padded slab layout.
     tval_flat = (1.0 / np.sqrt(np.maximum(li["counts"], 1.0)))[li["agg"]]
     scale_flat = (li["omega"] / li["lmax"]) / li["d"]
-    inv_diag = plan.scatter_vector(1.0 / li["d"])
+    inv_diag = plan.mesh.local(plan.scatter_vector(1.0 / li["d"]))
     n_c = int(li["agg"].max()) + 1
     n_pad_c = (int(M.levels[1].A.n_pad) if len(M.levels) > 1
                else int(M.coarse_inv.shape[-1]))
@@ -144,6 +149,7 @@ def build_slab_pad_amg(
         dims_local=(mx, my, plan.L),
         brick=brick,
         pad=(plan.myp, plan.mxp),
+        mesh=plan.mesh,
     )
 
 
@@ -151,10 +157,10 @@ def slab_pad_amg_cg_solve(samg: SlabPadAMG, b: np.ndarray, x0: np.ndarray,
                           *, mesh: Optional[DeviceMesh] = None,
                           tol: float = 1e-12, maxiter: int = 300):
     """CG over the slabs preconditioned by the global hierarchy, kernel 3
-    on every part's fine product; float32, on the plan's device.  Returns
-    ``(x_host, CGResult)``."""
+    on every part's fine product; float32, on the plan's device over its
+    mesh.  Returns ``(x_host, CGResult)``."""
     plan = samg.plan
-    plan_mesh(plan, mesh)
+    mesh = plan_mesh(plan, mesh)
     res = cg_solve(samg.A, plan.put_vector(b), plan.put_vector(x0),
-                   precond=samg, tol=tol, maxiter=maxiter, dot=psum_dot)
+                   precond=samg, tol=tol, maxiter=maxiter, dot=mesh.dot)
     return plan.gather_vector(res.x), res

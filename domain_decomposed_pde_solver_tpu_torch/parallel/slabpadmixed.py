@@ -32,7 +32,7 @@ import torch
 
 from ..solvers.cg import cg_solve
 from ..solvers.mixed import MixedSolveResult, _adaptive_inner_tol, _sync
-from .sharded import DeviceMesh, psum_dot
+from .sharded import DeviceMesh
 from .slab import plan_mesh
 from .slabpadamg import SlabPadAMG
 
@@ -59,7 +59,8 @@ def slab_pad_amg_refine_solve(
     carries its stencil).  ``x0``: an optional f64 warm start (one more
     residual product); the default zero start knows ``r0 = b``.  The
     result's ``x`` is the host f64 answer in the logical (lexicographic)
-    order."""
+    order; over a hierarchy built on a mesh of several processes, each
+    process runs its parts and gets the whole answer."""
     if pad_op is None:
         pad_op = samg.pad_op
     if pad_op is None:
@@ -67,7 +68,7 @@ def slab_pad_amg_refine_solve(
     if b is None:
         raise ValueError("b is required")
     plan = samg.plan
-    plan_mesh(plan, mesh)
+    dot = plan_mesh(plan, mesh).dot
     dev = plan.device
 
     t0 = time.perf_counter()
@@ -81,7 +82,7 @@ def slab_pad_amg_refine_solve(
     else:
         x64 = plan.put_vector(np.asarray(x0, np.float64), dtype=np.float64)
         r64 = b64 - op.matvec(x64)
-        relres = float(torch.sqrt(psum_dot(r64, r64))) / bnorm
+        relres = float(torch.sqrt(dot(r64, r64))) / bnorm
     _sync(dev)
 
     t1 = time.perf_counter()
@@ -89,14 +90,14 @@ def slab_pad_amg_refine_solve(
     refinements = 0
     while relres > tol and refinements < max_refinements:
         itol = _adaptive_inner_tol(inner_tol, tol, relres)
-        rnorm = torch.sqrt(psum_dot(r64, r64))
+        rnorm = torch.sqrt(dot(r64, r64))
         rnorm = torch.where(rnorm == 0, torch.ones_like(rnorm), rnorm)
         r32 = (r64 / rnorm).to(torch.float32)
         res = cg_solve(op, r32, torch.zeros_like(r32), precond=samg, tol=itol,
-                       maxiter=inner_maxiter, dot=psum_dot)
+                       maxiter=inner_maxiter, dot=dot)
         x_new = x64 + res.x.to(torch.float64) * rnorm
         r_new = b64 - op.matvec(x_new)
-        new_relres = float(torch.sqrt(psum_dot(r_new, r_new))) / bnorm
+        new_relres = float(torch.sqrt(dot(r_new, r_new))) / bnorm
         inner_total += int(res.iterations)
         refinements += 1
         if new_relres >= relres:  # stagnation at the f32 floor

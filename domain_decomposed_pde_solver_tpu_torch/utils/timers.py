@@ -1,21 +1,24 @@
-"""Phase timers — counterpart of the JAX package's ``utils/timers.py``.
+"""Phase timers and profiler traces — counterpart of the JAX package's
+``utils/timers.py``.
 
 Nested named phases with a report.  PyTorch returns before the card has
 finished the work it was given, so a phase synchronises the CUDA devices
 (when there are any) at its end: the time of a phase is the time of its
-work, not of its enqueue.
+work, not of its enqueue.  :func:`trace_to` writes a ``torch.profiler``
+trace of a block, JAX's ``jax.profiler`` trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import OrderedDict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["PhaseTimer"]
+__all__ = ["PhaseTimer", "trace_to"]
 
 
 def _synchronize() -> None:
@@ -59,3 +62,29 @@ class PhaseTimer:
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self.totals)
+
+
+@contextlib.contextmanager
+def trace_to(logdir: Optional[str]) -> Iterator[None]:
+    """``torch.profiler`` trace of the block, written as a Chrome trace
+    (``trace.<pid>.<ns>.json``) into ``logdir``: host activity, and the
+    card's when CUDA is available.  Does nothing when ``logdir`` is None
+    (JAX's ``trace_to``)."""
+    if logdir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        _synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"trace.{os.getpid()}.{time.time_ns()}.json"))

@@ -5,7 +5,9 @@ solves on the CPU; also each part's sliced-ELL launch of the partitioned
 operator (``parallel.BSGShardedOperator``) and partitioned Jacobi-CG on
 the card against the CPU's iterations, and the pad-stencil kernel on the
 windows of a z-slab split (``parallel.build_slab_pad_stencil``) with the
-slab-pad AMG solve on the card against the CPU's iterations.
+slab-pad AMG solve on the card against the CPU's iterations; and two
+processes sharing the card over gloo (``chip_smoke.py`` phase J at a
+small size).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -1218,3 +1220,25 @@ def test_smoke_timing_falls_back_to_events_without_a_trace(cuda_device,
 
     ms = chip_smoke._per_part_ms(Op(), x, [fn, fn], reps=3, attempts=2)
     assert len(ms) == 2 and all(m > 0 for m in ms)
+
+
+def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
+    """``chip_smoke.py`` phase J at a small size: two worker processes on
+    the card over gloo (every collective staged through host memory), the
+    distributed assembly with f64 Jacobi-CG, ``BSGShardedOperator`` with
+    kernel 1 on each process's two parts (two launches per product, each
+    against its plain version) and the slab CG across the processes, each
+    held to the same solve in one process; the phase's own checks fail it
+    otherwise."""
+    import chip_smoke
+
+    cfg = dict(hex_box=12, tet_box=16, hex_dof=11 * 13 * 13,
+               tet_dof=15 * 17 * 17, device="cuda")
+    run = chip_smoke.phase_j(cuda_device, cfg=cfg, out=tmp_path)
+    for r in run["workers"]:
+        assert (r["backend"], r["staged"], r["device"]) == (
+            "gloo", True, "cuda:0")
+        assert r["J2"]["per_product"] == 2
+        assert r["J2"]["launches"] == 2 * (r["J2"]["iterations"] + 1)
+        assert r["J3"]["iterations"] == run["workers"][0]["J3"]["iterations"]
+    assert run["checkpoint_rows"] == [0, 1, 2, 3]

@@ -2,9 +2,9 @@
 
 For every name in the ``__all__`` of a JAX subpackage, either the port
 defines it, and then exports it by the same import path and lists it in
-its own ``__all__``, or it stands below among the names not yet ported,
-with the ``ROADMAP.md`` item that ports it (or the reason it is not
-ported).  A name the port comes to define must move out of that list.
+its own ``__all__``, or it stands below among the names not ported by
+design, with the reason.  A name the port comes to define must move out
+of that list.
 """
 
 import importlib
@@ -19,8 +19,6 @@ import pytest
 JAX = "domain_decomposed_pde_solver_tpu"
 PORT = "domain_decomposed_pde_solver_tpu_torch"
 
-ITEM9C = "ROADMAP.md Queue 1, item 9c (multi-process)"
-ITEM10 = "ROADMAP.md Queue 1, item 10 (the port's bench)"
 BY_DESIGN = "not ported by design (ROADMAP.md North star)"
 
 NOT_PORTED = {
@@ -32,18 +30,12 @@ NOT_PORTED = {
         "SplitELLMatrix": BY_DESIGN,
         "splitell_from_csr": BY_DESIGN,
     },
-    "parallel": {
-        **{name: ITEM9C for name in (
-            "initialize_multihost", "multihost_slab_cg_solve", "put_global",
-        )},
-    },
+    "parallel": {},
     "solvers": {},
     "solvers.precond": {},
     "utils": {
-        "enable_malloc_reuse": ITEM10,
         "enable_persistent_cache": BY_DESIGN + ": nvcc builds are cached "
                                                "in build/kernels/",
-        "trace_to": ITEM10,
     },
 }
 

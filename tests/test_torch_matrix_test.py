@@ -7,8 +7,9 @@
 - ``cli.matrix_test.main`` prints JAX's report lines; the numbers agree to
   8 significant digits (the same f64 iteration summed in another order).
 - ``--partitions 2`` runs the partitioned power method (held to JAX's in
-  ``test_torch_parallel_cli.py``); only a mesh that spans two devices
-  raises ``NotImplementedError``, naming ROADMAP item 9c.
+  ``test_torch_parallel_cli.py``); only a mesh that spans two devices in
+  one process raises ``NotImplementedError``, naming the multi-process
+  route.
 """
 
 import re
@@ -128,7 +129,7 @@ def test_cli_partitions_raise(tmp_path):
     assert main(["--input", str(path), "--cpu", "--partitions", "2"],
                 report=report) == 0
     assert report["plan"].nparts == 2
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(NotImplementedError, match="initialize_multihost"):
         make_device_mesh(2, ["cpu", "cuda:0"])
 
 

@@ -184,7 +184,7 @@ def test_make_device_mesh():
     assert (m.nparts, m.device, m.shape) == (8, torch.device("cpu"),
                                              {"parts": 8})
     assert T.make_device_mesh(3, ["cpu", "cpu", "cpu", "cuda:0"]).nparts == 3
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(NotImplementedError, match="initialize_multihost"):
         T.make_device_mesh(2, ["cpu", "cuda:0"])
     with pytest.raises(ValueError):
         T.make_device_mesh(0, ["cpu"])
