@@ -192,22 +192,43 @@ J. The multi-process decomposition, in a process of its own as F-I
    free rows): ``assemble_heat_multihost``, each process reading only its
    element slice; rank 0's blocks bit-identical to ``build_halo_plan``'s
    slices of the global system; one product against the host CSR (1e-9);
-   f64 Jacobi ``sharded_cg_solve`` to 1e-8 within one iteration of this
-   process's one-process solve over the same 4 parts, host relres
-   <= 1.5e-8.
+   f64 Jacobi ``sharded_cg_solve`` to 1e-8 in this process's one-process
+   solve's iterations over the same 4 parts, its answer bit for bit, host
+   relres <= 1.5e-8.
    J2. ``BSGShardedOperator`` on J1's blocks in f32 (kernel 1 on each
    local part): exactly 2 launches per product in each process, each
    part's launch against its plain version (1e-6 relative), Jacobi-CG to
-   1e-6 within max(2, 2 %) of one process, host relres <= 5e-6 plus the
-   f32 floor.
+   1e-6 in one process's iterations, its answer bit for bit, host relres
+   <= 5e-6 plus the f32 floor.
    J3. ``multihost_slab_cg_solve`` on path A's system over 4 slabs, f32
-   Jacobi to 1e-6: the same full answer in both processes, within max(2,
-   2 %) iterations and 1e-5 of one process's, host relres <= 5e-6 plus
-   the f32 floor; a sharded checkpoint of the iterate from each process,
-   reassembled here bit for bit.
+   Jacobi to 1e-6: one process's iterations and answer, bit for bit, in
+   both processes (every part's dot is summed in tiles whose arithmetic
+   does not depend on the parts a process holds), host relres <= 5e-6
+   plus the f32 floor; a sharded checkpoint of the iterate from each
+   process, reassembled here bit for bit.
+   The cause it repairs, shown at J1's part width: a plain row sum of
+   ``(4, n)`` against its ``(2, n)`` halves, and the tile sums, which
+   must agree bit for bit.
+   With a card per process (two cards or more), J1 once more over NCCL:
+   the gloo run's iterations and answer bit for bit; on one card a line
+   says NCCL was not run (NCCL refuses two ranks on one GPU).
    Timed per process: J1's and J3's solves, one ``psum_dot``,
    ``halo_exchange`` and ``neighbour_strips`` across the processes (CUDA
    events) beside the same calls in one process, and the peak host RSS.
+K. The port's examples and console scripts, in a process of its own as
+   F-J (``--phase-k``): each of the seven scripts of
+   ``domain_decomposed_pde_solver_tpu_torch/examples/`` through
+   ``runpy.run_path`` on the card (no flag) and again with ``--cpu``, the
+   kernels each launched printed (01, 03 and 07 must launch one), its
+   printed numbers held to the ``--cpu`` run's (``example_mismatches``:
+   iterations equal in f64, within one in f32; sweeps equal, inner
+   iterations within one per sweep; a relres within its printed
+   precision, f32 and refined residuals and FEM errors within the
+   script's tolerance), 06's count the same at every P; then the five
+   ``ddps-torch-*`` console scripts, resolved from ``pyproject.toml``'s
+   ``[project.scripts]`` (no install) and called as their wrappers call
+   them: ``ddps-torch-solve`` on path B's file in path B's iterations,
+   the other four on the same 20^3 box, each exiting 0.
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
@@ -2562,7 +2583,7 @@ def phase_i2(device, kernels, run_i1) -> dict:
     its = res["slab-pad Jacobi f32"]["iterations"]
     log(f"[I2] single-device Jacobi-CG on the pad operator: "
         f"{rj.iterations} iterations")
-    check(abs(its - rj.iterations) <= max(2, 0.02 * rj.iterations),
+    check(_within(its, rj.iterations),
           f"[I2] slab-pad Jacobi-CG {its} iterations, single device "
           f"{rj.iterations}")
 
@@ -2691,7 +2712,7 @@ def phase_i3(device, kernels, refs, n: int = G_BOX,
     op = plan.make_ops()
     window_errs = _window_checks(device, op, errs, "I3")
     return dict(dof=sy.n_free, dims=list(dims), L=plan.L, bz=plan.bz,
-                zlims=plan.zlims[:, 0, 1].tolist(), times=times,
+                zlims=plan.zlims[:, 0, 1].tolist(), times=times, system=sy,
                 cg=dict(iterations=r.iterations, relres=r.relres,
                         wall_s=w_cg),
                 refine=dict(sweeps=mr.refinements,
@@ -2732,12 +2753,34 @@ def phase_i(device, kernels, refs, exo=None, n10: int = G_BOX,
     return dict(I1=i1, I2=i2, I3=i3, errs=errs, wall_s=wall)
 
 
+def _window_csr(S, op, p: int, xe, dtype, device):
+    """Part ``p``'s window of the system ``S`` (host CSR, rows in the free
+    grid's lexicographic order) as a CUDA CSR tensor, and the window's
+    real values of ``xe[p]`` in that order: the rows of its real owned
+    layers, the columns of those layers and of the halo layers that
+    exist -- the product kernel 3 computes on the window."""
+    mx, my, _ = op.dims
+    lay, lo, z = mx * my, p * op.L, op.zlim[p]
+    hi_halo = p + 1 < op.nparts and op.zlim[p + 1] > 0
+    z0, z1 = max(lo - 1, 0), lo + z + int(hi_halo)
+    r0, r1 = lo * lay, (lo + z) * lay
+    a, b = S.indptr[r0], S.indptr[r1]
+    csr = _csr_tensor(S.indptr[r0: r1 + 1] - a, S.indices[a:b] - z0 * lay,
+                      S.data[a:b], (z1 - z0) * lay, dtype, device)
+    w = xe[p].view(op.L + 2, op.myp, op.mxp)
+    first = z0 - (lo - 1)  # 1 when the low halo layer lies outside
+    x = w[first: first + z1 - z0, 1: my + 1, :mx].reshape(-1).contiguous()
+    return csr, x, int(b - a)
+
+
 def time_phase_i(device, card, run_i) -> dict:
     """Kernel 3 per part on the slab windows of I2 (1M) and I3 (10M):
     profiler device time of each part's launch in a slab product, beside
-    its bound and its plain version; the exchange by CUDA events and
-    device time; the slab product whole; and each counted solve again
-    under the profiler (device and busy time, wall, idle share)."""
+    its bound and its plain version, and cuSPARSE CSR on an interior
+    window's rows (the library call, never made by the port); the
+    exchange by CUDA events and device time; the slab product whole; and
+    each counted solve again under the profiler (device and busy time,
+    wall, idle share)."""
     import torch
 
     from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
@@ -2746,6 +2789,7 @@ def time_phase_i(device, card, run_i) -> dict:
     )
 
     out = {}
+    systems = {"I2": run_i["I1"]["system"].A, "I3": run_i["I3"]["system"].A}
     for tag in ("I2", "I3"):
         op = run_i[tag]["op"]
         for name in ("float32", "float64"):
@@ -2766,14 +2810,20 @@ def time_phase_i(device, card, run_i) -> dict:
                     real_layers=op.zlim[p],
                     plain_ms=time_ms(lambda p=p: pad_window_reference(
                         op, xe[p], op.corr_ext[p], op.zlim[p]), reps=10)))
+            csr, xw, nnz = _window_csr(systems[tag], op, 1, xe,
+                                       getattr(torch, name), device)
+            lib = time_ms(lambda: csr @ xw)
+            del csr
             exch = profile_device(lambda: op.extended(x))
             t = dict(per_part=parts, matvec_ms=time_ms(lambda: op.matvec(x)),
                      exchange_ms=time_ms(lambda: op.extended(x)),
-                     exchange_device_ms=exch["device_ms"])
+                     exchange_device_ms=exch["device_ms"],
+                     library_part=1, library_nnz=nnz, library_ms=lib)
             log(f"[E] {tag} {name}: kernel 3 per part (ms, bound ms): "
                 f"{[(round(q['ms'], 5), round(q['bound_ms'], 5)) for q in parts]}"
                 f"; plain per part {[round(q['plain_ms'], 4) for q in parts]}"
-                f" ms; the slab product {t['matvec_ms']:.4f} ms, the exchange "
+                f" ms; cuSPARSE CSR on part 1's window ({nnz} nnz) "
+                f"{lib:.5f} ms; the slab product {t['matvec_ms']:.4f} ms, the exchange "
                 f"{t['exchange_ms']:.4f} ms ({exch['device_ms']:.4f} ms of "
                 f"device time) [{card}]")
             out[f"{tag} {name}"] = t
@@ -2809,7 +2859,7 @@ def phase_i_record(run_i) -> dict:
     i2 = {k: v for k, v in run_i["I2"].items()
           if k not in ("op", "replays", "errs")}
     i3 = {k: v for k, v in run_i["I3"].items()
-          if k not in ("op", "replays", "errs")}
+          if k not in ("op", "replays", "errs", "system")}
     return dict(I1=i1, I2=i2, I3=i3, wall_s=run_i["wall_s"])
 
 
@@ -2866,7 +2916,7 @@ J_PARTS = 4
 J_WORLD = 2
 J_TIMEOUT = 600.0  # seconds the workers may take, and a collective may wait
 J_FULL = dict(hex_box=BOX, tet_box=BOX, hex_dof=BOX_DOF, tet_dof=BOX_DOF,
-              device="cuda")
+              device="cuda", backend="gloo")
 
 
 def _j_device(cfg: dict, rank: int = 0):
@@ -2978,7 +3028,8 @@ def _j1_worker(device, cfg, exo, rank) -> tuple:
         maxiter=20000), device)
     u = op.get_vector(res.x)
     check(res.converged, f"[J1] CG stopped at relres {res.relres:.3e}")
-    rec.update(iterations=res.iterations, relres=res.relres, solve_ms=ms)
+    rec.update(iterations=res.iterations, relres=res.relres, solve_ms=ms,
+               x=u)
     if rank == 0:
         rec["host_relres"] = host_relres(S, u, b_ref)
         check(rec["host_relres"] <= 1.5e-8,
@@ -3031,6 +3082,7 @@ def _j2_worker(device, kernels, op, plan, b, S, rank, errs) -> dict:
               f"[J2] {rec['launches']} kernel-1 launches in "
               f"{res.iterations + 1} products over {k} parts")
     u = bop.get_vector(res.x)
+    rec["x"] = u
     # Each local part's launch against its plain version (not counted).
     rng = np.random.default_rng(17 + rank)
     xe = bop.extended(torch.as_tensor(
@@ -3120,8 +3172,9 @@ def _j3_worker(device, cfg, out, rank) -> tuple:
 
 
 def _collective_ms(device, op, slab_plan, reps: int = 50) -> dict:
-    """One ``psum_dot``, one ``halo_exchange`` and one ``neighbour_strips``
-    on the vectors of J1 and J3 (over processes: the local parts, every
+    """One ``psum_dot``, one ``halo_exchange`` and (with ``slab_plan``)
+    one ``neighbour_strips`` on the vectors of J1 and J3 (over processes:
+    the local parts, every
     timing started after a barrier, so no process waits there for one
     still busy with earlier work)."""
     import torch
@@ -3138,13 +3191,15 @@ def _collective_ms(device, op, slab_plan, reps: int = 50) -> dict:
     g = torch.Generator(device=device).manual_seed(3)
     x = torch.randn(op.cols.shape[:2], generator=g, device=device,
                     dtype=torch.float64)
-    xs = torch.randn((x.shape[0], slab_plan.slab), generator=g,
-                     device=device, dtype=torch.float32)
+    xs = None if slab_plan is None else torch.randn(
+        (x.shape[0], slab_plan.slab), generator=g, device=device,
+        dtype=torch.float32)
     calls = dict(
         psum_dot=lambda: psum_dot(x, x, op.mesh),
-        halo_exchange=lambda: halo_exchange(x, op.halo_idx, op.mesh),
-        neighbour_strips=lambda: neighbour_strips(xs, slab_plan.halo,
-                                                  op.mesh))
+        halo_exchange=lambda: halo_exchange(x, op.halo_idx, op.mesh))
+    if slab_plan is not None:
+        calls["neighbour_strips"] = lambda: neighbour_strips(
+            xs, slab_plan.halo, op.mesh)
     out = {}
     for name, fn in calls.items():
         if dist.is_initialized():
@@ -3158,11 +3213,14 @@ def phase_j_worker(rank: str, world: str, addr: str, out: str,
     """One worker of phase J (``python3 chip_smoke.py --phase-j-worker RANK
     WORLD URL OUT [CFG]``): join the process group at ``URL``, run J1-J3
     and the collectives' timing over its parts, and write its record to
-    ``OUT/phase_j.rank{RANK}.json``.  ``CFG``: JSON overrides of
-    :data:`J_FULL` (the CPU tests' sizes)."""
+    ``OUT/phase_j.rank{RANK}.json`` and its J1 and J2 answers beside it.
+    ``CFG``: JSON overrides of :data:`J_FULL` (the CPU tests' sizes);
+    ``"backend": "nccl"`` runs J1 and the collectives only, with a card
+    per process, into ``phase_j_nccl.*``."""
     import logging
     import resource
 
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -3183,20 +3241,27 @@ def phase_j_worker(rank: str, world: str, addr: str, out: str,
     torch.set_num_threads(2)  # the parent and the other worker share the host
     kernels = _kernels.KERNELS
     if device.type == "cuda":
+        torch.cuda.set_device(device)  # events and streams on this card
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = _kernels.build_kernels()  # built by the parent: a load
     t_start = time.perf_counter()
+    backend = cfg["backend"]
     got = initialize_multihost(addr, world, rank, device=cfg["device"],
-                               timeout_s=J_TIMEOUT)
+                               backend=backend, timeout_s=J_TIMEOUT)
     check(got == rank, f"[J] rank {got}, not {rank}")
     rec = dict(rank=rank, world=world, backend=dist.get_backend(),
                staged=staged(device), device=str(device))
     errs = {}
+    tag = "" if backend == "gloo" else f"_{backend}"
     j1, op, plan, b, S = _j1_worker(device, cfg, out / cfg["hex_exo"], rank)
     rec["J1"] = j1
-    rec["J2"] = _j2_worker(device, kernels, op, plan, b, S, rank, errs)
-    del S
-    rec["J3"], slab_plan = _j3_worker(device, cfg, out, rank)
+    np.save(out / f"j1_x{tag}.rank{rank}.npy", j1.pop("x"))
+    slab_plan = None
+    if backend == "gloo":
+        rec["J2"] = _j2_worker(device, kernels, op, plan, b, S, rank, errs)
+        np.save(out / f"j2_x.rank{rank}.npy", rec["J2"].pop("x"))
+        del S
+        rec["J3"], slab_plan = _j3_worker(device, cfg, out, rank)
     rec["collectives_ms"] = _collective_ms(device, op, slab_plan)
     rec["errs"] = errs
     rec["wall_s"] = time.perf_counter() - t_start
@@ -3206,7 +3271,7 @@ def phase_j_worker(rank: str, world: str, addr: str, out: str,
         f"{json.dumps(rec['collectives_ms'])}, peak RSS "
         f"{rec['peak_rss_mb']:.0f} MiB, {rec['wall_s']:.1f} s")
     dist.destroy_process_group()
-    (out / f"phase_j.rank{rank}.json").write_text(json.dumps(rec))
+    (out / f"phase_j{tag}.rank{rank}.json").write_text(json.dumps(rec))
     return 0
 
 
@@ -3269,22 +3334,119 @@ def _j_references(device, host) -> dict:
     log(f"[J] one process: J1 {r1.iterations} iterations ({ms1:.1f} ms), "
         f"J2 {r2.iterations} ({ms2:.1f} ms), J3 {r3.iterations} "
         f"({ms3:.1f} ms)")
-    return dict(J1=dict(iterations=r1.iterations, solve_ms=ms1),
+    return dict(J1=dict(iterations=r1.iterations, solve_ms=ms1,
+                        x=op.get_vector(r1.x)),
                 J2=dict(iterations=r2.iterations, solve_ms=ms2,
-                        storage=bop.parts[0].storage),
+                        storage=bop.parts[0].storage,
+                        x=bop.get_vector(r2.x)),
                 J3=dict(iterations=r3.iterations, solve_ms=ms3, x=x3),
                 collectives_ms=_collective_ms(device, op, plan3))
 
 
 def _within(a: int, b: int) -> bool:
+    """Iteration counts of two float32 solves that add in another order:
+    within max(2, 2 %)."""
     return abs(a - b) <= max(2, 0.02 * b)
+
+
+def part_sum_study(device, n: int, parts: int = J_PARTS,
+                   world: int = J_WORLD) -> dict:
+    """Why a part's sum is summed in tiles: each part's row sum of a
+    ``(parts, n)`` product against the same rows summed ``parts / world``
+    at a time, as a process of ``world`` holds them -- a plain ``sum(dim=1)``
+    and :func:`..parallel.sharded.part_tiles` -- in f32 and f64: the rows
+    that differ and the largest relative difference.  The tiles must not
+    differ."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.parallel.sharded import (
+        part_tiles,
+    )
+
+    g = torch.Generator(device=device).manual_seed(n)
+    k = parts // world
+    out = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        prod = (torch.randn(parts, n, generator=g, device=device, dtype=dt)
+                * torch.randn(parts, n, generator=g, device=device, dtype=dt))
+        rec = {}
+        for label, fn in (("row_sum", lambda v: v.sum(dim=1)),
+                          ("tiles", part_tiles)):
+            whole = fn(prod)
+            held = torch.cat([fn(prod[r * k:(r + 1) * k])
+                              for r in range(world)])
+            rec[f"{label}_rows_differ"] = int(
+                (whole != held).reshape(parts, -1).any(dim=1).sum())
+            rec[f"{label}_max_rel"] = float(
+                ((whole - held).abs() / whole.abs().clamp_min(1e-300)).max())
+        check(rec["tiles_rows_differ"] == 0,
+              f"[J] tile sums depend on the parts held ({name})")
+        out[name] = rec
+    log(f"[J] a part's sum over ({parts}, {n}) against {k} parts at a time: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _spawn_workers(cfg: dict, out, tag: str = ""):
+    """Start the ``J_WORLD`` workers over a ``file://`` rendezvous in
+    ``out``; returns the processes."""
+    rendezvous = out / f"phase_j{tag}.rendezvous"
+    for f in [*out.glob(f"phase_j{tag}.rank*.json"), rendezvous]:
+        f.unlink(missing_ok=True)
+    sys.stdout.flush()
+    return [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__)), "--phase-j-worker",
+         str(r), str(J_WORLD), f"file://{rendezvous}", str(out),
+         json.dumps(cfg)], cwd=REPO) for r in range(J_WORLD)]
+
+
+def _worker_records(out, tag: str = "") -> list:
+    return [json.loads((out / f"phase_j{tag}.rank{r}.json").read_text())
+            for r in range(J_WORLD)]
+
+
+def _j_nccl(device, cfg: dict, out, w: list) -> dict:
+    """J1 once more over NCCL, a card per process, held to the gloo run:
+    the same iterations and answer bit for bit.  With fewer cards than
+    processes (NCCL refuses two ranks on one GPU) it is not run, and one
+    line says so."""
+    import numpy as np
+    import torch
+
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if cards < J_WORLD:
+        log(f"[J] NCCL not run: {cards} card(s) for {J_WORLD} processes, "
+            f"and NCCL refuses two ranks on one GPU; J1-J3 ran over gloo, "
+            f"staged through host memory")
+        return dict(run=False, cards=cards)
+    procs = _spawn_workers({**cfg, "backend": "nccl"}, out, "_nccl")
+    _wait_workers(procs, time.perf_counter() + J_TIMEOUT)
+    wn = _worker_records(out, "_nccl")
+    for r, g in zip(wn, w):
+        check(r["backend"] == "nccl" and not r["staged"]
+              and r["device"] == f"cuda:{r['rank']}",
+              f"[J] NCCL rank {r['rank']}: {r['backend']} on {r['device']}")
+        check(r["J1"]["iterations"] == g["J1"]["iterations"],
+              f"[J1] NCCL rank {r['rank']}: {r['J1']['iterations']} "
+              f"iterations, gloo {g['J1']['iterations']}")
+        check(np.array_equal(
+            np.load(out / f"j1_x_nccl.rank{r['rank']}.npy"),
+            np.load(out / f"j1_x.rank{r['rank']}.npy")),
+            f"[J1] NCCL rank {r['rank']}: the answer differs from gloo's")
+    log(f"[J] NCCL, a card per process: J1 {wn[0]['J1']['iterations']} "
+        f"iterations, the gloo run's answer bit for bit; collectives (ms) "
+        f"{json.dumps([r['collectives_ms'] for r in wn])}")
+    return dict(run=True, cards=cards, workers=wn)
 
 
 def phase_j(device, cfg=None, out=OUT) -> dict:
     """J: two worker processes (``--phase-j-worker``) over gloo on the one
-    card, held to the one-process runs of this process.  The workers run
-    while this process builds the host systems; its device work starts
-    once they have ended."""
+    card, held to the one-process runs of this process: the same
+    iterations and answers, bit for bit.  The workers run while this
+    process builds the host systems; its device work starts once they
+    have ended.  With a card per process, J1 runs once more over NCCL
+    (:func:`_j_nccl`)."""
     import numpy as np
 
     from domain_decomposed_pde_solver_tpu_torch.io import (
@@ -3311,16 +3473,9 @@ def phase_j(device, cfg=None, out=OUT) -> dict:
     exo = out / cfg["hex_exo"]
     if not exo.exists():
         write_exodus(str(exo), box_mesh(n, n, n, "HEX8"))
-    rendezvous = out / "phase_j.rendezvous"
-    for f in [*out.glob("phase_j.rank*.json"), *out.glob("j3_*"),
-              rendezvous]:
-        f.unlink(missing_ok=True)
-    addr = f"file://{rendezvous}"
-    sys.stdout.flush()
-    procs = [subprocess.Popen(
-        [sys.executable, str(pathlib.Path(__file__)), "--phase-j-worker",
-         str(r), str(J_WORLD), addr, str(out), json.dumps(cfg)], cwd=REPO)
-        for r in range(J_WORLD)]
+    for f in out.glob("j[123]_*"):
+        f.unlink()
+    procs = _spawn_workers(cfg, out)
     deadline = time.perf_counter() + J_TIMEOUT
     try:
         # The host side of the references, while the workers run: the
@@ -3334,27 +3489,28 @@ def phase_j(device, cfg=None, out=OUT) -> dict:
     finally:
         _wait_workers(procs, deadline)
     t_workers = time.perf_counter() - t0
-    w = [json.loads((out / f"phase_j.rank{r}.json").read_text())
-         for r in range(J_WORLD)]
+    w = _worker_records(out)
     refs = _j_references(device, host)
     ks = J_PARTS // J_WORLD
     for tag in ("J1", "J2", "J3"):
         its = {r[tag]["iterations"] for r in w}
         check(len(its) == 1, f"[{tag}] the processes stopped at {its}")
+    # Every part's arithmetic is the one process's: the same iterations
+    # and the same answer, bit for bit.
     for r in w:
-        j1, j2, j3 = r["J1"], r["J2"], r["J3"]
-        check(abs(j1["iterations"] - refs["J1"]["iterations"]) <= 1,
-              f"[J1] rank {r['rank']}: {j1['iterations']} iterations, one "
-              f"process {refs['J1']['iterations']}")
-        check(j2["storage"] == refs["J2"]["storage"], "[J2] storage differs")
-        check(_within(j2["iterations"], refs["J2"]["iterations"]),
-              f"[J2] rank {r['rank']}: {j2['iterations']} iterations, one "
-              f"process {refs['J2']['iterations']}")
-        check(_within(j3["iterations"], refs["J3"]["iterations"]),
-              f"[J3] rank {r['rank']}: {j3['iterations']} iterations, one "
-              f"process {refs['J3']['iterations']}")
-        check(j2["parts"] == ks and j1["local_parts"] == ks,
-              f"[J] rank {r['rank']} holds {j2['parts']} parts")
+        for tag in ("J1", "J2", "J3"):
+            check(r[tag]["iterations"] == refs[tag]["iterations"],
+                  f"[{tag}] rank {r['rank']}: {r[tag]['iterations']} "
+                  f"iterations, one process {refs[tag]['iterations']}")
+        check(r["J2"]["storage"] == refs["J2"]["storage"],
+              "[J2] storage differs")
+        check(r["J2"]["parts"] == ks and r["J1"]["local_parts"] == ks,
+              f"[J] rank {r['rank']} holds {r['J2']['parts']} parts")
+        for tag in ("J1", "J2"):
+            x = np.load(out / f"{tag.lower()}_x.rank{r['rank']}.npy")
+            check(np.array_equal(x, refs[tag]["x"]),
+                  f"[{tag}] rank {r['rank']}: the answer is not one "
+                  f"process's")
     check(w[0]["J1"].get("bit_identical") is True,
           "[J1] rank 0 did not check its blocks")
     xs = [np.load(out / f"j3_x.rank{r}.npy") for r in range(J_WORLD)]
@@ -3362,7 +3518,10 @@ def phase_j(device, cfg=None, out=OUT) -> dict:
           "[J3] the processes' answers differ")
     x1 = refs["J3"].pop("x")
     rel = float(np.linalg.norm(xs[0] - x1) / np.linalg.norm(x1))
-    check(rel <= 1e-5, f"[J3] answer {rel:.3e} from one process's")
+    check(np.array_equal(xs[0], x1),
+          f"[J3] answer {rel:.3e} from one process's, not bit for bit")
+    for tag in ("J1", "J2"):
+        refs[tag].pop("x")
     blocks = {}
     for r in range(J_WORLD):
         with np.load(out / f"j3_ck.proc{r}.npz") as z:
@@ -3372,6 +3531,8 @@ def phase_j(device, cfg=None, out=OUT) -> dict:
     check(sorted(blocks) == list(range(J_PARTS)) and np.array_equal(
         ck, np.load(out / "j3_iterate.npy")),
         "[J3] the checkpoint does not reassemble the iterate")
+    nccl = _j_nccl(device, cfg, out, w)
+    study = part_sum_study(device, w[0]["J1"]["n_local"])
     errs = {}
     for r in w:
         for key, e in r.pop("errs").items():
@@ -3381,10 +3542,11 @@ def phase_j(device, cfg=None, out=OUT) -> dict:
         f"{refs['J1']['iterations']} iterations, J2 "
         f"{[r['J2']['iterations'] for r in w]} / {refs['J2']['iterations']}, "
         f"J3 {[r['J3']['iterations'] for r in w]} / "
-        f"{refs['J3']['iterations']} (answer {rel:.2e} from one process's); "
-        f"workers {t_workers:.1f} s, phase {wall:.1f} s")
+        f"{refs['J3']['iterations']}, every answer one process's bit for "
+        f"bit; workers {t_workers:.1f} s, phase {wall:.1f} s")
     return dict(workers=w, one_process=refs, j3_relerr=rel,
-                checkpoint_rows=sorted(blocks), errs=errs,
+                checkpoint_rows=sorted(blocks), errs=errs, nccl=nccl,
+                part_sums=study,
                 workers_s=t_workers, wall_s=wall)
 
 
@@ -3429,6 +3591,304 @@ def run_phase_j(timeout: float = 900.0) -> dict:
                           timeout=timeout)
     check(proc.returncode == 0 and result.exists(),
           f"[J] the phase J process exited with {proc.returncode}")
+    return json.loads(result.read_text())
+
+
+# ---------------------------------------------------------------------------
+# K. The port's examples and console scripts on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = REPO / "domain_decomposed_pde_solver_tpu_torch" / "examples"
+# Each example: whether its solves run in float32, and the limit its
+# float32-refined or float32 residuals and its FEM errors are held to
+# (the tolerance the script solves to; 07 checks its own 1e-9).
+EXAMPLES = {
+    "01_basic_solve.py": (False, None),
+    "02_multi_device.py": (False, None),
+    "03_amg_and_mixed_precision.py": (False, 1e-10),
+    "04_transient.py": (False, None),
+    "05_fem_flux_bcs.py": (False, 1e-9),
+    "06_distributed_amg.py": (True, 1e-6),
+    "07_sharded_f64_refinement.py": (True, 1e-9),
+}
+K_MUST_LAUNCH = ("01_basic_solve.py", "03_amg_and_mixed_precision.py",
+                 "07_sharded_f64_refinement.py")
+# A number standing alone: not part of a word or a path ("f32", a file).
+_NUMBER = r"(?<![\w/.])[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?(?![\w/])"
+
+
+def example_numbers(text: str) -> list:
+    """The numbers of an example's output, one list per line that has
+    any: ``(kind, printed)`` pairs, the kind from the words beside the
+    number (``iterations``, ``sweeps``, ``inner`` iterations, ``relres``
+    or residual, an ``error`` after ``= ``, else ``exact``)."""
+    import re
+
+    lines = []
+    for line in text.splitlines():
+        nums = []
+        for m in re.finditer(_NUMBER, line):
+            after = line[m.end():].lstrip()
+            if after.startswith("sweeps"):
+                kind = "sweeps"
+            elif after.startswith("inner"):
+                kind = "inner"
+            elif after.startswith(("iterations", "total CG iterations")):
+                kind = "iterations"
+            elif line[:m.start()].rstrip().endswith(("relres", "residual")):
+                kind = "relres"
+            elif line[:m.start()].endswith("= "):
+                kind = "error"
+            else:
+                kind = "exact"
+            nums.append((kind, m.group()))
+        if nums:
+            lines.append(nums)
+    return lines
+
+
+def _printed_unit(s: str) -> float:
+    """One unit in the last printed digit of ``s`` (``1.60e-12`` ->
+    1e-14)."""
+    mant, _, exp = s.lower().partition("e")
+    decimals = len(mant.partition(".")[2])
+    return 10.0 ** (int(exp or 0) - decimals)
+
+
+def example_mismatches(name: str, got: str, ref: str) -> list:
+    """Where example ``name``'s output ``got`` disagrees with ``ref`` (the
+    same script on another device, or JAX's example): iterations equal in
+    float64 and within one in float32; sweeps equal, inner iterations
+    within one per sweep; a relres within its printed precision, or, on a
+    refinement line and in a float32 example, both within the example's
+    limit; FEM errors both within it; every other number as printed."""
+    f32, limit = EXAMPLES[name]
+    g, r = example_numbers(got), example_numbers(ref)
+    if [[k for k, _ in line] for line in g] != \
+            [[k for k, _ in line] for line in r]:
+        return [f"lines differ: {g} against {r}"]
+    bad = []
+    for gl, rl in zip(g, r):
+        sweeps = [int(v) for k, v in rl if k == "sweeps"]
+        for (kind, a), (_, b) in zip(gl, rl):
+            if kind == "iterations":
+                ok = abs(int(a) - int(b)) <= (1 if f32 else 0)
+            elif kind == "inner":
+                ok = abs(int(a) - int(b)) <= sweeps[0]
+            elif kind == "relres" and not (f32 or sweeps):
+                ok = abs(float(a) - float(b)) <= _printed_unit(b) * 1.0001
+            elif kind in ("relres", "error"):
+                ok = max(float(a), float(b)) <= limit
+            else:
+                ok = a == b
+            if not ok:
+                bad.append(f"{kind} {a} against {b}")
+    return bad
+
+
+def p_counts(text: str) -> list:
+    """Example 06's iteration counts, one device's first and then each
+    P's: its docstring's claim is that they are all one."""
+    return [int(v) for line in example_numbers(text) for k, v in line
+            if k == "iterations"]
+
+
+def console_scripts() -> dict:
+    """The port's console scripts from ``pyproject.toml``'s
+    ``[project.scripts]``: ``{name: "module:function"}`` (no install)."""
+    import tomllib
+
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    return {k: v for k, v in scripts.items() if k.startswith("ddps-torch-")}
+
+
+def _run_example(path, argv) -> tuple:
+    """Run an example as ``python path argv...`` in this process
+    (``runpy``, ``__main__``): its standard output and wall seconds."""
+    import runpy
+
+    saved = sys.argv
+    sys.argv = [str(path), *argv]
+    t0 = time.perf_counter()
+    try:
+        _rc, text = _captured(lambda: runpy.run_path(str(path),
+                                                     run_name="__main__"))
+    finally:
+        sys.argv = saved
+    return text, time.perf_counter() - t0
+
+
+def _run_console(name: str, target: str, argv) -> tuple:
+    """Call a console script's target as its installed wrapper does
+    (``sys.argv`` set, ``main()``): its return code and standard
+    output."""
+    import importlib
+
+    module, _, fn = target.partition(":")
+    main = getattr(importlib.import_module(module), fn)
+    saved = sys.argv
+    sys.argv = [name, *argv]
+    try:
+        return _captured(main)
+    finally:
+        sys.argv = saved
+
+
+def phase_k(device, kernels, refs=None, box: int = SMALL_BOX,
+            out=OUT) -> dict:
+    """K: each example on ``device`` (the card: no flag) and again with
+    ``--cpu``, the kernels each launched, its numbers held to the CPU
+    run's; then the five ``ddps-torch-*`` console scripts, resolved from
+    ``pyproject.toml``, on path B's ``box{box}.exo``.  ``refs``:
+    ``b_iterations``, path B's count, which the console solve must
+    take."""
+    import re
+
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        read_exodus,
+        write_exodus,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.utils import (
+        print_csr_matrix,
+        print_vector,
+    )
+
+    t_phase = time.perf_counter()
+    refs = refs or {}
+    flag = [] if device.type == "cuda" else ["--cpu"]
+    rec = dict(examples={}, console={})
+    for name in sorted(EXAMPLES):
+        path = EXAMPLES_DIR / name
+        reset_counts(kernels)
+        text, wall = _run_example(path, flag)
+        sync(device)
+        launched = {k: c["launches"] for k, c in read_counts(kernels).items()
+                    if c["launches"]}
+        cpu_text, cpu_wall = _run_example(path, ["--cpu"])
+        bad = example_mismatches(name, text, cpu_text)
+        log(f"[K] {name}: {wall:.2f} s on {device.type} ({cpu_wall:.2f} s "
+            f"with --cpu); kernels launched {json.dumps(launched)}")
+        check(not bad, f"[K] {name} against its --cpu run: {bad}")
+        if device.type == "cuda" and name in K_MUST_LAUNCH:
+            check(bool(launched), f"[K] {name} launched no kernel")
+        if name == "06_distributed_amg.py":
+            its = p_counts(text)
+            check(len(set(its)) == 1, f"[K] 06's counts depend on P: {its}")
+        rec["examples"][name] = dict(
+            wall_s=wall, cpu_wall_s=cpu_wall, launches=launched,
+            numbers=example_numbers(text))
+    out.mkdir(parents=True, exist_ok=True)
+    exo = out / f"box{box}.exo"
+    if not exo.exists():
+        write_exodus(str(exo), box_mesh(box, box, box, "TETRA4"))
+    scripts = console_scripts()
+    check(len(scripts) == 5, f"[K] console scripts {sorted(scripts)}")
+    sy = assemble_heat_system(read_exodus(str(exo)))
+    prefix = str(out / "k-proc-")
+    for p in out.glob("k-proc-*.out"):
+        p.unlink()
+    parts = np.arange(sy.n_free) % 2
+    print_csr_matrix(sy.A, "Laplacian: A", prefix, parts=parts, nparts=2)
+    print_vector(sy.b, "RHS: B", prefix, parts=parts, nparts=2)
+    runs = {
+        "ddps-torch-solve": [
+            "--input", exo, "--solution", out / f"k_box{box}_solution.exo",
+            "--dtype", "float64", "--precond", "jacobi", "--tolerance",
+            "1e-10", *flag],
+        "ddps-torch-decompose": ["--input", exo, "--output",
+                                 out / "k_decomposed.exo", "--partitions",
+                                 "4"],
+        "ddps-torch-assemble-test": ["--input", exo],
+        "ddps-torch-matrix-test": ["--input", exo, *flag],
+        "ddps-torch-combine": ["--prefix", prefix, "--output",
+                               out / "k_combined.out"],
+    }
+    for name, argv in runs.items():
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        rc, text = _run_console(name, scripts[name], [str(a) for a in argv])
+        sync(device)
+        launched = {k: c["launches"] for k, c in read_counts(kernels).items()
+                    if c["launches"]}
+        r = dict(rc=rc, wall_s=time.perf_counter() - t0, launches=launched)
+        log(f"[K] {name} ({scripts[name]}): exit {rc}, {r['wall_s']:.2f} s, "
+            f"kernels launched {json.dumps(launched)}")
+        check(rc == 0, f"[K] {name} exited with {rc}")
+        if name == "ddps-torch-solve":
+            m = re.search(r"Converged in (\d+) iterations", text)
+            check(m is not None, "[K] ddps-torch-solve did not converge")
+            r["iterations"] = int(m.group(1))
+            want = refs.get("b_iterations")
+            check(want is None or r["iterations"] == want,
+                  f"[K] ddps-torch-solve: {r['iterations']} iterations, "
+                  f"path B {want}")
+        elif name == "ddps-torch-decompose":
+            blocks = len(read_exodus(str(out / "k_decomposed.exo")).blocks)
+            check(blocks == 4, f"[K] {blocks} blocks after decompose")
+        elif name == "ddps-torch-assemble-test":
+            check(text.strip().endswith("OK"), "[K] assemble-test not OK")
+        elif name == "ddps-torch-matrix-test":
+            check("lambda_max" in text, "[K] matrix-test printed no lambda")
+        else:
+            lines = (out / "k_combined.out").read_text().splitlines()
+            check(len(lines) == 2 + 2 * sy.n_free,
+                  f"[K] combine wrote {len(lines)} lines")
+        rec["console"][name] = r
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[K] passed: 7 examples and 5 console scripts in "
+        f"{rec['wall_s']:.1f} s")
+    return rec
+
+
+def phase_k_launches(run_k: dict, name: str) -> dict:
+    """One kernel's launches in each example's and console script's run
+    on the card."""
+    runs = {**run_k["examples"], **run_k["console"]}
+    return {k: r["launches"].get(name, 0) for k, r in runs.items()}
+
+
+def phase_k_process(result: str, refs: str = "{}") -> int:
+    """Phase K in a process of its own (``python3 chip_smoke.py --phase-k
+    RESULT [REFS]``, started by :func:`run_phase_k`, or alone), as F-J:
+    load the kernels (building them if needed), run :func:`phase_k` and
+    write its record to ``RESULT``; every line it logs carries the card's
+    name and power limit."""
+    global LOG_TAG
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = _kernels.build_kernels()
+    card = card_line()
+    LOG_TAG = f" [{card}]"
+    rec = phase_k(torch.device("cuda", 0), kernels, json.loads(refs))
+    rec["card"] = card
+    pathlib.Path(result).write_text(json.dumps(rec))
+    return 0
+
+
+def run_phase_k(refs: dict, timeout: float = 900.0) -> dict:
+    """Run :func:`phase_k_process` in a child process on the same card
+    and return its record; fails if the child does."""
+    result = OUT / "phase_k.json"
+    result.unlink(missing_ok=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                           "--phase-k", str(result), json.dumps(refs)],
+                          cwd=REPO, timeout=timeout)
+    check(proc.returncode == 0 and result.exists(),
+          f"[K] the phase K process exited with {proc.returncode}")
     return json.loads(result.read_text())
 
 
@@ -4766,6 +5226,9 @@ def main() -> int:
     log(f"[I] done at {time.perf_counter() - t_start:.1f} s")
     run_j = run_phase_j()
     log(f"[J] done at {time.perf_counter() - t_start:.1f} s")
+    run_k = run_phase_k(dict(
+        b_iterations=run_b["report"]["result"].iterations))
+    log(f"[K] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
     errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
@@ -4828,6 +5291,7 @@ def main() -> int:
         "domain_decomposed": run_h,
         "slab_engines": run_i,
         "multi_process": run_j,
+        "examples": run_k,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
@@ -4865,6 +5329,7 @@ def main() -> int:
         extra["phase_h_launches"] = phase_h_launches(run_h, k.name)
         extra["phase_i_launches"] = phase_i_launches(run_i, k.name)
         extra["phase_j_launches"] = phase_j_launches(run_j, k.name)
+        extra["phase_k_launches"] = phase_k_launches(run_k, k.name)
         if k.name == "pad_stencil":
             # Phase I's instances: kernel 3 on every slab's window, f32 and
             # f64, at 1M (I2) and 10M (I3) over 4 parts.
@@ -4874,7 +5339,8 @@ def main() -> int:
                     for p in range(len(t["per_part"]))],
                     per_part=t["per_part"], exchange_ms=t["exchange_ms"],
                     exchange_device_ms=t["exchange_device_ms"],
-                    matvec_ms=t["matvec_ms"])
+                    matvec_ms=t["matvec_ms"],
+                    library_ms_part_1=t["library_ms"])
                 for key, t in run_i["timing"].items()
                 if key.split()[-1] in ("float32", "float64")}
         if k.name == "sell_spmv":
@@ -4920,6 +5386,8 @@ if __name__ == "__main__":
             sys.exit(phase_i_process(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--phase-j"]:
             sys.exit(phase_j_process(sys.argv[2]))
+        if sys.argv[1:2] == ["--phase-k"]:
+            sys.exit(phase_k_process(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--phase-j-worker"]:
             sys.exit(phase_j_worker(*sys.argv[2:7]))
         sys.exit(main())

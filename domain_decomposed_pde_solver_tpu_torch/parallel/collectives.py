@@ -37,7 +37,8 @@ the host and back is explicit, and the arithmetic stays on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,6 +47,8 @@ __all__ = [
     "comm_device",
     "exchange_rows",
     "gather_parts",
+    "local_card",
+    "local_processes",
     "max_scalar",
     "process_rank",
     "process_world",
@@ -67,6 +70,31 @@ def process_rank() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+def local_processes(num_processes: Optional[int] = None,
+                    process_id: Optional[int] = None) -> Tuple[int, int]:
+    """``(local_rank, local_world)``: this process's rank among the
+    processes on its host, and their number.  ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` where the launcher sets them (torchrun does; an
+    MPI launcher can export them); otherwise every process is on this
+    host, so the global rank and count (default: the process group's)."""
+    if "LOCAL_WORLD_SIZE" in os.environ and "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"]), \
+            int(os.environ["LOCAL_WORLD_SIZE"])
+    if num_processes is None:
+        num_processes = process_world()
+    if process_id is None:
+        process_id = process_rank()
+    return process_id, num_processes
+
+
+def local_card(process_id: Optional[int] = None) -> int:
+    """The card this process computes on: its local rank modulo this
+    host's cards (one card each where there are enough, shared where
+    there are not)."""
+    return local_processes(process_id=process_id)[0] % \
+        torch.cuda.device_count()
 
 
 def staged(device: torch.device) -> bool:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .collectives import process_rank, staged
+from .collectives import local_card, local_processes, process_rank, staged
 
 __all__ = [
     "choose_backend",
@@ -48,20 +48,24 @@ log = logging.getLogger(__name__)
 
 def choose_backend(num_processes: int, requested: Optional[str] = None,
                    device: Optional[str] = None) -> str:
-    """The process group's backend: NCCL when every process has a card of
-    its own (the processes on one host), gloo when processes share a card
+    """The process group's backend: NCCL when every process on this host
+    has a card of its own, gloo when processes on a host share a card
     (NCCL refuses two ranks on one GPU) or compute on the CPU
-    (``device="cpu"``, or no card).  A ``requested`` backend is checked
-    against the rule: NCCL where it cannot run raises ``ValueError``."""
+    (``device="cpu"``, or no card).  The processes on this host are
+    :func:`.collectives.local_processes`'s (``LOCAL_WORLD_SIZE``, else all
+    ``num_processes``), so one process per host across hosts runs NCCL.  A
+    ``requested`` backend is checked against the rule: NCCL where it cannot
+    run raises ``ValueError``."""
+    local_world = local_processes(num_processes)[1]
     cpu = (device is not None and torch.device(device).type == "cpu") \
         or not torch.cuda.is_available()
     cards = 0 if cpu else torch.cuda.device_count()
-    rule = "nccl" if not cpu and num_processes <= cards else "gloo"
+    rule = "nccl" if not cpu and local_world <= cards else "gloo"
     if requested is not None and requested != rule:
         if requested == "nccl":
             raise ValueError(
-                f"nccl needs a card for each process: {num_processes} "
-                f"processes, {cards} card(s)")
+                f"nccl needs a card for each process on this host: "
+                f"{local_world} local processes, {cards} card(s)")
         if requested != "gloo":
             raise ValueError(f"unknown backend {requested!r}")
         rule = requested
@@ -85,7 +89,9 @@ def initialize_multihost(
     a cluster, so all three must be given one way or the other.  The
     address is ``host:port`` (taken as ``tcp://host:port``) or any
     ``torch.distributed`` URL (``tcp://``, ``file://``).  ``backend``:
-    :func:`choose_backend`'s rule, logged; ``device="cpu"`` for processes
+    :func:`choose_backend`'s rule for the processes on this host, logged;
+    over NCCL the process takes card :func:`.collectives.local_card`
+    (``LOCAL_RANK``, else the process id); ``device="cpu"`` for processes
     that compute on the CPU.  A collective that waits longer than
     ``timeout_s`` for another process raises."""
     coordinator_address = coordinator_address or os.environ.get(
@@ -104,7 +110,7 @@ def initialize_multihost(
            else f"tcp://{coordinator_address}")
     chosen = choose_backend(num_processes, backend, device)
     if chosen == "nccl":
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+        torch.cuda.set_device(local_card(process_id))
     dist.init_process_group(
         chosen, init_method=url, world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=timeout_s))

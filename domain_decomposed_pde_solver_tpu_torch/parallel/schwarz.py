@@ -31,7 +31,7 @@ from ..ops.csr import CSRMatrix, coo_to_csr
 from ..solvers.precond.amg import AMGPreconditioner, smoothed_aggregation_setup
 from ..utils.device import resolve_device
 from .halo import HaloPlan
-from .sharded import DeviceMesh, all_parts
+from .sharded import DeviceMesh, part_sums
 
 __all__ = [
     "BlockPrecond",
@@ -105,7 +105,7 @@ class TwoLevelPrecond:
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         x = self.local(r)
-        rbars = all_parts((r * self.valid).sum(dim=1), self.mesh)  # (P,)
+        rbars = part_sums(r * self.valid, self.mesh)  # (P,)
         coef = torch.mv(self.Ac_inv.to(r.dtype), rbars)
         if self.mesh is not None:
             coef = self.mesh.local(coef)

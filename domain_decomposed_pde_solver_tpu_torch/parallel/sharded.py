@@ -16,7 +16,10 @@ the caller asks for it), and
   (:func:`halo_exchange`, JAX's ``all_to_all``) is one gather over the
   flattened vector, ``halo[p, q, s] = x[q, send_idx[q, p, s]]``; the dot
   (:func:`psum_dot`, JAX's ``psum`` of per-part ``vdot``) takes each
-  part's dot and adds them in part order;
+  part's dot and adds them in part order; a part's dot is summed in
+  tiles whose arithmetic does not depend on how many parts a process
+  holds (:func:`part_sums`), so any number of processes gives the same
+  bits;
 - the Krylov loops (:func:`..solvers.cg.cg_solve` and the others) run
   unchanged over the ``(P, n_local)`` vectors, with that dot injected.
 
@@ -57,6 +60,7 @@ from ..utils.device import resolve_device
 from .collectives import (
     exchange_rows,
     gather_parts,
+    local_card,
     max_scalar,
     process_rank,
     process_world,
@@ -70,6 +74,8 @@ __all__ = [
     "ShardedOperator",
     "halo_exchange",
     "make_device_mesh",
+    "part_sums",
+    "part_tiles",
     "psum",
     "psum_dot",
     "sharded_cg_chunk",
@@ -140,11 +146,12 @@ def make_device_mesh(nparts: int,
     is given, else the card (``resolve_device(None)``); unlike JAX's, this
     mesh always fits, however many parts it has.  With ``torch.distributed``
     initialised over ``world > 1`` processes: this process's ``nparts /
-    world`` parts, on ``devices[0]`` or else the card ``cuda:(rank %
-    device_count)``; ``nparts % world != 0`` raises ``ValueError``, as
-    JAX's ``_local_rows``.  A list that names two different devices raises
-    ``NotImplementedError``: the port never places parts on devices
-    silently."""
+    world`` parts, on ``devices[0]`` or else the card
+    :func:`.collectives.local_card` (its rank among the processes on its
+    host modulo the host's cards); ``nparts % world != 0`` raises
+    ``ValueError``, as JAX's ``_local_rows``.  A list that names two
+    different devices raises ``NotImplementedError``: the port never
+    places parts on devices silently."""
     if nparts < 1:
         raise ValueError(f"nparts must be >= 1, got {nparts}")
     world = process_world()
@@ -154,7 +161,7 @@ def make_device_mesh(nparts: int,
     if devices is None:
         dev = None
         if world > 1 and torch.cuda.is_available():
-            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            dev = torch.device("cuda", local_card())
         return DeviceMesh(nparts, resolve_device(dev), rank, world)
     devs = list(devices)[:nparts]
     if not devs:
@@ -256,11 +263,42 @@ def psum(values: torch.Tensor,
     return total
 
 
+# Values per partial sum of :func:`part_tiles`: one warp's lanes.  CUDA's
+# reduction gives a row of at most 32 values to one warp of 32 lanes and
+# adds it in the warp's fixed shuffle order, whatever the number of rows.
+TILE = 32
+
+
+def part_tiles(values: torch.Tensor) -> torch.Tensor:
+    """``(k, n)`` -> ``(k, ceil(n / TILE))``: each part's row cut into
+    tiles of :data:`TILE` contiguous values (zeros past ``n``), each tile
+    summed alone.  A part's tiles depend on its own row only, not on how
+    many parts ``values`` holds: a ``(k, n)`` row sum need not, since
+    CUDA's reduction splits a row by the whole shape."""
+    k, n = values.shape
+    pad = -n % TILE
+    if pad:
+        values = torch.nn.functional.pad(values, (0, pad))
+    return values.reshape(k, -1, TILE).sum(dim=2)
+
+
+def part_sums(values: torch.Tensor,
+              mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """Every part's sum of ``values`` (``(P, n)``; over a ``mesh`` of
+    several processes the local ``(k, n)``): ``(P,)`` on every process.
+    The :func:`part_tiles` of every part are gathered and summed as one
+    ``(P, ceil(n / TILE))`` tensor, the same shape in one process as in
+    many, so each part's sum is the same bits for any number of
+    processes."""
+    return all_parts(part_tiles(values), mesh).sum(dim=1)
+
+
 def psum_dot(a: torch.Tensor, b: torch.Tensor,
              mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
-    """The global dot of two ``(P, n_local)`` vectors: each part's dot,
-    then :func:`psum` over ``mesh`` (JAX's ``_psum_dot``)."""
-    return psum((a * b).sum(dim=1), mesh)
+    """The global dot of two ``(P, n_local)`` vectors: each part's dot
+    (:func:`part_sums`), then :func:`psum` in part order (JAX's
+    ``_psum_dot``), the same bits over any number of processes."""
+    return psum(part_sums(a * b, mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -117,8 +117,14 @@ def brick_sum(w: torch.Tensor, dims: Tuple[int, int, int], brick: int,
     b = brick
     t = torch.nn.functional.pad(
         t, (0, ncx * b - mx, 0, ncy * b - my, 0, ncz * b - mz))
-    return t.reshape(P_, ncz, b, ncy, b, ncx, b).sum(
-        dim=(2, 4, 6)).reshape(P_, -1)
+    # One axis of a brick at a time, always the innermost, contiguous one
+    # (b values): a row that short is added in an order set by its length
+    # alone, so a part's sums do not depend on how many parts ``w`` holds
+    # (a (P, ncz, b, ncy, b, ncx, b) sum over three axes is split by the
+    # whole shape, and differs on a process holding k of the P parts).
+    t = t.reshape(P_, ncz, b, ncy, b, ncx, b).sum(dim=-1)
+    t = t.permute(0, 1, 3, 5, 2, 4).contiguous()  # (P, ncz, ncy, ncx, bz, by)
+    return t.sum(dim=-1).sum(dim=-1).reshape(P_, -1)
 
 
 def _upload(a: np.ndarray, device, dtype=None) -> torch.Tensor:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..solvers.precond.cheby import chebyshev_smooth
-from .sharded import DeviceMesh, all_parts
+from .sharded import DeviceMesh, part_sums
 from .slab import SlabDIAPlan, brick_expand, brick_sum
 
 __all__ = ["SlabBrickBlock", "SlabBrickPrecond", "build_slab_brick_precond"]
@@ -86,7 +86,7 @@ class SlabBrickBlock:
         x = self._smooth(x, r)
         if self.use_global:
             # JAX's all_gather of each part's sum.
-            rg = all_parts(r.sum(dim=1), self.mesh)
+            rg = part_sums(r, self.mesh)
             xg = torch.mv(self.acc_inv.to(rg.dtype), rg)
             if self.mesh is not None:
                 xg = self.mesh.local(xg)

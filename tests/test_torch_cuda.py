@@ -5,9 +5,11 @@ solves on the CPU; also each part's sliced-ELL launch of the partitioned
 operator (``parallel.BSGShardedOperator``) and partitioned Jacobi-CG on
 the card against the CPU's iterations, and the pad-stencil kernel on the
 windows of a z-slab split (``parallel.build_slab_pad_stencil``) with the
-slab-pad AMG solve on the card against the CPU's iterations; and two
+slab-pad AMG solve on the card against the CPU's iterations; two
 processes sharing the card over gloo (``chip_smoke.py`` phase J at a
-small size).
+small size); and, with two processes emulated by threads, each part's
+sums, products and solves on a process holding k of P parts against one
+process holding all P, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -1242,3 +1244,283 @@ def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
         assert r["J2"]["launches"] == 2 * (r["J2"]["iterations"] + 1)
         assert r["J3"]["iterations"] == run["workers"][0]["J3"]["iterations"]
     assert run["checkpoint_rows"] == [0, 1, 2, 3]
+
+
+# ---------------------------------------------------------------------------
+# One answer for any number of processes: a process holding k of P parts
+# computes each part's arithmetic as one process holding all P does
+# ---------------------------------------------------------------------------
+
+
+class _Processes:
+    """``world`` processes of one program, emulated by threads in this
+    process on one device: the collectives (all-gather, all-to-all, the
+    slab ring, the max of a host value) hand each thread the other
+    threads' tensors, as gloo and NCCL hand back the bits they were
+    given.  Rank ``r`` runs over ``DeviceMesh(P, device, r, world)``."""
+
+    def __init__(self, monkeypatch, world: int):
+        import threading
+
+        from domain_decomposed_pde_solver_tpu_torch.parallel import (
+            sharded,
+            slab,
+            slabpad,
+        )
+
+        self.world = world
+        self.barrier = threading.Barrier(world, timeout=600)
+        self.slots = [None] * world
+        self.me = threading.local()
+        monkeypatch.setattr(sharded, "gather_parts", self.gather_parts)
+        monkeypatch.setattr(sharded, "exchange_rows", self.exchange_rows)
+        monkeypatch.setattr(sharded, "max_scalar", self.max_scalar)
+        monkeypatch.setattr(slab, "ring_strips", self.ring_strips)
+        monkeypatch.setattr(slabpad, "ring_strips", self.ring_strips)
+
+    def _share(self, value) -> list:
+        self.slots[self.me.rank] = value
+        self.barrier.wait()
+        got = list(self.slots)
+        self.barrier.wait()
+        return got
+
+    def gather_parts(self, local):
+        return torch.cat(self._share(local))
+
+    def exchange_rows(self, send):
+        got = self._share(send)
+        return torch.stack([got[s][self.me.rank] for s in range(self.world)])
+
+    def ring_strips(self, first, last):
+        got = self._share((first, last))
+        r = self.me.rank
+        prev = got[r - 1][1] if r > 0 else torch.zeros_like(last)
+        nxt = got[r + 1][0] if r + 1 < self.world else torch.zeros_like(first)
+        return prev, nxt
+
+    def max_scalar(self, value):
+        return max(int(v) for v in self._share(value))
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` in every rank's thread; the results in rank
+        order.  A failing rank fails the call (the others stop at their
+        next collective)."""
+        import threading
+
+        out, errors = [None] * self.world, []
+
+        def body(r):
+            self.me.rank = r
+            try:
+                out[r] = fn(r)
+            except BaseException as exc:  # re-raised below, in the caller
+                errors.append(exc)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        assert not any(t.is_alive() for t in threads), "a rank hung"
+        if errors:
+            raise errors[0]
+        return out
+
+
+def _proc_mesh(nparts, device, rank, world):
+    from domain_decomposed_pde_solver_tpu_torch.parallel.sharded import (
+        DeviceMesh,
+    )
+
+    return DeviceMesh(nparts, device, rank, world)
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+@pytest.mark.parametrize("nparts,n", [(4, 252_480), (8, 16_029)])
+def test_part_sums_do_not_depend_on_the_parts_held(cuda_device, monkeypatch,
+                                                   name, nparts, n):
+    """Each part's tile sums from a ``(k, n)`` slice are the rows of the
+    ``(P, n)`` tensor's, bit for bit (J1's and J3's part width first); the
+    dot over 2 and 4 processes is the one-process dot's bits."""
+    from domain_decomposed_pde_solver_tpu_torch.parallel import sharded
+
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    dt = getattr(torch, name)
+    a = torch.randn(nparts, n, generator=g, device=cuda_device, dtype=dt)
+    b = torch.randn(nparts, n, generator=g, device=cuda_device, dtype=dt)
+    full = sharded.part_tiles(a * b)
+    one = sharded.psum_dot(a, b)
+    for world in (2, 4):
+        k = nparts // world
+        for r in range(world):
+            sl = slice(r * k, (r + 1) * k)
+            assert torch.equal(sharded.part_tiles(a[sl] * b[sl]), full[sl])
+        procs = _Processes(monkeypatch, world)
+        got = procs.run(lambda r: sharded.psum_dot(
+            a[r * k:(r + 1) * k], b[r * k:(r + 1) * k],
+            _proc_mesh(nparts, cuda_device, r, world)))
+        for d in got:
+            assert torch.equal(d, one)
+
+
+def _hex_plan(device, n=24, nparts=4):
+    """J1's route at a small size: a HEX8 box's system over the RCB
+    partition of its free nodes, the halo plan and f64 blocks."""
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        build_halo_plan,
+        partition_rcb,
+    )
+
+    mesh, sy, _dims = _box_system((n, n, n), "HEX8")
+    owner = partition_rcb(mesh.coords[sy.free_to_node], nparts)
+    return sy, build_halo_plan(sy.A, owner.astype(np.int32), nparts)
+
+
+def test_products_over_processes_equal_one_process(cuda_device, monkeypatch):
+    """The products and the brick cycle over two processes (k = 2 of P =
+    4 parts each) give the rows of the one-process result, bit for bit:
+    ``ShardedOperator.matvec`` and its diagonal (f64), ``BSGShardedOperator``
+    (kernel 1 per part, f32), the slab DIA product, the brick cycle with
+    its slab-mean correction (f64) and the brick sums of the slab
+    hierarchies."""
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        BSGShardedOperator,
+        ShardedOperator,
+        build_slab_brick_precond,
+        build_slab_plan,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.slab import (
+        SlabDIAOperator,
+        brick_sum,
+    )
+
+    P_, world, k = 4, 2, 2
+    procs = _Processes(monkeypatch, world)
+    rng = np.random.default_rng(5)
+    sy, plan = _hex_plan(cuda_device)
+    for cls, dt in ((ShardedOperator, np.float64),
+                    (BSGShardedOperator, np.float32)):
+        one = cls.from_plan(plan, _proc_mesh(P_, cuda_device, 0, 1), dtype=dt)
+        x = one.put_vector(rng.normal(size=sy.n_free))
+        y1, d1 = one.matvec(x), one.diagonal()
+
+        def local(r, cls=cls, dt=dt, x=x):
+            op = cls.from_plan(plan, _proc_mesh(P_, cuda_device, r, world),
+                               dtype=dt)
+            return op.matvec(x[r * k:(r + 1) * k]), op.diagonal()
+
+        for r, (y, d) in enumerate(procs.run(local)):
+            assert torch.equal(y, y1[r * k:(r + 1) * k]), cls.__name__
+            assert torch.equal(d, d1[r * k:(r + 1) * k]), cls.__name__
+    mesh, sy, dims = _box_system((16, 16, 24), "TETRA4")
+    splan = build_slab_plan(sy.A, P_, dtype=np.float64,
+                            row_align=dims[0] * dims[1])
+    bp = build_slab_brick_precond(splan, dims, brick=4, dtype=np.float64,
+                                  global_coarse=True, A=sy.A)
+    xs = torch.as_tensor(rng.normal(size=(P_, splan.slab)), device=cuda_device)
+    data = torch.as_tensor(splan.data, device=cuda_device)
+    y1 = SlabDIAOperator(data, splan.offsets, splan.halo, splan.slab).matvec(xs)
+    z1 = bp.block(cuda_device)(xs)
+
+    def slab_local(r):
+        m = _proc_mesh(P_, cuda_device, r, world)
+        sl = slice(r * k, (r + 1) * k)
+        op = SlabDIAOperator(data[sl], splan.offsets, splan.halo, splan.slab,
+                             mesh=m)
+        return op.matvec(xs[sl]), bp.block(cuda_device, m)(xs[sl])
+
+    for r, (y, z) in enumerate(procs.run(slab_local)):
+        assert torch.equal(y, y1[r * k:(r + 1) * k])
+        assert torch.equal(z, z1[r * k:(r + 1) * k])
+    # The brick sums with few bricks per part (the slab-pad AMG's at a
+    # small size: 2 x 2 x 1 bricks of 6) and many (16 x 16 x 6 of 4).
+    for dims, brick, pad in (((7, 7, 6), 6, (9, 8)), ((64, 64, 24), 4, None)):
+        size = dims[2] * (pad[0] * pad[1] if pad else dims[0] * dims[1])
+        w = torch.as_tensor(rng.normal(size=(P_, size)), device=cuda_device)
+        whole = brick_sum(w, dims, brick, pad)
+        for r in range(world):
+            sl = slice(r * k, (r + 1) * k)
+            assert torch.equal(brick_sum(w[sl], dims, brick, pad), whole[sl])
+
+
+def _route(name, device):
+    """A solve of ``chip_smoke.py`` phase J's kind at a small size, as
+    ``fn(mesh) -> (host answer, iterations)``."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_stencil,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        BSGShardedOperator,
+        ShardedOperator,
+        build_slab_amg,
+        build_slab_pad_amg,
+        build_slab_plan,
+        sharded_cg_solve,
+        slab_amg_cg_solve,
+        slab_cg_solve,
+        slab_pad_amg_cg_solve,
+    )
+
+    if name in ("J1", "J2"):
+        sy, plan = _hex_plan(device)
+        cls, dt, tol = ((ShardedOperator, np.float64, 1e-8) if name == "J1"
+                        else (BSGShardedOperator, np.float32, 1e-6))
+
+        def solve(m):
+            op = cls.from_plan(plan, m, dtype=dt)
+            b = op.put_vector(sy.b)
+            d = op.diagonal()
+            inv = torch.where(d != 0, 1.0 / torch.where(d == 0, 1.0, d), 0.0)
+            res = sharded_cg_solve(op, b, torch.zeros_like(b),
+                                   precond_diag=inv, tol=tol, maxiter=5000)
+            return op.get_vector(res.x), res.iterations
+        return solve
+    if name == "J3":
+        _mesh, sy, _dims = _box_system((24, 24, 24), "TETRA4")
+        plan = build_slab_plan(sy.A, nparts=4)
+        b = (sy.b / np.abs(sy.b).max()).astype(np.float32)
+
+        def solve(m):
+            x, res = slab_cg_solve(plan, b, np.zeros_like(b), tol=1e-6,
+                                   maxiter=5000, mesh=m)
+            return x, res.iterations
+        return solve
+    _mesh, sy, dims = _box_system((8, 6, 20), "TETRA4")
+    if name == "slab_amg":
+        def solve(m):
+            samg = build_slab_amg(sy.A, dims, 4, brick=4, dtype=np.float32,
+                                  device=device, mesh=m)
+            x, res = slab_amg_cg_solve(samg, sy.b.astype(np.float32),
+                                       np.zeros(sy.n_free, np.float32),
+                                       tol=1e-6)
+            return x, res.iterations
+        return solve
+    st = choose_operator(sy.A, dtype=torch.float32, grid_dims=dims,
+                         device=device)
+    pad_op = pad_stencil_from_stencil(st, bz=4)
+
+    def solve(m):
+        samg = build_slab_pad_amg(sy.A, dims, 4, pad_op=pad_op, mesh=m)
+        x, res = slab_pad_amg_cg_solve(samg, sy.b, np.zeros(sy.n_free),
+                                       tol=1e-6)
+        return x, res.iterations
+    return solve
+
+
+@pytest.mark.parametrize("route", ["J1", "J2", "J3", "slab_amg",
+                                   "slab_pad_amg"])
+def test_solves_over_processes_equal_one_process(cuda_device, monkeypatch,
+                                                 route):
+    """The solves of phase J (f64 Jacobi-CG over ELL blocks, f32
+    Jacobi-CG on kernel 1 per part, the f32 slab CG) and the slab global
+    and slab-pad AMG solves over two processes on the card take one
+    process's iterations and give its answer, bit for bit."""
+    solve = _route(route, cuda_device)
+    x1, it1 = solve(_proc_mesh(4, cuda_device, 0, 1))
+    procs = _Processes(monkeypatch, 2)
+    for x, it in procs.run(lambda r: solve(_proc_mesh(4, cuda_device, r, 2))):
+        assert it == it1
+        np.testing.assert_array_equal(x, x1)

@@ -148,7 +148,9 @@ def test_resolve_device_is_explicit():
 
 
 def test_port_import_leaves_jax_out():
-    """Importing the whole port in a fresh interpreter loads no JAX."""
+    """Importing the whole port, ``chip_smoke.py`` and the targets of the
+    ``ddps-torch-*`` console scripts in a fresh interpreter loads no
+    JAX."""
     code = (
         "import sys\n"
         "import domain_decomposed_pde_solver_tpu_torch as p\n"
@@ -169,6 +171,14 @@ def test_port_import_leaves_jax_out():
         "import domain_decomposed_pde_solver_tpu_torch.cli.assemble_test\n"
         "import domain_decomposed_pde_solver_tpu_torch.cli.combine\n"
         "import chip_smoke\n"
+        "import importlib, tomllib\n"
+        "with open('pyproject.toml', 'rb') as f:\n"
+        "    scripts = tomllib.load(f)['project']['scripts']\n"
+        "targets = [v for k, v in scripts.items() if k.startswith('ddps-torch-')]\n"
+        "assert len(targets) == 5, targets\n"
+        "for t in targets:\n"
+        "    mod, _, fn = t.partition(':')\n"
+        "    assert callable(getattr(importlib.import_module(mod), fn)), t\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'domain_decomposed_pde_solver_tpu.')) or m == "
         "'domain_decomposed_pde_solver_tpu')\n"

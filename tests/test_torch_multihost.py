@@ -219,6 +219,61 @@ def test_backend_rule(monkeypatch):
         port_mh.choose_backend(4, "mpi")
 
 
+def test_backend_and_card_follow_the_processes_on_this_host(monkeypatch):
+    """The backend and the card are decided by the processes on this host
+    (``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``, as torchrun sets them), not by
+    the global count: one process per host across hosts runs NCCL."""
+    import torch.distributed as dist
+
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        collectives,
+        sharded,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    # Two hosts with one card and one process each: NCCL, card 0.
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    assert port_mh.choose_backend(2) == "nccl"
+    assert port_mh.choose_backend(2, "nccl") == "nccl"
+    assert collectives.local_card(process_id=1) == 0
+    seen = {}
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda i: seen.setdefault("card", i))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: seen.update(backend=backend, **kw))
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(dist, "get_backend", lambda: "nccl")
+    assert port_mh.initialize_multihost("tcp://localhost:1", 2, 1) == 1
+    assert seen["backend"] == "nccl" and seen["card"] == 0
+    assert seen["world_size"] == 2 and seen["rank"] == 1
+    monkeypatch.setattr(sharded, "process_world", lambda: 2)
+    monkeypatch.setattr(sharded, "process_rank", lambda: 1)
+    mesh = make_device_mesh(4)
+    assert mesh == DeviceMesh(4, torch.device("cuda", 0), 1, 2)
+    assert (mesh.parts_lo, mesh.local_parts) == (2, 2)
+    # Four processes on a host of two cards: gloo, two per card.
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert port_mh.choose_backend(8) == "gloo"
+    assert collectives.local_card() == 1
+    with pytest.raises(ValueError, match="4 local processes, 2 card"):
+        port_mh.choose_backend(8, "nccl")
+    # An explicit NCCL request on a shared card still raises.
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="nccl"):
+        port_mh.choose_backend(2, "nccl")
+    # Without the variables every process is on this host, as before.
+    monkeypatch.delenv("LOCAL_RANK")
+    monkeypatch.delenv("LOCAL_WORLD_SIZE")
+    assert port_mh.choose_backend(2) == "gloo"
+    assert collectives.local_processes(2, 1) == (1, 2)
+
+
 def test_trace_to_writes_a_chrome_trace(tmp_path):
     with trace_to(None):
         torch.ones(4).sum()

@@ -4,10 +4,10 @@ HEX8 6^3 box (J1, J2: 245 rows over 4 parts) and a TETRA4 8^3 box (J3:
 567 DOF over 4 slabs), held to the one-process runs of the parent.
 
 The smoke's own checks run as on the card (the launch counts and the
-CUDA-event times are the card's only): the same iterations in both
-processes and within the limits of one process's, rank 0's blocks
-bit-identical to the global plan's, the same full answer in both
-processes, the checkpoint reassembled bit for bit.  On the CPU every
+CUDA-event times are the card's only): one process's iterations and
+answers, bit for bit, in both processes, rank 0's blocks bit-identical
+to the global plan's, the checkpoint reassembled bit for bit; NCCL is
+not run without a card per process.  On the CPU every
 product runs its plain version, so the kernel comparisons agree exactly.
 Also: JAX's single-process ``multihost_slab_cg_solve`` on J3's system
 takes the workers' count within max(2, 2 %), and a worker that fails
@@ -61,7 +61,8 @@ def test_phase_j_passes_its_checks_on_the_cpu(run_j):
     assert w[0]["J1"]["product_relerr"] <= 1e-12
     assert run["checkpoint_rows"] == [0, 1, 2, 3]
     assert run["errs"] == {"sell_spmv": 0.0}
-    assert run["j3_relerr"] <= 1e-5
+    assert run["j3_relerr"] == 0.0
+    assert run["nccl"] == {"run": False, "cards": 0}
 
 
 def test_phase_j_launches_name_each_worker(run_j):
