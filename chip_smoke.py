@@ -127,7 +127,9 @@ G. The BASELINE's 10M box, in a process of its own as F (``--phase-g``),
    their plain versions (kernel 4 at every instance and block,
    bit-identical), the two solves under the profiler,
    kernel 3 at every z-depth and with L2 flushed, beside cuSPARSE on the
-   CSR, and kernel 4 on level 1 beside its launch floor.
+   CSR, kernel 4 on level 1 beside its launch floor, and kernel 1 on the
+   sliced-ELL levels and the restrictions' segment sums beside its bound,
+   its plain version and cuSPARSE.
 H. The domain-decomposed solve, in a process of its own as F and G
    (``--phase-h``), every part on the one card:
    H1. The CLI's halo route with the global AMG: path C's mesh
@@ -137,25 +139,28 @@ H. The domain-decomposed solve, in a process of its own as F and G
    relres <= 2e-6, the file's values within [100, 1000], kernel 1
    launched (the coarse tail); the CLI's phases, partition and halo plan
    included, recorded.
-   H2. The API on H1's system with ``BSGShardedOperator`` (kernel 1 on
-   each part's block, bf16 values) at P = 4 and 8: Jacobi-CG to 1e-6
-   within 2 iterations of D1's unfused solve, host relres <= 5e-6 plus
-   D1's f32 floor, exactly P launches per product; at P = 4 CG with H1's
-   halo AMG over the sliced-ELL blocks within 2 iterations of H1, and
-   block-Schwarz AMG with and without the two-level coarse correction,
-   each converging in no more iterations than Jacobi.  Every part's
-   launch against its plain version (relative 1e-6 in f32), its halo
-   rows exactly 0, its bf16 storage bit-identical to float32 storage.
+   H2. The API on H1's system with ``BSGShardedOperator`` (kernel 1 in
+   one launch over all parts' rows, bf16 values) at P = 4 and 8:
+   Jacobi-CG to 1e-6 within 2 iterations of D1's unfused solve, host
+   relres <= 5e-6 plus D1's f32 floor, exactly one launch per product;
+   at P = 4 CG with H1's halo AMG over the sliced-ELL blocks within 2
+   iterations of H1, and block-Schwarz AMG with and without the
+   two-level coarse correction, each converging in no more iterations
+   than Jacobi.  The one launch against its plain version (relative
+   1e-6 in f32), bit for bit the same kernel on each part's block alone
+   (whose halo rows are exactly 0), its bf16 storage bit-identical to
+   float32 storage.
    H3. GMRES with per-part ILUT (``build_block_ilu``), f64, to 1e-8 over
    4 parts on the 16,028-DOF mesh: converges, host relres <= 1.5e-8,
    iterations <= partitioned Jacobi-GMRES + 2, which is within 2 of the
    single-device GMRES + Jacobi (JAX's leg 1d).
    H4. ``cli.matrix_test --partitions 4`` on path A's file: lambda_max
    within 1e-8 relative of F3's single-device value.
-   Then kernel 1 per part under the profiler against its bound (the
-   compulsory bytes of that part's slots), its plain version and
-   cuSPARSE on the same block, the partitioned product and the halo
-   exchange by CUDA events, and H2's solves again under the profiler
+   Then kernel 1's one launch under the profiler against its bound (the
+   compulsory bytes of all the parts' slots, one read of x, one write of
+   y), its plain version and cuSPARSE on the same stacked block matrix,
+   the partitioned product by CUDA events, the same kernel on each part's
+   block alone (summed), and H2's solves again under the profiler
    (device, busy, wall, idle share).
 I. The structured slab engines, in a process of its own as F, G and H
    (``--phase-i``), four slabs on the one card:
@@ -195,11 +200,13 @@ J. The multi-process decomposition, in a process of its own as F-I
    f64 Jacobi ``sharded_cg_solve`` to 1e-8 in this process's one-process
    solve's iterations over the same 4 parts, its answer bit for bit, host
    relres <= 1.5e-8.
-   J2. ``BSGShardedOperator`` on J1's blocks in f32 (kernel 1 on each
-   local part): exactly 2 launches per product in each process, each
-   part's launch against its plain version (1e-6 relative), Jacobi-CG to
-   1e-6 in one process's iterations, its answer bit for bit, host relres
-   <= 5e-6 plus the f32 floor.
+   J2. ``BSGShardedOperator`` on J1's blocks in f32 (kernel 1 in one
+   launch over the local parts, reading ``[x | halo]``): exactly 1 launch
+   per product in each process, that launch against its plain version
+   (1e-6 relative) and bit for bit each local part's block alone,
+   Jacobi-CG to 1e-6 in one process's iterations, its answer bit for
+   bit, host relres <= 5e-6 plus the f32 floor; the one launch timed in
+   each process and in one process over the 4 parts.
    J3. ``multihost_slab_cg_solve`` on path A's system over 4 slabs, f32
    Jacobi to 1e-6: one process's iterations and answer, bit for bit, in
    both processes (every part's dot is summed in tiles whose arithmetic
@@ -279,6 +286,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 REPO = pathlib.Path(__file__).resolve().parent
 OUT = REPO / "build" / "chip_smoke"
@@ -1281,7 +1289,7 @@ def phase_f4(device, kernels, box: int = BOX) -> dict:
     cases = {"neumann": (dict(neumann={77: g}), g),
              "robin": (dict(robin={77: (alpha, u_env)}),
                        alpha * (u_env - 5.0) / (1.0 + alpha))}
-    out, errs = {}, {}
+    out, errs, hierarchies = {}, {}, {}
     for label, (kw, slope) in cases.items():
         t0 = time.perf_counter()
         sy = assemble_poisson_fem(mesh, **kw)
@@ -1300,10 +1308,12 @@ def phase_f4(device, kernels, box: int = BOX) -> dict:
         check(err <= 1e-6, f"[F4] {label}: error {err:.3e} > 1e-6")
         _want_launched(device, counts, ["dia_spmv"], "F4")
         operator_compare(device, errs, f"P1 {label}", *ops, tag="F4")
+        hierarchies[f"F4 {label}"] = ops[1]
         out[label] = dict(dof=sy.n_free, iterations=res.iterations,
                           max_err=err, assembly_s=t_asm, launches=counts,
                           **times)
     out["replays"], out["errs"] = replays, errs
+    out["hierarchies"] = hierarchies
     return out
 
 
@@ -1334,7 +1344,7 @@ def phase_f5(device, kernels, cells: int = QUAD_CELLS) -> dict:
         "q2": ("HEX8", assemble_poisson_q2, elevate_to_q2,
                dict(dirichlet=_u_q2, f=lambda c: np.full(c.shape[0], -12.0))),
     }
-    out, replays, errs = {}, {}, {}
+    out, replays, errs, hierarchies = {}, {}, {}, {}
     for label, (elem, assemble, elevate, kw) in cases.items():
         mesh = box_mesh(cells, cells, cells, elem)
         t0 = time.perf_counter()
@@ -1354,11 +1364,13 @@ def phase_f5(device, kernels, cells: int = QUAD_CELLS) -> dict:
         check(err <= 1e-8, f"[F5] {label}: error {err:.3e} > 1e-8")
         _want_launched(device, counts, ["sell_spmv"], "F5")
         operator_compare(device, errs, label.upper(), *ops, tag="F5")
+        hierarchies[f"F5 {label}"] = ops[1]
         out[label] = dict(nodes=int(coords.shape[0]), dof=sy.n_free,
                           nnz=sy.A.nnz, iterations=res.iterations,
                           max_err=err, assembly_s=t_asm, launches=counts,
                           **times)
     out["replays"], out["errs"] = replays, errs
+    out["hierarchies"] = hierarchies
     return out
 
 
@@ -1410,12 +1422,18 @@ def phase_f6(exo, out=OUT) -> dict:
 
 def phase_f(device, kernels, system, exo, box: int = BOX,
             small_box: int = SMALL_BOX, quad_cells: int = QUAD_CELLS,
-            out=OUT) -> dict:
+            out=OUT, segment_sums: bool = False) -> dict:
     """F1-F6 in order; ``system`` is the heat system of ``exo`` (path A's
     1M box).  ``replays`` holds, per counted solve, a function that runs it
     again and the launch counts of its run, for :func:`time_phase_f`;
     ``errs`` the largest absolute difference of each kernel from its plain
-    version on F4's and F5's operators (launches not counted)."""
+    version on F4's and F5's operators (launches not counted).  With
+    ``segment_sums`` (on the card), the restrictions' segment sums of F4's
+    and F5's hierarchies are then timed against ``index_add_``
+    (:func:`time_segment_sum`, f64 as their solves run them), outside the
+    wall, under ``segment_sums``."""
+    import torch
+
     t0 = time.perf_counter()
     f1 = phase_f1(device, kernels, system)
     f2 = phase_f2(device, kernels, system, f1.pop("A"), small_box, out)
@@ -1425,14 +1443,25 @@ def phase_f(device, kernels, system, exo, box: int = BOX,
     f6 = phase_f6(out / f"f2_box{small_box}.exo", out)
     wall = time.perf_counter() - t0
     log(f"[F] wall {wall:.1f} s")
+    segs = {}
+    for f in (f4, f5):
+        for label, M in f.pop("hierarchies").items():
+            for i, lvl in enumerate(M.levels):
+                if segment_sums and getattr(lvl.P, "ST", None) is not None:
+                    segs[f"{label} level {i}"] = time_segment_sum(
+                        device, card_line(), lvl.P, f"{label}'s level {i}",
+                        torch.float64, seed=60 + i)
     replays, errs = {}, {}
     for f in (f1, f2, f3, f4, f5):
         replays.update(f.pop("replays"))
     for f in (f4, f5):
         for key, e in f.pop("errs").items():
             errs[key] = max(errs.get(key, 0.0), e)
-    return dict(F1=f1, F2=f2, F3=f3, F4=f4, F5=f5, F6=f6, wall_s=wall,
-                replays=replays, errs=errs)
+    run = dict(F1=f1, F2=f2, F3=f3, F4=f4, F5=f5, F6=f6, wall_s=wall,
+               replays=replays, errs=errs)
+    if segment_sums:
+        run["segment_sums"] = segs
+    return run
 
 
 def phase_f_process(result: str) -> int:
@@ -1459,7 +1488,8 @@ def phase_f_process(result: str) -> int:
     kernels = _kernels.build_kernels()
     exo = OUT / f"box{BOX}.exo"
     sy = assemble_heat_system(read_exodus(str(exo)))
-    run = phase_f(torch.device("cuda", 0), kernels, sy, exo)
+    run = phase_f(torch.device("cuda", 0), kernels, sy, exo,
+                  segment_sums=True)
     run["times"] = time_phase_f(card_line(), run.pop("replays"))
     pathlib.Path(result).write_text(json.dumps(run))
     return 0
@@ -1755,6 +1785,20 @@ def time_phase_g(device, card, run_g) -> dict:
                              bound_by=b_by, rows=D.n_rows,
                              diagonals=D.ndiags, instance=shape.instance,
                              block=shape.block)
+    # Kernel 1 on the sliced-ELL levels and on the restrictions' segment
+    # sums (``FactoredProlongator.ST``) of the hierarchy.
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import BSGMatrix
+
+    sell = {}
+    for i, lvl in enumerate(run_g["M"].levels):
+        if isinstance(lvl.A, BSGMatrix):
+            sell[f"level {i}"] = time_sell(
+                device, card, lvl.A, f"the 10M box's level {i}", seed=40 + i)
+        if getattr(lvl.P, "ST", None) is not None:
+            sell[f"level {i} restriction"] = time_segment_sum(
+                device, card, lvl.P, f"the 10M box's level {i}",
+                torch.float32, seed=40 + i)
+    out["sell_levels"] = sell
     return out
 
 
@@ -1945,12 +1989,13 @@ def _per_part_ms(op, x, launches, reps: int = 20,
     return [time_ms(fn, reps) for fn in launches]
 
 
-def _h2_kernel_checks(device, op, errs, tag):
-    """Every part's kernel-1 launch against its plain version (f32,
-    relative 1e-6), the halo rows exactly 0, and the bf16 storage
-    bit-identical to a float32-storage launch of the same values.  Adds
-    the largest absolute difference to ``errs``; returns the input and
-    that difference."""
+def stacked_checks(device, op, x, errs, tag):
+    """The one kernel-1 launch of ``op.matvec(x)`` (all local parts'
+    rows) against its plain version (f32, relative 1e-6), bit for bit
+    against the same kernel on each part's block alone (whose halo rows
+    must be exactly 0), and its bf16 storage bit-identical to a
+    float32-storage launch of the same values.  Adds the largest absolute
+    difference to ``errs`` and returns it."""
     import numpy as np
     import torch
 
@@ -1959,24 +2004,39 @@ def _h2_kernel_checks(device, op, errs, tag):
         spmv_plain,
     )
 
+    A, src = op.local, op.source(x)
+    y = op.matvec(x)
+    mine = {}
+    _compare(f"one launch over {x.shape[0]} parts ({A.n_pad} rows, "
+             f"{A.n_slots} slots, {A.storage})", y.reshape(-1),
+             spmv_plain(A, src), 1e-6, mine, "sell_spmv", tag=tag)
+    y32 = bsg_spmv(with_storage(A, torch.float32), src)
+    check(torch.equal(y.reshape(-1), y32), f"[{tag}] {A.storage} storage is "
+          "not bit-identical to float32 storage")
+    xe = op.extended(x)
+    n = op.n_local
+    for p, blk in enumerate(op.parts):
+        yp = bsg_spmv(blk, xe[p])
+        check(torch.equal(y[p], yp[:n]), f"[{tag}] part {p}: the one launch "
+              f"is not the bits of the part's block alone")
+        check(not bool(yp[n:].any()), f"[{tag}] part {p}: halo rows not 0")
+    errs["sell_spmv"] = max(errs.get("sell_spmv", 0.0), mine["sell_spmv"])
+    log(f"[{tag}] the one launch: {op.local.n_pad} rows ({x.shape[0]} parts "
+        f"of {n}), bit-identical to each part's block alone and to float32 "
+        f"storage")
+    return mine["sell_spmv"]
+
+
+def _h2_kernel_checks(device, op, errs, tag):
+    """:func:`stacked_checks` on a seeded input; returns the input and the
+    largest difference."""
+    import numpy as np
+    import torch
+
     rng = np.random.default_rng(17)
     x = torch.as_tensor(rng.normal(size=(op.nparts, op.n_local)),
                         dtype=torch.float32, device=device)
-    xe = op.extended(x)
-    n = op.n_local
-    rows = np.arange(op.parts[0].n_pad)
-    mine = {}
-    for p, blk in enumerate(op.parts):
-        y = bsg_spmv(blk, xe[p])
-        mask = torch.as_tensor(rows >= n, device=device)
-        _compare(f"part {p} of {op.nparts} ({blk.n_pad} rows, {blk.n_slots} "
-                 f"slots, {blk.storage})", y, spmv_plain(blk, xe[p]), 1e-6,
-                 mine, "sell_spmv", mask=mask, tag=tag)
-        y32 = bsg_spmv(with_storage(blk, torch.float32), xe[p])
-        check(torch.equal(y, y32), f"[{tag}] part {p}: {blk.storage} storage "
-              "is not bit-identical to float32 storage")
-    errs["sell_spmv"] = max(errs.get("sell_spmv", 0.0), mine["sell_spmv"])
-    return x, mine["sell_spmv"]
+    return x, stacked_checks(device, op, x, errs, tag)
 
 
 def phase_h2(device, kernels, refs, run_h1, parts=H_PARTS) -> dict:
@@ -2027,15 +2087,16 @@ def phase_h2(device, kernels, refs, run_h1, parts=H_PARTS) -> dict:
         limit = 5e-6 + refs.get("d1_floor", f32_floor(sy.A, u, sy.b))
         launches = counts["sell_spmv"]["launches"]
         rec = dict(n_local=plan.n_local, halo_width=plan.halo_width,
-                   n_pad=op.parts[0].n_pad, storage=op.parts[0].storage,
-                   slots=[blk.n_slots for blk in op.parts],
+                   rows=op.local.n_pad, storage=op.local.storage,
+                   slots=op.local.n_slots,
                    partition_s=t_part, plan_s=t_plan, operator_s=t_op,
                    jacobi=dict(iterations=rj.iterations, relres=rj.relres,
                                host_relres=rr, limit=limit, wall_s=wall,
                                launches=counts))
         log(f"[H2] P={P_}: n_local {plan.n_local}, halo width "
-            f"{plan.halo_width}, blocks of {op.parts[0].n_pad} rows "
-            f"({op.parts[0].storage}); partition {t_part} s, plan {t_plan} "
+            f"{plan.halo_width}, one operator of {op.local.n_pad} rows and "
+            f"{op.local.n_slots} slots ({op.local.storage}); partition "
+            f"{t_part} s, plan {t_plan} "
             f"s, operator {t_op:.2f} s; Jacobi-CG {rj.iterations} iterations"
             f" (D1 unfused: {refs.get('d1_iterations')}), host relres "
             f"{rr:.3e} (limit {limit:.3e}), {wall:.2f} s, kernel-1 launches "
@@ -2047,11 +2108,11 @@ def phase_h2(device, kernels, refs, run_h1, parts=H_PARTS) -> dict:
                   f"{refs['d1_iterations']}")
         check(rr <= limit, f"[H2] P={P_}: host relres {rr:.3e}")
         if device.type == "cuda":
-            # One launch per part per product: the initial residual and one
-            # product per iteration.
-            check(launches == P_ * (rj.iterations + 1),
+            # One launch per product over all parts: the initial residual
+            # and one product per iteration.
+            check(launches == rj.iterations + 1,
                   f"[H2] P={P_}: {launches} kernel-1 launches, want "
-                  f"{P_ * (rj.iterations + 1)}")
+                  f"{rj.iterations + 1}")
         replays[f"H2 jacobi P={P_}"] = (jacobi, counts)
         if P_ == parts[0]:
             hamg = run_h1["hamg"]
@@ -2221,50 +2282,74 @@ def phase_h4(device, kernels, exo, f3_eigenvalue=None) -> dict:
 
 
 def time_phase_h(device, card, run_h2) -> dict:
-    """Kernel 1 per part (profiler device time against its bound, the
-    compulsory bytes of that part's slots), the product and the halo
-    exchange by CUDA events, the plain version and cuSPARSE on each part's
-    block, and each counted solve of H2 again under the profiler: device
-    and busy time, wall, idle share."""
+    """Kernel 1's one launch over all parts (profiler device time against
+    its bound: the compulsory bytes of all the parts' slots, one read of x
+    and one write of y), its plain version, cuSPARSE CSR on the same
+    stacked block matrix (a yardstick the port never calls), the whole
+    partitioned product by CUDA events, and the same kernel on each part's
+    block alone, the blocks launched back to back in part order
+    (profiler, summed: the one-launch-per-part product on the new
+    kernel); then each counted solve of H2 again under the profiler:
+    device and busy time, wall, idle share."""
     import torch
 
     from domain_decomposed_pde_solver_tpu_torch.ops.bsg import spmv_plain
     from domain_decomposed_pde_solver_tpu_torch.parallel.sharded import (
-        part_block_csr,
+        _stacked_csr,
+        part_blocks,
     )
 
     out = {}
     for P_, rec in run_h2["parts"].items():
         op, x = rec["op"], rec["x"]
+        A, src = op.local, op.source(x)
+        ell_cols, ell_vals = part_blocks(op.plan, op.mesh)[:2]
+        indptr, indices, data = _stacked_csr(ell_cols, ell_vals,
+                                             op.flat_cols.cpu().numpy())
+        csr = _csr_tensor(indptr, indices, data, A.x_len, torch.float32,
+                          device)
+        t = _measure({
+            "kernel": lambda op=op, x=x: op.matvec(x),
+            "plain": lambda A=A, src=src: spmv_plain(A, src),
+            "library": lambda csr=csr, src=src: csr @ src,
+        })
+        one = profile_device(lambda op=op, x=x: op.matvec(x),
+                             kernel="sell_spmv_kernel")
+        ms = next((v[1] for k, v in one["kernels"].items()
+                   if "sell_spmv_kernel" in k), one["device_ms"])
+        nnz = int(data.size)
+        nbytes = sell_bytes(A)
+        b_ms, by = bound(nbytes, 2.0 * nnz)
+        # One launch per part on the new kernel: every part's block alone,
+        # back to back in part order (the blocks together outgrow the L2).
         xe = op.extended(x)
-        per_part = _per_part_ms(
-            op, x, [lambda b=b, xp=xe[p]: b.matvec(xp)
-                    for p, b in enumerate(op.parts)])
-        parts = []
-        for p, blk in enumerate(op.parts):
-            nnz = int((blk.vals != 0).sum())
-            b_ms, by = bound(sell_bytes(blk), 2.0 * nnz)
-            S = part_block_csr(op.plan, p)  # the block, rows in blk's order
-            csr = _csr_tensor(S.indptr, S.indices, S.data, S.n_cols,
-                              torch.float32, device)
-            xp, xs = xe[p], xe[p][: S.n_cols]
-            parts.append(dict(
-                ms=per_part[p], bound_ms=b_ms, bound_by=by,
-                slots=blk.n_slots, nnz=nnz, bytes=sell_bytes(blk),
-                plain_ms=time_ms(lambda blk=blk, xp=xp: spmv_plain(blk, xp)),
-                library_ms=time_ms(lambda csr=csr, xs=xs: csr @ xs)))
-        exch = profile_device(lambda op=op, x=x: op.extended(x))
-        t = dict(
-            per_part=parts,
+        launches = [lambda b=b, xp=xe[p]: b.matvec(xp)
+                    for p, b in enumerate(op.parts)]
+        seq = types.SimpleNamespace(
+            nparts=len(launches),
+            matvec=lambda _x, fns=launches: [f() for f in fns])
+        per_part = _per_part_ms(seq, x, launches)
+        t_rec = dict(
+            ms=ms, bound_ms=b_ms, bound_by=by, bytes=nbytes,
+            rows=A.n_pad, slots=A.n_slots, nnz=nnz,
+            part_slots=[b.n_slots for b in op.parts],
+            plain_ms=t["plain"]["device_ms"],
+            library_ms=t["library"]["device_ms"],
             matvec_ms=time_ms(lambda op=op, x=x: op.matvec(x)),
-            exchange_ms=time_ms(lambda op=op, x=x: op.extended(x)),
-            exchange_device_ms=exch["device_ms"])
-        log(f"[E] H2 P={P_}: kernel 1 per part (ms, bound ms): "
-            f"{[(round(q['ms'], 5), round(q['bound_ms'], 5)) for q in parts]}"
-            f"; the partitioned product {t['matvec_ms']:.4f} ms, the halo "
-            f"exchange {t['exchange_ms']:.4f} ms ({exch['device_ms']:.4f} ms "
-            f"of device time) [{card}]")
-        out[f"P={P_}"] = t
+            per_part_ms=per_part, per_part_sum_ms=sum(per_part),
+            events_ms={k: v["events_ms"] for k, v in t.items()})
+        log(f"[E] H2 P={P_}: kernel 1, one launch over {A.n_pad} rows "
+            f"({A.n_slots} slots, {A.storage}; the parts' blocks alone "
+            f"{sum(t_rec['part_slots'])} slots): {ms:.5f} ms, bound "
+            f"{b_ms:.5f} ms by {by} ({nbytes / 1e6:.2f} MB); plain "
+            f"{t_rec['plain_ms']:.4f} ms, cuSPARSE CSR on the stacked block "
+            f"({nnz} nnz) {t_rec['library_ms']:.4f} ms; the partitioned "
+            f"product {t_rec['matvec_ms']:.4f} ms (events); each part's "
+            f"block alone {[round(v, 5) for v in per_part]} ms, sum "
+            f"{t_rec['per_part_sum_ms']:.5f} ms; events back to back "
+            f"{json.dumps(t_rec['events_ms'])} [{card}]")
+        out[f"P={P_}"] = t_rec
+        del csr
     for label, (fn, counts) in run_h2["replays"].items():
         per_call = counts["sell_spmv"]["launches"]
         p = profile_device(fn, reps=1, kernel="sell_spmv_kernel",
@@ -3046,10 +3131,6 @@ def _j2_worker(device, kernels, op, plan, b, S, rank, errs) -> dict:
     import numpy as np
     import torch
 
-    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
-        bsg_spmv,
-        spmv_plain,
-    )
     from domain_decomposed_pde_solver_tpu_torch.parallel import (
         BSGShardedOperator,
         sharded_cg_solve,
@@ -3057,10 +3138,9 @@ def _j2_worker(device, kernels, op, plan, b, S, rank, errs) -> dict:
 
     t0 = time.perf_counter()
     bop = BSGShardedOperator.from_plan(plan, op.mesh, dtype=np.float32)
-    k = len(bop.parts)
-    rec = dict(pack_s=time.perf_counter() - t0, storage=bop.parts[0].storage,
-               parts=k, rows=[blk.n_pad for blk in bop.parts],
-               slots=[blk.n_slots for blk in bop.parts])
+    k = bop.cols.shape[0]
+    rec = dict(pack_s=time.perf_counter() - t0, storage=bop.local.storage,
+               parts=k, rows=bop.local.n_pad, slots=bop.local.n_slots)
     b32 = bop.put_vector(b)
     x0 = torch.zeros_like(b32)
     inv = _jacobi(bop)
@@ -3076,28 +3156,22 @@ def _j2_worker(device, kernels, op, plan, b, S, rank, errs) -> dict:
                launches=counts["sell_spmv"]["launches"], counts=counts)
     check(res.converged, f"[J2] CG stopped at relres {res.relres:.3e}")
     if device.type == "cuda":
-        check(rec["per_product"] == k, f"[J2] {rec['per_product']} kernel-1 "
-              f"launches in a product over {k} parts")
-        check(rec["launches"] == k * (res.iterations + 1),
+        check(rec["per_product"] == 1, f"[J2] {rec['per_product']} kernel-1 "
+              f"launches in a product over {k} parts, want 1")
+        check(rec["launches"] == res.iterations + 1,
               f"[J2] {rec['launches']} kernel-1 launches in "
               f"{res.iterations + 1} products over {k} parts")
     u = bop.get_vector(res.x)
     rec["x"] = u
-    # Each local part's launch against its plain version (not counted).
+    # The one launch over the local parts against its plain version and
+    # each part's block alone (not counted).
     rng = np.random.default_rng(17 + rank)
-    xe = bop.extended(torch.as_tensor(
-        rng.normal(size=(k, plan.n_local)), dtype=torch.float32,
-        device=device))
-    rows = np.arange(bop.parts[0].n_pad)
-    mine = {}
-    for p, blk in enumerate(bop.parts):
-        _compare(f"rank {rank} part {bop.mesh.parts_lo + p} ({blk.n_pad} "
-                 f"rows, {blk.storage})", bsg_spmv(blk, xe[p]),
-                 spmv_plain(blk, xe[p]), 1e-6, mine, "sell_spmv",
-                 mask=torch.as_tensor(rows >= plan.n_local, device=device),
-                 tag="J2")
-    rec["max_abs_err"] = mine["sell_spmv"]
-    errs["sell_spmv"] = max(errs.get("sell_spmv", 0.0), mine["sell_spmv"])
+    x = torch.as_tensor(rng.normal(size=(k, plan.n_local)),
+                        dtype=torch.float32, device=device)
+    rec["max_abs_err"] = stacked_checks(device, bop, x, errs,
+                                        f"J2 rank {rank}")
+    if device.type == "cuda":
+        rec["one_launch"] = one_launch_record(bop, x)
     if rank == 0:
         rec["host_relres"] = host_relres(S, u, b)
         rec["f32_floor"] = f32_floor(S, u, b)
@@ -3337,8 +3411,9 @@ def _j_references(device, host) -> dict:
     return dict(J1=dict(iterations=r1.iterations, solve_ms=ms1,
                         x=op.get_vector(r1.x)),
                 J2=dict(iterations=r2.iterations, solve_ms=ms2,
-                        storage=bop.parts[0].storage,
-                        x=bop.get_vector(r2.x)),
+                        storage=bop.local.storage, x=bop.get_vector(r2.x),
+                        one_launch=(one_launch_record(bop, b32)
+                                    if device.type == "cuda" else None)),
                 J3=dict(iterations=r3.iterations, solve_ms=ms3, x=x3),
                 collectives_ms=_collective_ms(device, op, plan3))
 
@@ -3544,9 +3619,12 @@ def phase_j(device, cfg=None, out=OUT) -> dict:
         f"J3 {[r['J3']['iterations'] for r in w]} / "
         f"{refs['J3']['iterations']}, every answer one process's bit for "
         f"bit; workers {t_workers:.1f} s, phase {wall:.1f} s")
+    timing_j2 = {"one process": refs["J2"]["one_launch"]} | {
+        f"rank {r['rank']}": r["J2"].get("one_launch") for r in w}
+    log(f"[J2] kernel 1, one launch per product: {json.dumps(timing_j2)}")
     return dict(workers=w, one_process=refs, j3_relerr=rel,
                 checkpoint_rows=sorted(blocks), errs=errs, nccl=nccl,
-                part_sums=study,
+                part_sums=study, timing_j2=timing_j2,
                 workers_s=t_workers, wall_s=wall)
 
 
@@ -3964,8 +4042,9 @@ def sell_compare(device, rng, errs, label, op, tol, tag="D",
 def operator_compare(device, errs, label, A, M, tag) -> None:
     """Every kernel-backed operator of a solve against its plain version:
     the fine operator, each AMG level's operator and its sliced-ELL
-    transfers, at f64 (``TOL_F64``)."""
+    transfers and segment sums, at f64 (``TOL_F64``)."""
     import numpy as np
+    import torch
 
     from domain_decomposed_pde_solver_tpu_torch.ops.bsg import BSGMatrix
     from domain_decomposed_pde_solver_tpu_torch.ops.dia import DIAMatrix
@@ -3978,13 +4057,19 @@ def operator_compare(device, errs, label, A, M, tag) -> None:
         for t in ("G", "GT"):
             if isinstance(getattr(lvl.P, t, None), BSGMatrix):
                 ops.append((f"AMG level {i} transfer {t}", getattr(lvl.P, t)))
+        ST = getattr(lvl.P, "ST", None)
+        if ST is not None:
+            ops += [(f"AMG level {i} restriction's {w}", o)
+                    for w, o in zip(("pieces", "total"), ST.operators)]
     for name, op in ops:
         if isinstance(op, DIAMatrix):
             dia_compare(device, rng, errs, f"{label} {name}", op, "float64",
                         TOL_F64, tag)
         elif isinstance(op, BSGMatrix):
+            # f64 vectors, as the f64 solve gives them (the int8 segment
+            # sums' own type is float32).
             sell_compare(device, rng, errs, f"{label} {name}", op, TOL_F64,
-                         tag)
+                         tag, dtype=torch.float64)
 
 
 def _pad_operator(shape, elem, device):
@@ -4462,6 +4547,22 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Microseconds of host time per call over ``reps`` back-to-back calls
+    after a warm-up, the device not waited for: what dispatching the call
+    costs the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
 def profile_cold(fn, scrub, kernel: str, reps: int = 20,
                  attempts: int = 5) -> float:
     """Device ms per call of the kernels whose name holds ``kernel``, with
@@ -4668,6 +4769,132 @@ def sell_bytes(A) -> int:
             + A.slice_ptr.numel() * 8 + A.x_len * 4 + A.n_pad * 4)
 
 
+def _sell_csr(A, device):
+    """cuSPARSE's CSR of a sliced-ELL operator's nonzero slots (f32), in
+    the operator's own numbering: the library call beside kernel 1."""
+    import numpy as np
+    import torch
+
+    key = A.slot_key().cpu().numpy()
+    cols = A.cols.cpu().numpy()
+    vals = A.vals.float().cpu().numpy()
+    nz = vals != 0
+    rows, cols, vals = key[nz], cols[nz], vals[nz]
+    o = np.lexsort((cols, rows))
+    indptr = np.zeros(A.n_pad + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=A.n_pad)[:A.n_pad], out=indptr[1:])
+    return _csr_tensor(indptr, cols[o], vals[o], A.x_len, torch.float32,
+                       device), int(nz.sum())
+
+
+def one_launch_record(op, x) -> dict:
+    """Kernel 1's one launch in ``op.matvec(x)`` (a BSGShardedOperator):
+    its profiler device ms beside its bound (all the local parts' slots,
+    one read of the vector it gathers from, one write of the answer)."""
+    p = profile_device(lambda: op.matvec(x), reps=10,
+                       kernel="sell_spmv_kernel")
+    ms = next((v[1] for k, v in p["kernels"].items()
+               if "sell_spmv_kernel" in k), p["device_ms"])
+    A = op.local
+    b_ms, by = bound(sell_bytes(A), 2.0 * int((A.vals != 0).sum()))
+    return dict(ms=ms, bound_ms=b_ms, bound_by=by, rows=A.n_pad,
+                slots=A.n_slots, storage=A.storage, timed_by=p["timed_by"])
+
+
+def time_sell(device, card, A, label, seed: int) -> dict:
+    """Kernel 1 on ``A`` with f32 vectors: profiler device ms beside its
+    bound (:func:`sell_bytes`), its plain version and cuSPARSE CSR on the
+    same nonzeros."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import spmv_plain
+
+    x = torch.as_tensor(np.random.default_rng(seed).normal(size=A.x_len),
+                        dtype=torch.float32, device=device)
+    csr, nnz = _sell_csr(A, device)
+    t = _measure({"kernel": lambda: A.matvec(x),
+                  "plain": lambda: spmv_plain(A, x),
+                  "library": lambda: csr @ x})
+    nbytes = sell_bytes(A)
+    b_ms, by = bound(nbytes, 2.0 * nnz)
+    rec = dict(rows=A.n_rows, n_pad=A.n_pad, x_len=A.x_len,
+               slots=A.n_slots, nnz=nnz, storage=A.storage,
+               ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
+               library_ms=t["library"]["device_ms"], bound_ms=b_ms,
+               bound_by=by, events_ms={k: v["events_ms"]
+                                       for k, v in t.items()})
+    log(f"[E] kernel 1 on {label} ({A.n_pad} x {A.x_len}, {A.n_slots} "
+        f"slots, {nnz} nnz, {A.storage}): {rec['ms']} ms "
+        f"(bound {b_ms:.6f} ms by {by}, {nbytes / 1e6:.3f} MB), plain "
+        f"{rec['plain_ms']} ms, cuSPARSE CSR {rec['library_ms']} ms; events "
+        f"back to back {json.dumps(rec['events_ms'])} [{card}]")
+    return rec
+
+
+def time_segment_sum(device, card, P, label, dtype, seed: int) -> dict:
+    """Kernel 1 on a restriction's segment sum (``P.ST``: its one or two
+    launches) against its plain version and against ``index_add_`` (the
+    scatter-add it replaced, with atomics on the card), with vectors of
+    ``dtype`` on the real fine rows; beside it the same sum packed at
+    other widths (``widths``: one thread per aggregate, pieces of 8 to
+    128), its device time only.  Its bound: every real entry's column
+    (4 B) and value (1 B) read once, x read once, y written once."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
+        segment_sum_operator,
+        spmv_plain,
+    )
+
+    S = P.ST
+    v = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=P.agg.numel()), dtype=dtype, device=device) * P.tval.to(dtype)
+
+    def plain():
+        y = spmv_plain(S.pieces, v)
+        return y if S.total is None else spmv_plain(S.total, y)
+
+    fns = {"kernel": lambda: S.matvec(v), "plain": plain,
+           "library": lambda: v.new_zeros(P.n_pad_c).index_add_(0, P.agg, v)}
+    t = _measure(fns)
+    host = {k: host_us(fns[k]) for k in ("kernel", "library")}
+    nnz = int(S.pieces.vals.count_nonzero())
+    nbytes = nnz * 5 + v.numel() * v.element_size() + P.n_pad_c * v.element_size()
+    b_ms, by = bound(nbytes, 1.0 * nnz)
+    valid = (P.tval != 0).cpu().numpy()
+    agg = P.agg.cpu().numpy()
+    lens = np.bincount(agg[valid], minlength=P.n_pad_c)
+    widths = {}
+    for w in (int(lens.max()), 8, 16, 32, 64, 128):
+        if w <= lens.max():
+            Sw = segment_sum_operator(agg, P.n_pad_c, valid=valid, width=w,
+                                      device=device)
+            check(torch.equal(Sw.matvec(v), Sw.matvec(v)),
+                  f"[E] {label}: a segment sum at width {w} changed its bits")
+            widths[w] = profile_device(lambda Sw=Sw: Sw.matvec(v))[
+                "device_ms"]
+    rec = dict(rows=P.n_pad_c, x_len=P.agg.numel(), nnz=nnz,
+               widest=int(lens.max()), width=S.width,
+               launches=len(S.operators),
+               slots=[o.n_slots for o in S.operators],
+               ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
+               library_ms=t["library"]["device_ms"], bound_ms=b_ms,
+               bound_by=by, host_us=host, widths_ms=widths,
+               events_ms={k: r["events_ms"] for k, r in t.items()})
+    log(f"[E] kernel 1 on {label} restriction's segment sum ({P.n_pad_c} "
+        f"aggregates of up to {rec['widest']} rows, {nnz} entries, "
+        f"{rec['launches']} launch(es) at width {S.width}, slots "
+        f"{rec['slots']}, {str(dtype)[6:]}): {rec['ms']} ms (bound "
+        f"{b_ms:.6f} ms by {by}), plain {rec['plain_ms']} ms, index_add_ "
+        f"{rec['library_ms']} ms; host dispatch per call (us) "
+        f"{json.dumps(host)}; device ms by width (the widest aggregate: "
+        f"one thread each) {json.dumps(widths)}; events back to back "
+        f"{json.dumps(rec['events_ms'])} [{card}]")
+    return rec
+
+
 def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     import numpy as np
     import torch
@@ -4737,7 +4964,8 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
     f32_ms, _ = bound(sell_bytes(F32), 2 * Af.n_slots)
     log(f"[E] sliced ELL fine ({Af.n_pad} rows, {Af.n_slots} slots, "
         f"{Af.storage} values, f32 vectors), device ms per call: kernel "
-        f"{t['kernel']['device_ms']}, the same slots with f32 values "
+        f"{t['kernel']['device_ms']} (bound {b_ms} ms, {nbytes / 1e6:.2f} "
+        f"MB), the same slots with f32 values "
         f"{t['f32_values']['device_ms']} (bound {f32_ms} ms, "
         f"{sell_bytes(F32) / 1e6:.2f} MB), plain {t['plain']['device_ms']}, "
         f"cuSPARSE CSR ({csr.nnz} nnz) {t['library']['device_ms']}; events "
@@ -4747,7 +4975,7 @@ def timing_phase(device, card, run_a, run_b, run_c, run_d1, run_d2) -> dict:
         ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
         library_ms=t["library"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
         storage=Af.storage, f32_values_ms=t["f32_values"]["device_ms"],
-        f32_values_bound_ms=f32_ms,
+        f32_values_bound_ms=f32_ms, slots=Af.n_slots,
         events_ms={k: v["events_ms"] for k, v in t.items()})
     rec["solve_a_warm"] = warm_solve_breakdown(card, run_a)
     rec.update(time_chunked(device, card, run_c, run_d2, rec["sell_spmv"],
@@ -5318,6 +5546,7 @@ def main() -> int:
         r = rec[key]
         extra = {f: r[f] for f in ("yardstick", "yardstick_ms", "slot_ratio",
                                    "vs_kernel_1", "cold_ms", "f64_ms",
+                                   "slots",
                                    "f64_cold_ms", "launch_floor_ms",
                                    "copy_ms", "streaming_bound_ms")
                  if f in r}
@@ -5344,12 +5573,16 @@ def main() -> int:
                 for key, t in run_i["timing"].items()
                 if key.split()[-1] in ("float32", "float64")}
         if k.name == "sell_spmv":
-            # Phase H's instances: each part's block of BSGShardedOperator.
-            extra["phase_h_parts"] = {
-                key: dict(max_abs_err=run_h["H2"][key[2:]]["max_abs_err"],
-                          per_part=t["per_part"])
+            # Phase H's instances: the one launch over all parts of
+            # BSGShardedOperator; phase J's per process; phase G's levels.
+            extra["phase_h_one_launch"] = {
+                key: dict({f: v for f, v in t.items() if f != "events_ms"},
+                          max_abs_err=run_h["H2"][key[2:]]["max_abs_err"])
                 for key, t in run_h["timing"].items()
                 if key.startswith("P=")}
+            extra["phase_j_one_launch"] = run_j["timing_j2"]
+            extra["phase_g_levels"] = run_g["timing"]["sell_levels"]
+            extra["phase_f_segment_sums"] = run_f["segment_sums"]
         records.append({
             "name": k.name,
             "route": "cuda",

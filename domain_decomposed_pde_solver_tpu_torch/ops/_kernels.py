@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import pathlib
@@ -62,6 +63,7 @@ __all__ = [
     "pad_stencil_launch",
     "pad_stencil_window_launch",
     "sell_chunked_spmv",
+    "sell_launch_block",
     "sell_spmv",
 ]
 
@@ -168,7 +170,9 @@ class Kernel:
             self.by_form[form] = self.by_form.get(form, 0) + 1
 
 
-_SELL_ARGS = [_P] * 5 + [_I64, _I64, _P]
+# slice_ptr, cols, vals, x, y, n_out, n_x, block, stream
+_SELL_ARGS = [_P] * 5 + [_I64, _I64, _INT, _P]
+SELL_BLOCKS = (256, 128, 64)
 # Storage x vectors: int8, bf16 and f32 values (JAX's storages) with f32 or
 # f64 vectors, f64 values with f64 vectors.
 _SELL_TYPES = ("i8_f32", "i8_f64", "bf16_f32", "bf16_f64", "f32_f32",
@@ -279,6 +283,23 @@ def _require_cuda(x: torch.Tensor, what: str) -> torch.device:
     return x.device
 
 
+def sell_launch_block(n_out: int, sms: int) -> int:
+    """Threads per block of a sliced-ELL launch over ``n_out`` rows on a
+    card of ``sms`` SMs: the largest of :data:`SELL_BLOCKS` that gives
+    every SM at least four blocks, else the smallest, so a small operator
+    still spreads over the card (one thread per row whatever the block:
+    the block never changes the result)."""
+    for block in SELL_BLOCKS[:-1]:
+        if -(-n_out // block) >= 4 * sms:
+            return block
+    return SELL_BLOCKS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def sell_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
               vals: torch.Tensor, x: torch.Tensor, n_out: int) -> torch.Tensor:
     """Launch the sliced-ELL SpMV on CUDA tensors; returns y (n_out,).
@@ -307,10 +328,11 @@ def sell_spmv(slice_ptr: torch.Tensor, cols: torch.Tensor,
             f"{vals.numel()} vals"
         )
     y = torch.empty(n_out, dtype=x.dtype, device=dev)
+    block = sell_launch_block(n_out, _sm_count(dev.index or 0))
     with torch.cuda.device(dev):
         SELL_SPMV.launch(
             entry, slice_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-            x.data_ptr(), y.data_ptr(), n_out, x.numel(), _stream(dev),
+            x.data_ptr(), y.data_ptr(), n_out, x.numel(), block, _stream(dev),
         )
     return y
 

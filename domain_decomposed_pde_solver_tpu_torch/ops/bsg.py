@@ -31,6 +31,9 @@ Two layouts, as in JAX (``layout=`` of :func:`bsg_from_csr`): the dense
 one above, and the ragged one, which stores the same slots and cuts every
 slice into chunks of ``chunk`` slot columns (the last one shorter), with a
 chunk -> slice map (JAX's ``_bsg_spmv_ragged``, ``bsg.py:857-924`` there).
+:func:`sell_operator` packs rows as given (the stacked parts of
+:class:`..parallel.sharded.BSGShardedOperator`) and
+:func:`segment_sum_operator` a segment sum in a fixed order.
 
 On a CUDA tensor :meth:`BSGMatrix.matvec` launches the hand-written kernel
 of its layout (dense: ``csrc/spmv.cu``; ragged: ``csrc/sell_chunked_spmv.cu``,
@@ -58,12 +61,20 @@ __all__ = [
     "bsg_from_csr",
     "bsg_from_coo",
     "bsg_spmv",
+    "SEGMENT_WIDTH",
+    "SegmentSum",
+    "segment_sum_operator",
+    "sell_operator",
     "spmv_plain",
     "sell_pack",
 ]
 
 TILE = 1024  # padded-length granule of the JAX BSG layout (8 x 128 rows)
 SLICE = 32  # rows per sliced-ELL slice: one warp
+# Entries of a segment one thread adds before the sum is split
+# (:func:`segment_sum_operator`): on the card a wider segment is a long
+# chain of dependent adds, a split one a second launch.
+SEGMENT_WIDTH = 64
 
 _STORAGE = {"int8": torch.int8, "bfloat16": torch.bfloat16,
             "float32": torch.float32, "float64": torch.float64}
@@ -272,10 +283,11 @@ def _slice_widths(indptr: np.ndarray, n_pad: int) -> np.ndarray:
 
 
 def sell_pack(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
-              n_pad: int, value_dtype=np.float32):
+              n_pad: int, value_dtype=np.float32, pad_col: int = 0):
     """Pack row-sorted CSR arrays (``len(indptr) - 1 <= n_pad`` rows) into
     sliced-ELL host arrays ``(slice_ptr, cols, vals)``, each slice as wide
-    as its widest row (both layouts)."""
+    as its widest row, each row's slots in the order given (both layouts).
+    Padding slots hold value 0 and column ``pad_col``."""
     indptr = np.asarray(indptr, dtype=np.int64)
     n = indptr.size - 1
     widths = _slice_widths(indptr, n_pad)
@@ -288,7 +300,7 @@ def sell_pack(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
     rows = np.repeat(np.arange(n, dtype=np.int64), lens)
     pos = np.arange(nnz, dtype=np.int64) - indptr[rows]
     dst = slice_ptr[rows // SLICE] + pos * SLICE + rows % SLICE
-    cols = np.zeros(n_slots, dtype=np.int32)
+    cols = np.full(n_slots, pad_col, dtype=np.int32)
     vals = np.zeros(n_slots, dtype=value_dtype)
     cols[dst] = indices
     vals[dst] = data
@@ -482,3 +494,95 @@ def bsg_from_coo(
     diag = np.zeros(n_pad, dtype=np.float32)
     return _upload(slice_ptr, cols_s, vals_s, storage, diag, None, n_rows,
                    x_len, n_pad, x_len, device)
+
+
+def sell_operator(indptr, indices, data, x_len: int, *, storage: str,
+                  device=None) -> BSGMatrix:
+    """Pack CSR arrays as a sliced-ELL operator with each row's slots in
+    the order given and no padded rows: ``n_pad`` is the row count, which
+    need not be a multiple of 32 (the last slice's extra lanes are
+    masked), and padding slots point past the input (``x_len``).  For
+    operators whose slot order is fixed by their caller: the stacked parts
+    of a partitioned operator, a segment sum."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n_rows = indptr.size - 1
+    data = np.asarray(data)
+    storage = _resolve_storage(storage, data)
+    slice_ptr, cols, vals = sell_pack(
+        indptr, np.asarray(indices), data, n_rows,
+        value_dtype=_PACK_NP[storage], pad_col=int(x_len),
+    )
+    diag = np.zeros(n_rows, dtype=np.float32)
+    return _upload(slice_ptr, cols, vals, storage, diag, None, n_rows,
+                   x_len, n_rows, x_len, device)
+
+
+@dataclasses.dataclass
+class SegmentSum:
+    """``y[j] = sum of x[i] over i with seg[i] == j`` in a fixed order, on
+    kernel 1 (:func:`segment_sum_operator`): ``pieces`` adds each run of
+    at most ``width`` consecutive entries of a segment (ascending ``i``),
+    ``total`` adds a segment's pieces in order.  ``total`` is None when
+    every segment is one piece: then ``pieces`` is the whole sum, one row
+    per segment."""
+
+    pieces: BSGMatrix  # (n_pieces rows) over x, int8 ones
+    total: Optional[BSGMatrix]  # (n_seg rows) over the pieces, int8 ones
+    width: int
+
+    @property
+    def operators(self) -> Tuple[BSGMatrix, ...]:
+        return (self.pieces,) if self.total is None else (self.pieces,
+                                                          self.total)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.pieces.matvec(x)
+        return y if self.total is None else self.total.matvec(y)
+
+
+def _ones(indptr, cols, x_len, device) -> BSGMatrix:
+    return sell_operator(indptr, cols, np.ones(cols.size, np.int8), x_len,
+                         storage="int8", device=device)
+
+
+def segment_sum_operator(seg: np.ndarray, n_seg: int, valid=None, *,
+                         width: int = SEGMENT_WIDTH,
+                         device=None) -> SegmentSum:
+    """``y[j] = sum of x[i] over i with seg[i] == j`` (over the ``i`` where
+    ``valid`` is true, all by default), each segment added in ascending
+    ``i`` in pieces of at most ``width`` entries, then the pieces in order
+    (:class:`SegmentSum`): int8 ones on kernel 1.  A scatter-add on the
+    card adds with atomics, in an order that changes from run to run; this
+    sum does not (each row is one thread's, its slots in order).  One
+    thread per segment would add a wide aggregate (hundreds of fine rows)
+    in one long chain, so a segment wider than ``width`` is split over
+    several threads.  Where no segment is, the sum is one launch and its
+    plain version on a CPU tensor adds in ``index_add_``'s order, bit for
+    bit (the products with 1 are exact)."""
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    seg = np.asarray(seg, dtype=np.int64)
+    i = (np.arange(seg.size, dtype=np.int64) if valid is None
+         else np.flatnonzero(np.asarray(valid)))
+    order = np.argsort(seg[i], kind="stable")
+    rows, cols = seg[i][order], i[order]
+    lens = np.bincount(rows, minlength=int(n_seg))
+    n_pieces = -(-lens // width)  # pieces per segment
+    if not (lens > width).any():
+        indptr = np.zeros(int(n_seg) + 1, dtype=np.int64)
+        np.cumsum(lens, out=indptr[1:])
+        return SegmentSum(_ones(indptr, cols, seg.size, device), None, width)
+    # Piece q of segment j holds its entries [width*q, width*(q+1)).
+    first = np.zeros(int(n_seg) + 1, dtype=np.int64)  # first piece of j
+    np.cumsum(n_pieces, out=first[1:])
+    start = np.zeros(int(n_seg), dtype=np.int64)  # first entry of j
+    np.cumsum(lens[:-1], out=start[1:])
+    pos = np.arange(cols.size, dtype=np.int64) - start[rows]
+    piece_of = first[rows] + pos // width
+    p_indptr = np.zeros(int(first[-1]) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(piece_of, minlength=int(first[-1])),
+              out=p_indptr[1:])
+    pieces = _ones(p_indptr, cols, seg.size, device)
+    total = _ones(first, np.arange(first[-1], dtype=np.int64),
+                  int(first[-1]), device)
+    return SegmentSum(pieces, total, width)

@@ -11,7 +11,11 @@ count — the single-device hierarchy's algebra laid out over the parts.
   in factored form; the tentative half of ``R`` is a per-part segment sum
   into the GLOBAL coarse numbering followed by one :func:`.sharded.psum`
   of the coarse vectors (the only collective besides the halo exchange),
-  and ``P``'s a gather back.
+  and ``P``'s a gather back.  The segment sums of all local parts are one
+  segment sum on kernel 1 (``ops.bsg.segment_sum_operator``): each
+  coarse row of a part adds its rows in ascending order, so the coarse
+  vector is the same bits on every run and for any number of parts a
+  process holds (a scatter-add would add with atomics on the card).
 - **Coarse tail replicated**: levels 1 and below are the port's
   single-device levels (sliced-ELL or DIA kernels on the card); JAX runs a
   copy on every device, the port's one device runs it once.
@@ -28,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.bsg import SegmentSum, segment_sum_operator
 from ..ops.csr import CSRMatrix
 from ..solvers.cg import cg_solve
 from ..solvers.precond.amg import AMGPreconditioner, smoothed_aggregation_setup
@@ -52,6 +57,9 @@ class HaloAMG:
     tail: AMGPreconditioner
     n_c: int
     n_pad_c: int
+    # The restriction's segment sums of a mesh's local parts, packed once
+    # per mesh (DeviceMesh -> SegmentSum): every solve's apply reuses them.
+    restrictions: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
 @dataclasses.dataclass
@@ -59,7 +67,7 @@ class _HaloAMGBlock:
     """The preconditioner's apply over ``(P, n_local)`` vectors."""
 
     A: object  # partitioned operator (.matvec)
-    flat_agg: torch.Tensor  # (P*n_local,) int64: p*n_pad_c + coarse id
+    restrict: SegmentSum  # (P*n_pad_c) x (P*n_local): each part's segment sum
     agg: torch.Tensor  # (P, n_local) int64 global coarse ids (0 on padding)
     tval: torch.Tensor  # (P, n_local) tentative weight (0 on padding)
     scale: torch.Tensor  # (P, n_local) omega/lmax/diag (0 on padding)
@@ -72,11 +80,11 @@ class _HaloAMGBlock:
 
     def _r_apply(self, w: torch.Tensor) -> torch.Tensor:
         """``R w`` -> the ``(n_pad_c,)`` coarse vector: every part's
-        segment sum into the global numbering, then :func:`psum`."""
+        segment sum into the global numbering (kernel 1 over all local
+        parts at once), then :func:`psum`."""
         s = w - self.A.matvec(self.scale * w)
         ts = self.tval * s
-        parts = ts.new_zeros(ts.shape[0] * self.n_pad_c)
-        parts.index_add_(0, self.flat_agg, ts.reshape(-1))
+        parts = self.restrict.matvec(ts.reshape(-1))
         return psum(parts.view(ts.shape[0], self.n_pad_c), self.A.mesh)
 
     def _p_apply(self, x_c: torch.Tensor) -> torch.Tensor:
@@ -153,10 +161,16 @@ def halo_amg_block(op, hamg: HaloAMG) -> _HaloAMGBlock:
         return torch.from_numpy(np.ascontiguousarray(op.mesh.local(a))).to(
             dev)
 
-    agg = put(hamg.agg.astype(np.int64))
-    flat = agg + hamg.n_pad_c * torch.arange(P_, device=dev)[:, None]
+    restrict = hamg.restrictions.get(op.mesh)
+    if restrict is None:
+        agg_l = op.mesh.local(hamg.agg).astype(np.int64)
+        seg = agg_l + hamg.n_pad_c * np.arange(P_, dtype=np.int64)[:, None]
+        restrict = hamg.restrictions[op.mesh] = segment_sum_operator(
+            seg.reshape(-1), P_ * hamg.n_pad_c,
+            valid=op.mesh.local(hamg.plan.row_valid).reshape(-1), device=dev)
     return _HaloAMGBlock(
-        A=op, flat_agg=flat.reshape(-1), agg=agg, tval=put(hamg.tval),
+        A=op, restrict=restrict, agg=put(hamg.agg.astype(np.int64)),
+        tval=put(hamg.tval),
         scale=put(hamg.scale), inv_diag=put(hamg.inv_diag),
         lmax=torch.tensor(hamg.lmax, dtype=torch.float32), tail=hamg.tail,
         mask=torch.arange(hamg.n_pad_c, device=dev) < hamg.n_c,

@@ -25,10 +25,12 @@ the caller asks for it), and
 
 Two local products, as in JAX: :class:`ShardedOperator`'s padded ELL block
 (plain XLA in JAX, plain PyTorch here: one batched gather through the
-exchange and a row sum) and :class:`BSGShardedOperator`'s, which packs each
-part's block over its extended-local space as a square sliced-ELL operator
-and runs it on the sliced-ELL SpMV kernel (``csrc/spmv.cu``), one launch
-per part.
+exchange and a row sum) and :class:`BSGShardedOperator`'s, which packs the
+real rows of all of a process's parts as one sliced-ELL operator over the
+vector they gather from and runs it on the sliced-ELL SpMV kernel
+(``csrc/spmv.cu``), one launch per product in each process.  JAX runs one
+kernel per device, each over its part's square block; one launch per part
+on one card spent most of each launch on its latency and tail.
 
 The mesh spans one device in each process.  JAX needs one device per
 part; the card machine has one GPU.  With ``torch.distributed``
@@ -49,7 +51,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.bsg import BSGMatrix, bsg_from_csr
+from ..ops.bsg import BSGMatrix, bsg_from_csr, sell_operator
 from ..ops.csr import CSRMatrix
 from ..solvers.cg import CGResult, cg_solve, cg_solve_with_state
 from ..solvers.gmres import GMRESResult, gmres_solve
@@ -466,23 +468,48 @@ def _block_csr(cols: np.ndarray, vals: np.ndarray, n_ext: int) -> CSRMatrix:
                      data=v, shape=(n_ext, n_ext))
 
 
+def _stacked_csr(ell_cols: np.ndarray, ell_vals: np.ndarray,
+                 flat: np.ndarray) -> tuple:
+    """CSR arrays ``(indptr, indices, data)`` of the local parts' real rows
+    stacked, part after part (``k * n_local`` rows): each row's nonzero
+    slots in :func:`_block_csr`'s order (ascending extended-local column),
+    each column mapped to its position in :meth:`ShardedOperator.source`'s
+    vector (``flat``, the ``flat_cols`` of :func:`_base_fields`)."""
+    k, n, K = ell_cols.shape
+    cols = ell_cols.reshape(k * n, K)
+    order = np.argsort(cols, axis=1, kind="stable")
+    vals = np.take_along_axis(np.asarray(ell_vals, dtype=np.float64).reshape(
+        k * n, K), order, axis=1)
+    pos = np.take_along_axis(flat.reshape(k * n, K), order, axis=1)
+    nz = vals != 0
+    indptr = np.zeros(k * n + 1, dtype=np.int64)
+    np.cumsum(nz.sum(axis=1), out=indptr[1:])
+    return indptr, pos[nz], vals[nz]
+
+
 @dataclasses.dataclass
 class BSGShardedOperator(ShardedOperator):
     """A partitioned operator whose local products run on the sliced-ELL
-    SpMV kernel: part p's block over its extended-local space is packed as
-    a square sliced-ELL operator with no reordering (``reorder=False``:
-    the halo plan fixes the layout), values in one storage for all parts
-    (:func:`_bsg_storage`).  Its ``P*H`` halo rows and the padding to a
-    multiple of 1024 are empty rows (slices of width 0), which give 0.
+    SpMV kernel, one launch per product in each process: ``local`` holds
+    the real rows of every local part, ``k * n_local`` of them part after
+    part (no halo rows, no padding per part: a 32-row slice may straddle
+    two parts), as one sliced-ELL operator whose columns are positions in
+    :meth:`source`'s vector (one process: ``x`` itself; across processes
+    ``[x | halo]``).  A row's slots keep the
+    order of its part's block (ascending extended-local column, as JAX
+    packs the block), values in one storage for all parts
+    (:func:`_bsg_storage`).
 
-    ``matvec``: one gather builds every local part's padded extended-local
-    vector (own values, halo, zeros), then one kernel launch per local
-    part; the first ``n_local`` rows of each are the answer.  Across
-    processes each packs and launches only its own parts, after the halo
-    exchange."""
+    ``matvec``: one launch reads :meth:`source`'s vector and writes the
+    ``(k, n_local)`` answer in place: no gather of extended vectors, no
+    slicing, no stack.  A row's sum is the one its part's block alone
+    gives (:attr:`parts`, :meth:`extended`), bit for bit."""
 
-    parts: List[BSGMatrix] = dataclasses.field(default_factory=list)
-    ext_idx: Optional[torch.Tensor] = None  # (P, n_pad) into [source | 0]
+    local: Optional[BSGMatrix] = None  # (k * n_local) rows over source(x)
+    _parts: Optional[List[BSGMatrix]] = dataclasses.field(default=None,
+                                                          repr=False)
+    _ext_idx: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                         repr=False)
 
     @classmethod
     def from_plan(cls, plan: HaloPlan, mesh: DeviceMesh,
@@ -490,33 +517,50 @@ class BSGShardedOperator(ShardedOperator):
         base = _base_fields(plan, mesh, dtype)
         ell_cols, ell_vals = part_blocks(plan, mesh)[:2]
         storage = _bsg_storage(ell_vals, mesh)
-        n_ext = plan.n_local + plan.nparts * plan.halo_width
-        parts = [bsg_from_csr(_block_csr(c, v, n_ext), reorder=False,
-                              storage=storage, layout="dense",
-                              device=mesh.device)
-                 for c, v in zip(ell_cols, ell_vals)]
-        n_pad = parts[0].n_pad
         n, k = plan.n_local, ell_cols.shape[0]
-        halo_pos = _halo_positions(plan, mesh, base["halo_idx"].cpu().numpy())
-        zero = k * n + (0 if mesh.world == 1 else halo_pos.size)
-        ext = np.full((k, n_pad), zero, dtype=np.int64)
-        ext[:, :n] = (n * np.arange(k, dtype=np.int64)[:, None]
-                      + np.arange(n, dtype=np.int64)[None, :])
-        ext[:, n: n + halo_pos.shape[1]] = halo_pos
-        return cls(**base, parts=parts,
-                   ext_idx=torch.from_numpy(ext).to(mesh.device))
+        n_x = k * n + (0 if mesh.world == 1
+                       else k * plan.nparts * plan.halo_width)
+        indptr, indices, data = _stacked_csr(
+            ell_cols, ell_vals, base["flat_cols"].cpu().numpy())
+        local = sell_operator(indptr, indices, data, n_x, storage=storage,
+                              device=mesh.device)
+        return cls(**base, local=local)
+
+    @property
+    def parts(self) -> List[BSGMatrix]:
+        """Each local part's block alone over its extended-local space
+        (``n_local + P*H`` rows and columns padded to a multiple of 1024;
+        the halo rows and the padding are slices of width 0), in the
+        stacked operator's storage, packed on first use: the per-part
+        operator that :attr:`local` stacks, for checks (the products never
+        use it)."""
+        if self._parts is None:
+            ell_cols, ell_vals = part_blocks(self.plan, self.mesh)[:2]
+            n_ext = self.n_local + self.nparts * self.plan.halo_width
+            self._parts = [
+                bsg_from_csr(_block_csr(c, v, n_ext), reorder=False,
+                             storage=self.local.storage, layout="dense",
+                             device=self.device)
+                for c, v in zip(ell_cols, ell_vals)]
+        return self._parts
 
     def extended(self, x: torch.Tensor) -> torch.Tensor:
-        """``(P, n_pad)``: each part's own values, its halo, then zeros —
-        the input of its local product."""
+        """``(k, n_pad)``: each local part's own values, its halo, then
+        zeros -- the input of its block alone (:attr:`parts`)."""
+        if self._ext_idx is None:
+            n_pad, n, k = self.parts[0].n_pad, self.n_local, self.cols.shape[0]
+            halo_pos = _halo_positions(self.plan, self.mesh,
+                                       self.halo_idx.cpu().numpy())
+            ext = np.full((k, n_pad), self.local.x_len, dtype=np.int64)
+            ext[:, :n] = (n * np.arange(k, dtype=np.int64)[:, None]
+                          + np.arange(n, dtype=np.int64)[None, :])
+            ext[:, n: n + halo_pos.shape[1]] = halo_pos
+            self._ext_idx = torch.from_numpy(ext).to(self.device)
         xz = torch.cat([self.source(x), x.new_zeros(1)])
-        return xz[self.ext_idx]
+        return xz[self._ext_idx]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        xe = self.extended(x)
-        n = self.n_local
-        return torch.stack([b.matvec(xe[p])[:n]
-                            for p, b in enumerate(self.parts)])
+        return self.local.matvec(self.source(x)).view(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,11 @@ Counterpart of the JAX package's ``solvers/precond/amg.py``:
   same functions as the JAX package, so both build the same hierarchy.
 - **Apply on device**: the V-cycle in PyTorch; every level operator goes
   through its own product (the sliced-ELL, DIA and pad-stencil kernels on
-  the card).  The selection gather and segment sum of
-  :class:`FactoredProlongator` are ``index_select`` and ``index_add_``; the
-  brick transfers are reshapes, repeats and block sums.
+  the card).  The selection gather of :class:`FactoredProlongator` is
+  ``index_select``, its segment sum sliced-ELL operators on kernel 1
+  (``ops.bsg.segment_sum_operator``: a fixed order, where ``index_add_``
+  adds with atomics on the card); the brick transfers are reshapes,
+  repeats and block sums.
 """
 
 from __future__ import annotations
@@ -37,7 +39,14 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ...ops.bsg import TILE, BSGMatrix, bsg_from_coo, bsg_from_csr
+from ...ops.bsg import (
+    TILE,
+    BSGMatrix,
+    SegmentSum,
+    bsg_from_coo,
+    bsg_from_csr,
+    segment_sum_operator,
+)
 from ...ops.csr import CSRMatrix
 from ...ops.dia import DIAMatrix, choose_operator
 from ...ops.ell import ELLMatrix, ell_from_csr, pad_to
@@ -336,13 +345,24 @@ def brick_aggregate(dims: Tuple[int, int, int], brick: int) -> np.ndarray:
 class FactoredProlongator:
     """Smoothed prolongator ``P = (I - (omega/lmax) D^-1 A) T`` applied in
     factored form: one selection gather plus a fine-level matvec; ``R = P^T``
-    through symmetry: ``R r = T^T (r - omega D^-1 A r)``."""
+    through symmetry: ``R r = T^T (r - omega D^-1 A r)``.  ``T^T``'s
+    segment sum is ``ST`` (:func:`..ops.bsg.segment_sum_operator` over the
+    real fine rows, built from ``agg`` and ``tval`` when not given): each
+    aggregate's rows added in ascending order, in pieces where it is wide,
+    the same bits on every run."""
 
     agg: torch.Tensor  # (n_pad_f,) int64 aggregate per fine row (0 on padding)
     tval: torch.Tensor  # (n_pad_f,) tentative weight (0 on padding)
     scale: torch.Tensor  # (n_pad_f,) omega/lmax * 1/diag (0 on padding)
     A: object  # fine-level operator with .matvec
     n_pad_c: int
+    ST: Optional[SegmentSum] = None  # (n_pad_c x n_pad_f) segment sum
+
+    def __post_init__(self):
+        if self.ST is None:
+            self.ST = segment_sum_operator(
+                self.agg.cpu().numpy(), self.n_pad_c,
+                valid=(self.tval != 0).cpu().numpy(), device=self.agg.device)
 
     def matvec(self, x_c: torch.Tensor) -> torch.Tensor:
         t = self.tval * x_c.index_select(0, self.agg)
@@ -350,8 +370,7 @@ class FactoredProlongator:
 
     def rmatvec(self, r: torch.Tensor) -> torch.Tensor:
         s = r - self.A.matvec(self.scale * r)
-        out = r.new_zeros(self.n_pad_c)
-        return out.index_add_(0, self.agg, self.tval * s)
+        return self.ST.matvec(self.tval * s)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
 """The port on the card: the hand-written kernels (sliced-ELL SpMV,
 pad-stencil, DIA, chunked sliced-ELL SpMV, fused Jacobi-PCG) against their
 plain PyTorch versions, and the solves through them against the same
-solves on the CPU; also each part's sliced-ELL launch of the partitioned
-operator (``parallel.BSGShardedOperator``) and partitioned Jacobi-CG on
+solves on the CPU; also the one sliced-ELL launch over all parts of the
+partitioned operator (``parallel.BSGShardedOperator``) against each
+part's block alone, the AMG restrictions' fixed-order segment sums and
+the halo AMG's bits over runs and processes, partitioned Jacobi-CG on
 the card against the CPU's iterations, and the pad-stencil kernel on the
 windows of a z-slab split (``parallel.build_slab_pad_stencil``) with the
 slab-pad AMG solve on the card against the CPU's iterations; two
@@ -883,6 +885,77 @@ def test_value_storages_match_plain_and_float32(cuda_device, kind, name,
         assert torch.equal(ys[s], ys["float32"]), s
 
 
+@pytest.mark.parametrize("name", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["laplacian", "int8_range", "bf16_exact",
+                                  "general"])
+def test_sell_operator_every_storage_matches_plain(cuda_device, kind, name):
+    """Kernel 1 on an operator packed by ``sell_operator`` (rows as given,
+    a row count that is not a multiple of 32, padding slots past the
+    input) in every value storage that holds the operator exactly, and in
+    float64 storage with f64 vectors: each launch within the tolerance of
+    its plain version, bit for bit the ``bsg_from_csr`` pack's launch of
+    the same storage on its real rows and, for the storages that hold the
+    operator exactly, the float32 storage's launch."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import sell_operator
+
+    S, narrow = _value_matrices()[kind]
+    csr = _csr(S)
+    n = csr.n_rows - 5  # drop the last rows: n is not a multiple of 32
+    storages = EXACT[narrow] + (("float64",) if name == "float64" else ())
+    x = None
+    ys = {}
+    for s in storages:
+        A = bsg_from_csr(csr, storage=s, reorder=False, device=cuda_device)
+        O = sell_operator(csr.indptr[: n + 1], csr.indices[: csr.indptr[n]],
+                          csr.data[: csr.indptr[n]], A.n_pad, storage=s,
+                          device=cuda_device)
+        assert O.n_pad == n and n % 32 and O.storage == A.storage
+        if x is None:
+            x = A.put_vector(np.random.default_rng(43).normal(
+                size=csr.n_rows), dtype=getattr(torch, name))
+        before = _kernels.SELL_SPMV.launches
+        ys[s] = bsg_spmv(O, x)
+        assert _kernels.SELL_SPMV.launches == before + 1
+        torch.cuda.synchronize()
+        assert _relerr(ys[s], spmv_plain(O, x)) <= TOL[name]
+        assert torch.equal(ys[s], bsg_spmv(A, x)[:n]), s
+    for s in EXACT[narrow]:
+        assert torch.equal(ys[s], ys["float32"]), s
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+@pytest.mark.parametrize("split", [False, True])
+def test_segment_sum_on_the_card_equals_its_plain_version_on_the_cpu(
+        cuda_device, split, name):
+    """The AMG restrictions' segment sum on kernel 1 gives the bits of its
+    plain version on the CPU, on every run (a scatter-add on the card
+    would add with atomics): in one launch where every segment is one
+    thread's (then ``index_add_``'s bits), and in pieces then segments
+    where segments are wider than the width (aggregates of ~300 rows)."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
+        segment_sum_operator,
+    )
+
+    rng = np.random.default_rng(8)
+    n, n_seg = 200_000, (700 if split else 9_000)
+    seg = rng.integers(0, n_seg, n)
+    valid = rng.random(n) < 0.95
+    dt = getattr(torch, name)
+    x = torch.as_tensor(rng.normal(size=n), dtype=dt)
+    width = 32 if split else n
+    S = segment_sum_operator(seg, n_seg, valid=valid, width=width,
+                             device=cuda_device)
+    assert (S.total is not None) == split
+    want = segment_sum_operator(seg, n_seg, valid=valid, width=width,
+                                device="cpu").matvec(x)
+    if not split:
+        assert torch.equal(want, torch.zeros(n_seg, dtype=dt).index_add_(
+            0, torch.as_tensor(seg[valid]), x[torch.as_tensor(valid)]))
+    xd = x.to(cuda_device)
+    for _ in range(2):
+        assert torch.equal(S.matvec(xd).cpu(), want)
+
+
 @pytest.mark.parametrize("case", ["cluster", "grid"])
 def test_fused_cg_int8_values_match_float32_bit_for_bit(cuda_device, case):
     """Kernel 5 on the int8 values ``storage="auto"`` keeps for a graph
@@ -1000,32 +1073,43 @@ def _partitioned(nparts, device, dtype=np.float32, op="bsg"):
 
 @pytest.mark.parametrize("nparts", [2, 4, 8])
 def test_sharded_parts_match_plain(cuda_device, nparts):
-    """Each part's kernel-1 launch of ``BSGShardedOperator`` against its
-    plain version; the halo rows past ``n_local`` exactly 0; one launch per
-    part per product; the partitioned product is the host CSR's."""
+    """``BSGShardedOperator``'s product is one kernel-1 launch over all
+    parts (the stacked operator): against its plain version (relative 1e-6
+    in f32), and bit for bit each part's rows of the same kernel on that
+    part's block alone, whose halo rows past ``n_local`` are exactly 0 and
+    which matches its own plain version; the partitioned product is the
+    host CSR's."""
     sy, op = _partitioned(nparts, cuda_device)
     rng = np.random.default_rng(nparts)
     x = torch.as_tensor(rng.normal(size=(nparts, op.n_local)),
                         dtype=torch.float32, device=cuda_device)
+    before = _kernels.SELL_SPMV.launches
+    y = op.matvec(x)
+    assert _kernels.SELL_SPMV.launches == before + 1
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and op.local.storage == "bfloat16"
+    assert _relerr(y, spmv_plain(op.local, op.source(x)).view_as(y)) <= 1e-6
     xe = op.extended(x)
     for p, blk in enumerate(op.parts):
         assert blk.storage == "bfloat16"
-        y = bsg_spmv(blk, xe[p])
+        yp = bsg_spmv(blk, xe[p])
         torch.cuda.synchronize()
-        assert _relerr(y, spmv_plain(blk, xe[p])) <= TOL["float32"]
-        assert not y[op.n_local:].any()
+        assert torch.equal(y[p], yp[:op.n_local]), p
+        assert _relerr(yp, spmv_plain(blk, xe[p])) <= TOL["float32"]
+        assert not yp[op.n_local:].any()
     before = _kernels.SELL_SPMV.launches
     xg = rng.normal(size=sy.n_free)
     y = op.get_vector(op.matvec(op.put_vector(xg)))
-    assert _kernels.SELL_SPMV.launches == before + nparts
+    assert _kernels.SELL_SPMV.launches == before + 1
     ref = sy.A.matvec(xg)
     assert np.abs(y - ref).max() <= TOL["float32"] * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("kind", ["bsg", "ell"])
 def test_sharded_jacobi_cg_on_the_card_matches_cpu(cuda_device, kind):
-    """Partitioned Jacobi-CG in f32 to 1e-6 on the card (kernel 1 per part
-    for the sliced-ELL blocks) takes the CPU port's iterations within 1."""
+    """Partitioned Jacobi-CG in f32 to 1e-6 on the card (kernel 1 over all
+    parts for the sliced-ELL blocks) takes the CPU port's iterations
+    within 1."""
     from domain_decomposed_pde_solver_tpu_torch.parallel import (
         sharded_cg_solve,
     )
@@ -1228,10 +1312,10 @@ def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
     """``chip_smoke.py`` phase J at a small size: two worker processes on
     the card over gloo (every collective staged through host memory), the
     distributed assembly with f64 Jacobi-CG, ``BSGShardedOperator`` with
-    kernel 1 on each process's two parts (two launches per product, each
-    against its plain version) and the slab CG across the processes, each
-    held to the same solve in one process; the phase's own checks fail it
-    otherwise."""
+    kernel 1 over each process's two parts (one launch per product,
+    against its plain version and bit for bit each part's block alone)
+    and the slab CG across the processes, each held to the same solve in
+    one process; the phase's own checks fail it otherwise."""
     import chip_smoke
 
     cfg = dict(hex_box=12, tet_box=16, hex_dof=11 * 13 * 13,
@@ -1240,8 +1324,8 @@ def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
     for r in run["workers"]:
         assert (r["backend"], r["staged"], r["device"]) == (
             "gloo", True, "cuda:0")
-        assert r["J2"]["per_product"] == 2
-        assert r["J2"]["launches"] == 2 * (r["J2"]["iterations"] + 1)
+        assert r["J2"]["per_product"] == 1
+        assert r["J2"]["launches"] == r["J2"]["iterations"] + 1
         assert r["J3"]["iterations"] == run["workers"][0]["J3"]["iterations"]
     assert run["checkpoint_rows"] == [0, 1, 2, 3]
 
@@ -1383,7 +1467,7 @@ def test_products_over_processes_equal_one_process(cuda_device, monkeypatch):
     """The products and the brick cycle over two processes (k = 2 of P =
     4 parts each) give the rows of the one-process result, bit for bit:
     ``ShardedOperator.matvec`` and its diagonal (f64), ``BSGShardedOperator``
-    (kernel 1 per part, f32), the slab DIA product, the brick cycle with
+    (kernel 1 over the parts, f32), the slab DIA product, the brick cycle with
     its slab-mean correction (f64) and the brick sums of the slab
     hierarchies."""
     from domain_decomposed_pde_solver_tpu_torch.parallel import (
@@ -1510,13 +1594,48 @@ def _route(name, device):
     return solve
 
 
+def test_halo_amg_same_bits_over_runs_and_processes(cuda_device,
+                                                   monkeypatch):
+    """CG with the global halo AMG over ``BSGShardedOperator`` in f32 on
+    the card: two runs, and one process against two (threads, k = 2 of P
+    = 4 parts each), give the same iterations and the same answer bit for
+    bit (the restriction's segment sums and the coarse tail's are kernel-1
+    launches in a fixed order, not atomics)."""
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        BSGShardedOperator,
+        build_halo_amg,
+        halo_amg_cg_solve,
+    )
+
+    sy, plan = _hex_plan(cuda_device, n=16)
+    hamg = build_halo_amg(sy.A, plan, dtype=torch.float32,
+                          device=cuda_device)
+    b = sy.b.astype(np.float32)
+    x0 = np.zeros_like(b)
+
+    def solve(m):
+        op = BSGShardedOperator.from_plan(plan, m, dtype=np.float32)
+        x, res = halo_amg_cg_solve(op, hamg, b, x0, tol=1e-6, maxiter=200)
+        assert res.converged
+        return x, res.iterations
+
+    x1, it1 = solve(_proc_mesh(4, cuda_device, 0, 1))
+    x2, it2 = solve(_proc_mesh(4, cuda_device, 0, 1))
+    assert it1 == it2
+    np.testing.assert_array_equal(x1, x2)
+    procs = _Processes(monkeypatch, 2)
+    for x, it in procs.run(lambda r: solve(_proc_mesh(4, cuda_device, r, 2))):
+        assert it == it1
+        np.testing.assert_array_equal(x, x1)
+
+
 @pytest.mark.parametrize("route", ["J1", "J2", "J3", "slab_amg",
                                    "slab_pad_amg"])
 def test_solves_over_processes_equal_one_process(cuda_device, monkeypatch,
                                                  route):
     """The solves of phase J (f64 Jacobi-CG over ELL blocks, f32
-    Jacobi-CG on kernel 1 per part, the f32 slab CG) and the slab global
-    and slab-pad AMG solves over two processes on the card take one
+    Jacobi-CG on kernel 1 over the parts, the f32 slab CG) and the slab
+    global and slab-pad AMG solves over two processes on the card take one
     process's iterations and give its answer, bit for bit."""
     solve = _route(route, cuda_device)
     x1, it1 = solve(_proc_mesh(4, cuda_device, 0, 1))

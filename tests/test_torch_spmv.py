@@ -34,6 +34,7 @@ from domain_decomposed_pde_solver_tpu_torch.ops.bsg import (
     bsg_from_coo,
     bsg_from_csr,
     bsg_spmv,
+    sell_operator,
     sell_pack,
     spmv_plain,
 )
@@ -263,3 +264,88 @@ def test_ell_matches_jax(name, tdt, jdt):
         Ep.diagonal_padded(1.0).numpy()[: Ej.n_pad],
         np.asarray(Ej.diagonal_padded(1.0)),
     )
+
+
+def test_sell_pack_padding_column():
+    """Padding slots hold value 0 and the column the packer is given (a
+    column past the input for :func:`sell_operator`), in the column-major
+    slot order."""
+    indptr = np.array([0, 2, 2, 5] + [5] * 30)  # 32 rows: lengths 2, 0, 3, 0...
+    indices = np.array([4, 7, 1, 2, 3])
+    data = np.array([1.0, 2.0, 3.0, 4.0, 5.0])
+    slice_ptr, cols, vals = sell_pack(indptr, indices, data, 64, pad_col=99)
+    np.testing.assert_array_equal(slice_ptr, [0, 96, 96])  # width 3, then 0
+    np.testing.assert_array_equal(cols[[0, 32, 64]], [4, 7, 99])  # row 0
+    np.testing.assert_array_equal(cols[[1, 33, 65]], [99] * 3)  # empty row 1
+    np.testing.assert_array_equal(cols[[2, 34, 66]], [1, 2, 3])  # row 2
+    np.testing.assert_array_equal(vals[[2, 34, 66]], [3.0, 4.0, 5.0])
+    live = vals != 0
+    assert live.sum() == 5 and (cols[~live] == 99).all()
+
+
+def _coo_csr(rows, cols, vals, n_rows):
+    """CSR arrays of a COO pattern in ``bsg_from_coo``'s slot order (rows,
+    then ascending columns, duplicates kept)."""
+    o = np.lexsort((cols, rows))
+    indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
+    return indptr, cols[o], vals[o]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sell_operator_equals_bsg_from_coo_bit_for_bit(seed):
+    """A rectangular operator (empty rows, whole empty slices, duplicates,
+    a row count that is not a multiple of 32) packed by ``sell_operator``
+    (rows as given, no padded rows, padding slots past the input) and by
+    ``bsg_from_coo`` (rows padded to 1024, padding at column 0): each
+    row's slots in the same order, so the plain products agree bit for
+    bit in f64, f32 and bf16 storage."""
+    rng = np.random.default_rng(seed)
+    n_rows, x_len = 1000 + 37 * seed, 800
+    live = rng.random(n_rows) < 0.5
+    live[100:200] = False
+    rows = np.repeat(np.flatnonzero(live), rng.integers(1, 30, live.sum()))
+    cols = rng.integers(0, x_len, rows.size)
+    vals = rng.normal(size=rows.size)
+    for storage, dt in (("float64", torch.float64), ("float32", torch.float32),
+                        ("bfloat16", torch.float32)):
+        A = bsg_from_coo(rows, cols, vals, n_rows, x_len, storage=storage,
+                         device="cpu")
+        S = sell_operator(*_coo_csr(rows, cols, vals, n_rows), x_len,
+                          storage=storage, device="cpu")
+        assert S.n_pad == n_rows and A.n_pad % TILE == 0
+        assert S.n_slots == A.n_slots  # rows past n_rows are empty slices
+        assert bool((S.cols[S.vals == 0] == x_len).all())
+        x = torch.as_tensor(rand(x_len - 3, seed=seed + 20), dtype=dt)
+        y = spmv_plain(S, x)
+        assert torch.equal(y, spmv_plain(A, x)[:n_rows])
+        assert not bool(y[~torch.as_tensor(live)].any())
+
+
+@pytest.mark.parametrize("dims", MESH_DIMS, ids=mesh_id)
+def test_sell_operator_square_matches_jax(dims):
+    """The square operator in the solve's numbering (RCM, as
+    ``bsg_from_csr`` gives it) packed again by ``sell_operator``: the
+    product against JAX's reference in f32, and bit for bit the
+    ``bsg_from_csr`` pack's on its real rows."""
+    import scipy.sparse as sp
+
+    _mesh, sy = jax_problem(dims)
+    Aj = j_bsg_from_csr(sy.A)
+    A = bsg_from_csr(port_csr(sy), device="cpu")
+    order = np.argsort(A.perm.numpy())  # original row of internal row i
+    n = sy.A.n_rows
+    M = sp.csr_matrix((sy.A.data, sy.A.indices, sy.A.indptr),
+                      shape=(n, n))[order][:, order].tocsr()
+    M.sort_indices()
+    S = sell_operator(M.indptr, M.indices, M.data, A.n_pad, storage="auto",
+                      device="cpu")
+    assert S.storage == A.storage == "int8" and S.n_pad == n
+    x = rand(n, seed=3)
+    yj = Aj.get_vector(Aj.matvec_reference(Aj.put_vector(x, dtype=jnp.float32)))
+    xp = A.put_vector(x)
+    y = spmv_plain(S, xp)
+    y_pad = torch.zeros(A.n_pad)
+    y_pad[:n] = y
+    assert relerr(A.get_vector(y_pad), yj) <= TOL["float32"]
+    assert torch.equal(y, spmv_plain(A, xp)[:n])
