@@ -236,6 +236,31 @@ K. The port's examples and console scripts, in a process of its own as
    ``[project.scripts]`` (no install) and called as their wrappers call
    them: ``ddps-torch-solve`` on path B's file in path B's iterations,
    the other four on the same 20^3 box, each exiting 0.
+L. The last of the JAX package's API, in a process of its own as F-K
+   (``--phase-l``), on path C's 833,048-DOF system, each solve with every
+   launch counter at 0 just before it and read just after:
+   L1. HYB (``hyb_from_csr`` after ``rcm_permute``: the popular diagonals
+   as DIA on kernel 4's run-time loop, the rest as ELL) and Split-ELL
+   (``splitell_from_csr``, identity numbering), f32: each product against
+   its plain version (relative limit 1e-5) and a host f64 CSR product,
+   Split-ELL's twice bit-identical, one HYB product in f64 on kernel 4's
+   f64 entry (1e-12); the diagonal count, coverage, ``K*`` and tail
+   printed.  Jacobi-PCG to 1e-6 on each: iterations within max(2, 2 %)
+   of D1's unfused count, host f64 relres within D1's limit (5e-6 plus
+   the f32 floor), HYB's solve launching kernel 4 once per product.
+   L2. CG+AMG in f32 to 1e-6 on path C's sliced-ELL fine operator: the
+   default hierarchy; ``smoother="jacobi"`` (host relres <= 2e-6); two
+   V-cycles per apply (at most the one-cycle count); ``bsg_mid_levels=
+   False, bsg_transfers=False`` with the chain's own coarsening
+   (``aggressive_levels=0, filter_tol=0.005``: within one of path C's
+   count), and with the defaults these imply at this size (recorded);
+   kernel-1 launches of each.
+   L3. ``enable_persistent_cache(<fresh directory>)``: a fresh kernel 4
+   builds there and launches (against its plain version); the default
+   directory is then restored.
+   L4. HYB's DIA part on kernel 4 against its bound, its plain version
+   and cuSPARSE CSR on the same entries; HYB's, Split-ELL's and kernel
+   1's products on the same system beside cuSPARSE on its CSR.
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
@@ -3971,6 +3996,456 @@ def run_phase_k(refs: dict, timeout: float = 900.0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# L. The last of the JAX package's API: HYB and Split-ELL, the AMG's
+#    options, the kernel build cache
+# ---------------------------------------------------------------------------
+
+
+def _kernel_by_form(kernels, name: str) -> dict:
+    return dict(next(k for k in kernels if k.name == name).by_form)
+
+
+
+
+def _l_cg(kernels, A, b, M, maxiter: int):
+    """f32 CG to ``PCG_TOL`` from zero, counted: the result, the launches
+    of every kernel and of every C entry during it, and its wall ms."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.solvers import cg_solve
+
+    reset_counts(kernels)
+    entries = {}
+    t0 = time.perf_counter()
+    res, counts = launch_delta(kernels, lambda: cg_solve(
+        A, b, torch.zeros_like(b), precond=M, tol=PCG_TOL, maxiter=maxiter),
+        entries)
+    return res, counts, entries, (time.perf_counter() - t0) * 1e3
+
+
+def _l_products(device, kernels, sy, H, S, Ap, perm, errs) -> None:
+    """L1's products: HYB (kernel 4 plus ELL) and Split-ELL in f32 against
+    their plain versions and a host f64 CSR product, Split-ELL twice for
+    its bits, one HYB product in f64 on kernel 4's f64 entry."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
+        dia_matvec_plain,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.splitell import (
+        splitell_matvec_plain,
+    )
+
+    cuda = device.type == "cuda"
+    x_host = np.random.default_rng(13).normal(size=sy.n_free)
+    x32 = x_host.astype(np.float32)
+    y_perm = Ap.to_scipy() @ x32.astype(np.float64)[perm]
+    y_ident = sy.A.to_scipy() @ x32.astype(np.float64)
+    xh = H.put_vector(x32[perm])
+    entries = {}
+    yh, _ = launch_delta(kernels, lambda: H.matvec(xh), entries)
+    if cuda:
+        check(entries == {"ddps_dia_spmv_f32_f32": 1},
+              f"[L1] HYB's product launched {entries}, want kernel 4's "
+              "f32 entry once")
+    _compare("HYB f32 (kernel 4 + ELL) vs plain", yh,
+             dia_matvec_plain(H.dia, xh) + H.ell.matvec(xh), TOL_F32, errs,
+             "dia_spmv", tag="L1")
+    _compare("HYB f32 vs host f64 CSR", yh[:sy.n_free],
+             torch.from_numpy(y_perm).to(device), TOL_F32, errs, "hyb_host",
+             tag="L1")
+    xs = S.put_vector(x32)
+    y1, y2 = S.matvec(xs), S.matvec(xs)
+    sync(device)
+    check(torch.equal(y1, y2),
+          "[L1] Split-ELL's product changed its bits between two runs")
+    log("[L1] Split-ELL f32: two products bit-identical")
+    _compare("Split-ELL f32 vs plain (scatter-add)", y1,
+             splitell_matvec_plain(S, xs), TOL_F32, errs, "splitell_plain",
+             tag="L1")
+    _compare("Split-ELL f32 vs host f64 CSR", y1[:sy.n_free],
+             torch.from_numpy(y_ident).to(device), TOL_F32, errs,
+             "splitell_host", tag="L1")
+    H64 = H.astype(torch.float64)
+    x64 = H64.put_vector(x_host[perm])
+    entries = {}
+    y64, _ = launch_delta(kernels, lambda: H64.matvec(x64), entries)
+    if cuda:
+        check(entries == {"ddps_dia_spmv_f64_f64": 1},
+              f"[L1] the f64 HYB product launched {entries}")
+    _compare("HYB f64 (kernel 4 f64 + ELL) vs plain", y64,
+             dia_matvec_plain(H64.dia, x64) + H64.ell.matvec(x64), TOL_F64,
+             errs, "dia_spmv", tag="L1")
+    _compare("HYB f64 vs host f64 CSR", y64[:sy.n_free],
+             torch.from_numpy(Ap.to_scipy() @ x_host[perm]).to(device),
+             TOL_F64, errs, "hyb_host_f64", tag="L1")
+
+
+def phase_l1(device, kernels, sy, refs, errs) -> dict:
+    """L1: HYB (after RCM) and Split-ELL (identity numbering) in f32 on
+    path C's system: products, Jacobi-PCG on each against D1."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import (
+        _kernels,
+        hyb_from_csr,
+        rcm_permute,
+        splitell_from_csr,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers.precond.jacobi import (
+        DiagonalPreconditioner,
+    )
+
+    t0 = time.perf_counter()
+    Ap, perm = rcm_permute(sy.A)
+    check(perm is not None, "[L1] the native RCM order is missing")
+    H = hyb_from_csr(Ap, dtype=torch.float32, device=device)
+    t_hyb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    S = splitell_from_csr(sy.A, dtype=torch.float32, device=device)
+    t_spl = time.perf_counter() - t0
+    D = H.dia
+    K = S.row_width
+    interior = max(0, (D.n_pad - max(D.offsets)) + min(D.offsets))
+    out = dict(ndiags=D.ndiags, coverage=int((D.data != 0).sum()) / sy.A.nnz,
+               ell_width=H.ell.row_width,
+               offsets=[min(D.offsets), max(D.offsets)],
+               edge_rows=D.n_pad - interior, k_star=K,
+               tail=int(np.maximum(sy.A.row_lengths() - K, 0).sum()),
+               tail_pad=int(S.tail_rows.numel()),
+               build_s=dict(rcm_and_hyb=t_hyb, splitell=t_spl))
+    log(f"[L1] HYB after RCM: {D.ndiags} diagonals, offsets "
+        f"{out['offsets']} ({out['edge_rows']} of {D.n_pad} rows outside the "
+        f"interior range), coverage {out['coverage']:.4f} of {sy.A.nnz} "
+        f"nnz, ELL width {H.ell.row_width}, {t_hyb:.2f} s; Split-ELL K* = "
+        f"{K}, tail {out['tail']} entries ({out['tail_pad']} padded), "
+        f"{t_spl:.2f} s")
+    _l_products(device, kernels, sy, H, S, Ap, perm, errs)
+
+    # Jacobi-PCG to 1e-6 on each, against D1's unfused count and limit.
+    d1_its, limit = refs.get("d1_iterations"), refs.get("d1_limit")
+    if limit is None:
+        u_ref, _k = host_cg_f64(sy.A, sy.b)
+        limit = 5e-6 + f32_floor(sy.A, u_ref, sy.b)
+    for label, A, b_host in (("hyb", H, sy.b[perm]), ("splitell", S, sy.b)):
+        b = A.put_vector(b_host.astype(np.float32))
+        M = DiagonalPreconditioner(1.0 / A.diagonal_padded())
+        res, counts, ent, wall = _l_cg(kernels, A, b, M, PCG_MAXITER)
+        x = A.get_vector(res.x).astype(np.float64)
+        if label == "hyb":
+            x = x[np.argsort(perm)]  # perm[new] = old
+        rr = host_relres(sy.A, x, sy.b)
+        forms = _kernel_by_form(kernels, "dia_spmv")
+        log(f"[L1] {label} Jacobi-PCG: {res.iterations} iterations (D1's "
+            f"unfused {d1_its}), {wall:.1f} ms wall, host f64 relres "
+            f"{rr:.3e} (limit {limit:.3e}); launches {json.dumps(counts)}, "
+            f"by entry {json.dumps(ent)}, kernel 4 by form "
+            f"{json.dumps(forms)}")
+        check(res.converged, f"[L1] {label}: Jacobi-PCG did not converge")
+        if d1_its is not None:
+            check(abs(res.iterations - d1_its) <= max(2, int(0.02 * d1_its)),
+                  f"[L1] {label}: {res.iterations} iterations, D1 {d1_its}")
+        check(rr <= limit, f"[L1] {label}: host relres {rr:.3e} > {limit:.3e}")
+        check(bool(np.isfinite(x).all()) and 100.0 <= x.min()
+              and x.max() <= 1000.0,
+              f"[L1] {label}: values outside [100, 1000]")
+        if device.type == "cuda" and label == "hyb":
+            loop = _kernels.dia_launch_shape(D.n_pad, D.ndiags).instance == 0
+            check(counts["dia_spmv"] == res.iterations + 1
+                  and forms.get("runtime", 0) == loop * counts["dia_spmv"],
+                  f"[L1] HYB's solve: kernel 4 launched "
+                  f"{counts['dia_spmv']} times for {res.iterations} "
+                  f"iterations (by form {forms}), want each product once on "
+                  "the run-time loop")
+        out[label] = dict(iterations=res.iterations, relres=res.relres,
+                          host_relres=rr, limit=limit, wall_ms=wall,
+                          launches=counts, by_entry=ent)
+    return out, (H, S, Ap, perm)
+
+
+def phase_l2(device, kernels, sy, Af, refs) -> dict:
+    """L2: CG+AMG in f32 to 1e-6 on path C's sliced-ELL fine operator:
+    path C's default hierarchy, the Jacobi smoother, two V-cycles per
+    apply, and the BSG chain's opt-outs (with the chain's own coarsening
+    and filter: the same algebra under a coarse relabelling; and with the
+    defaults they imply at this size, recorded)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.solvers.precond.amg import (
+        smoothed_aggregation_setup,
+    )
+
+    b = Af.put_vector(sy.b, dtype=torch.float32)
+    variants = {
+        "default": {},
+        "jacobi": dict(smoother="jacobi"),
+        "opt_outs": dict(bsg_mid_levels=False, bsg_transfers=False,
+                         aggressive_levels=0, filter_tol=0.005),
+        "opt_outs_auto": dict(bsg_mid_levels=False, bsg_transfers=False),
+    }
+    out = {}
+    for label, kw in [*variants.items(), ("cycles2", None)]:
+        t0 = time.perf_counter()
+        if kw is None:
+            M = dataclasses.replace(out["default"]["M"], cycles=2)
+        else:
+            M = smoothed_aggregation_setup(sy.A, dtype=torch.float32,
+                                           fine_operator=Af, device=device,
+                                           **kw)
+        sync(device)
+        t_setup = time.perf_counter() - t0
+        res, counts, ent, wall = _l_cg(kernels, Af, b, M, 200)
+        x = Af.get_vector(res.x).astype(np.float64)
+        rr = host_relres(sy.A, x, sy.b)
+        log(f"[L2] {label}: levels {[lvl.n_rows for lvl in M.levels]} "
+            f"(ops {[type(lvl.A).__name__ for lvl in M.levels]}, transfers "
+            f"{[type(lvl.P).__name__ for lvl in M.levels]}), smoother "
+            f"{M.smoother}, cycles {M.cycles}; set-up {t_setup:.2f} s; "
+            f"{res.iterations} iterations, {wall:.1f} ms wall, host f64 "
+            f"relres {rr:.3e}; kernel-1 launches {counts['sell_spmv']} "
+            f"(all: {json.dumps(counts)})")
+        check(res.converged, f"[L2] {label}: CG+AMG did not converge")
+        check(bool(np.isfinite(x).all()) and 100.0 <= x.min()
+              and x.max() <= 1000.0, f"[L2] {label}: values outside "
+              "[100, 1000]")
+        if device.type == "cuda":
+            check(counts["sell_spmv"] > 0,
+                  f"[L2] {label}: kernel 1 was not launched")
+        out[label] = dict(M=M, iterations=res.iterations, host_relres=rr,
+                          setup_s=t_setup, wall_ms=wall, launches=counts,
+                          levels=[lvl.n_rows for lvl in M.levels])
+    one = out["default"]["iterations"]
+    c_its = refs.get("c_iterations")
+    check(out["jacobi"]["host_relres"] <= 2e-6,
+          f"[L2] jacobi: host relres {out['jacobi']['host_relres']:.3e} > "
+          "2e-6")
+    check(out["cycles2"]["iterations"] <= one,
+          f"[L2] cycles=2: {out['cycles2']['iterations']} iterations, one "
+          f"cycle {one}")
+    ref = one if c_its is None else c_its
+    check(abs(out["opt_outs"]["iterations"] - ref) <= 1,
+          f"[L2] opt-outs: {out['opt_outs']['iterations']} iterations, path "
+          f"C's default {ref}")
+    log(f"[L2] one cycle {one} iterations (path C: {c_its}); cycles=2 "
+        f"{out['cycles2']['iterations']}; jacobi {out['jacobi']['iterations']}"
+        f"; opt-outs {out['opt_outs']['iterations']} (auto "
+        f"{out['opt_outs_auto']['iterations']})")
+    for r in out.values():
+        del r["M"]
+    return out
+
+
+def phase_l3(device, kernels, errs, out=OUT) -> dict:
+    """L3: ``enable_persistent_cache(<fresh directory>)`` sends the next
+    build there: a fresh kernel 4 builds into it, loads and launches on a
+    19-diagonal operator; then the default directory is restored."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import DIAMatrix
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
+        dia_matvec_plain,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.utils import (
+        enable_persistent_cache,
+    )
+
+    fresh = out / "l3_cache"
+    shutil.rmtree(fresh, ignore_errors=True)
+    got = enable_persistent_cache(str(fresh))
+    check(got == str(fresh) and _kernels.kernel_build_dir() == fresh,
+          f"[L3] the cache went to {got}")
+    try:
+        k = _kernels.Kernel(_kernels.DIA_SPMV.name, _kernels.DIA_SPMV.src,
+                            _kernels.DIA_SPMV.entries)
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            k.library()
+        t_build = time.perf_counter() - t0
+    finally:
+        restored = enable_persistent_cache()
+    built = sorted(p.name for p in fresh.glob("*.so"))
+    log(f"[L3] enable_persistent_cache({fresh}): built {built} in "
+        f"{t_build:.2f} s; restored the default {restored}")
+    check(restored == str(_kernels.kernel_build_dir()),
+          f"[L3] the default was not restored: {restored}")
+    if device.type != "cuda":
+        return dict(cache=str(fresh), built=built, build_s=t_build)
+    check(len(built) == 1 and built[0].startswith("libdia_spmv-"),
+          f"[L3] the fresh directory holds {built}")
+    rng = np.random.default_rng(3)
+    n, offs = 100_000, tuple(range(-9, 10))
+    A = DIAMatrix(data=torch.from_numpy(rng.normal(size=(19, n)).astype(
+        np.float32)).to(device), offsets=offs, n_rows=n)
+    x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(device)
+    y = torch.empty_like(x)
+    k.launch("ddps_dia_spmv_f32_f32", A.data.data_ptr(),
+             A.offsets_array.ctypes.data, 19, x.data_ptr(), y.data_ptr(), n,
+             128, 19, 0, torch.cuda.current_stream(device).cuda_stream)
+    check(k.launches == 1, "[L3] the fresh build was not launched")
+    _compare("kernel 4 built in the fresh cache vs plain", y,
+             dia_matvec_plain(A, x), TOL_F32, errs, "dia_spmv", tag="L3")
+    return dict(cache=str(fresh), built=built, build_s=t_build,
+                launches=k.launches)
+
+
+def time_phase_l(device, card, sy, ops, Af) -> dict:
+    """L's times: HYB's DIA part on kernel 4 (run-time loop) beside its
+    bound, its plain version and cuSPARSE CSR on the same entries; HYB's
+    whole product, Split-ELL's and kernel 1's on the same system, beside
+    cuSPARSE on its CSR."""
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_spmv
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia_kernel import (
+        dia_matvec_plain,
+    )
+
+    H, S, _Ap, perm = ops
+    D = H.dia
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=D.n_pad).astype(np.float32)).to(
+        device)
+    x[D.n_rows:] = 0
+    ip, ix, dv = _dia_csr(D)
+    Dcsr = _csr_tensor(ip, ix, dv, D.n_rows, torch.float32, device)
+    xn = x[:D.n_rows].contiguous()
+    t = _measure({
+        "kernel": lambda: D.matvec(x),
+        "plain": lambda: dia_matvec_plain(D, x),
+        "library": lambda: Dcsr @ xn,
+    })
+    nbytes = D.ndiags * D.n_pad * 4 + 2 * D.n_pad * 4
+    b_ms, b_by = bound(nbytes, 2 * D.ndiags * D.n_pad)
+    rec = dict(ms=t["kernel"]["device_ms"], plain_ms=t["plain"]["device_ms"],
+               library_ms=t["library"]["device_ms"], bound_ms=b_ms,
+               bound_by=b_by, ndiags=D.ndiags, rows=D.n_pad, nnz=len(dv),
+               events_ms={k: v["events_ms"] for k, v in t.items()})
+    log(f"[L4] HYB's DIA part, kernel 4 run-time loop ({D.ndiags} diagonals, "
+        f"{D.n_pad} rows, f32), device ms per call: kernel {rec['ms']}, "
+        f"plain {rec['plain_ms']}, cuSPARSE CSR ({len(dv)} nnz) "
+        f"{rec['library_ms']}; bound {b_ms} ms by {b_by} "
+        f"({nbytes / 1e6:.2f} MB); events back to back "
+        f"{json.dumps(rec['events_ms'])} [{card}]")
+    S_csr = sy.A
+    Acsr = _csr_tensor(S_csr.indptr, S_csr.indices, S_csr.data, S_csr.n_cols,
+                       torch.float32, device)
+    xo = torch.from_numpy(rng.normal(size=sy.n_free).astype(np.float32)).to(
+        device)
+    xh = H.put_vector(xo.cpu().numpy()[perm])
+    xs = S.put_vector(xo.cpu().numpy())
+    xb = Af.put_vector(xo.cpu().numpy(), dtype=torch.float32)
+    t = _measure({
+        "hyb": lambda: H.matvec(xh),
+        "splitell": lambda: S.matvec(xs),
+        "kernel_1": lambda: bsg_spmv(Af, xb),
+        "library": lambda: Acsr @ xo,
+    })
+    same = {k: v["device_ms"] for k, v in t.items()}
+    log(f"[L4] the same system ({sy.n_free} rows, {sy.A.nnz} nnz, f32 "
+        f"vectors), device ms per product: HYB {same['hyb']}, Split-ELL "
+        f"{same['splitell']}, kernel 1 ({Af.storage} values) "
+        f"{same['kernel_1']}, cuSPARSE CSR {same['library']}; events back "
+        f"to back {json.dumps({k: v['events_ms'] for k, v in t.items()})} "
+        f"[{card}]")
+    return dict(hyb_dia=rec, same_system_ms=same)
+
+
+def phase_l(device, kernels, refs=None, cells: int = MESH_CELLS,
+            out=OUT, card: str = "") -> dict:
+    """L: HYB and Split-ELL (L1), the AMG's options (L2), the kernel
+    build cache (L3) on path C's system; on the card also their times.
+    ``refs``: ``c_iterations`` (path C's CG+AMG count), ``d1_iterations``
+    and ``d1_limit`` (D1's unfused Jacobi-PCG count and host relres
+    limit); the checks against them only run when given."""
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        refine_uniform,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.models.heat import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.bsg import bsg_from_csr
+
+    refs = refs or {}
+    t_start = time.perf_counter()
+    sy = assemble_heat_system(refine_uniform(box_mesh(cells, cells, cells,
+                                                      "TETRA4"), 1))
+    log(f"[L] path C's system: {sy.n_free} free DOF, {sy.A.nnz} nnz, "
+        f"{time.perf_counter() - t_start:.1f} s")
+    errs = {}
+    run = {}
+    run["L1"], ops = phase_l1(device, kernels, sy, refs, errs)
+    Af = bsg_from_csr(sy.A, device=device)
+    run["L2"] = phase_l2(device, kernels, sy, Af, refs)
+    run["L3"] = phase_l3(device, kernels, errs, out)
+    if device.type == "cuda":
+        run["timing"] = time_phase_l(device, card, sy, ops, Af)
+    run["errs"] = {k: v for k, v in errs.items() if k in REPLACES}
+    run["host_errs"] = {k: v for k, v in errs.items() if k not in REPLACES}
+    run["wall_s"] = time.perf_counter() - t_start
+    log(f"[L] done in {run['wall_s']:.1f} s")
+    return run
+
+
+def phase_l_launches(run_l: dict, name: str) -> dict:
+    """One kernel's launches in each of L's counted solves."""
+    out = {f"L1 {k}": run_l["L1"][k]["launches"].get(name, 0)
+           for k in ("hyb", "splitell")}
+    out.update({f"L2 {k}": r["launches"].get(name, 0)
+                for k, r in run_l["L2"].items()})
+    return out
+
+
+def phase_l_process(result: str, refs: str = "{}") -> int:
+    """Phase L in a process of its own (``python3 chip_smoke.py --phase-l
+    RESULT [REFS]``, started by :func:`run_phase_l`, or alone), as F-K:
+    load the kernels (building them if needed), run :func:`phase_l` and
+    write its record to ``RESULT``; every line it logs carries the card's
+    name and power limit."""
+    global LOG_TAG
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = _kernels.build_kernels()
+    card = card_line()
+    LOG_TAG = f" [{card}]"
+    rec = phase_l(torch.device("cuda", 0), kernels, json.loads(refs),
+                  card=card)
+    rec["card"] = card
+    pathlib.Path(result).write_text(json.dumps(rec))
+    return 0
+
+
+def run_phase_l(refs: dict, timeout: float = 900.0) -> dict:
+    """Run :func:`phase_l_process` in a child process on the same card
+    and return its record; fails if the child does."""
+    result = OUT / "phase_l.json"
+    result.unlink(missing_ok=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                           "--phase-l", str(result), json.dumps(refs)],
+                          cwd=REPO, timeout=timeout)
+    check(proc.returncode == 0 and result.exists(),
+          f"[L] the phase L process exited with {proc.returncode}")
+    return json.loads(result.read_text())
+
+
+# ---------------------------------------------------------------------------
 # D. Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -5457,12 +5932,18 @@ def main() -> int:
     run_k = run_phase_k(dict(
         b_iterations=run_b["report"]["result"].iterations))
     log(f"[K] done at {time.perf_counter() - t_start:.1f} s")
+    run_l = run_phase_l(dict(
+        c_iterations=run_c["res"][0].iterations,
+        d1_iterations=run_d1["833k"]["unfused"].iterations,
+        d1_limit=run_d1["833k"]["limit"]))
+    log(f"[L] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
     errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
     for key, e in [*run_f.pop("errs").items(), *run_g.pop("errs").items(),
                    *run_h.pop("errs").items(), *run_i.pop("errs").items(),
-                   *run_j.pop("errs").items()]:
+                   *run_j.pop("errs").items(),
+                   *run_l.pop("errs").items()]:
         errs[key] = max(errs.get(key, 0.0), e)
 
     # ---- E. timing and records --------------------------------------------
@@ -5520,6 +6001,7 @@ def main() -> int:
         "slab_engines": run_i,
         "multi_process": run_j,
         "examples": run_k,
+        "api_tail": run_l,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
@@ -5559,6 +6041,15 @@ def main() -> int:
         extra["phase_i_launches"] = phase_i_launches(run_i, k.name)
         extra["phase_j_launches"] = phase_j_launches(run_j, k.name)
         extra["phase_k_launches"] = phase_k_launches(run_k, k.name)
+        extra["phase_l_launches"] = phase_l_launches(run_l, k.name)
+        if k.name == "dia_spmv":
+            # Phase L: HYB's DIA part on the run-time loop at 833k.
+            extra["phase_l_hyb_dia"] = {
+                f: v for f, v in run_l["timing"]["hyb_dia"].items()
+                if f != "events_ms"}
+        if k.name == "sell_spmv":
+            extra["phase_l_same_system_ms"] = run_l["timing"][
+                "same_system_ms"]
         if k.name == "pad_stencil":
             # Phase I's instances: kernel 3 on every slab's window, f32 and
             # f64, at 1M (I2) and 10M (I3) over 4 parts.
@@ -5621,6 +6112,8 @@ if __name__ == "__main__":
             sys.exit(phase_j_process(sys.argv[2]))
         if sys.argv[1:2] == ["--phase-k"]:
             sys.exit(phase_k_process(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--phase-l"]:
+            sys.exit(phase_l_process(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--phase-j-worker"]:
             sys.exit(phase_j_worker(*sys.argv[2:7]))
         sys.exit(main())

@@ -88,7 +88,9 @@ def main(argv=None, report: Optional[dict] = None) -> int:
                     "NaN and Inf; raise FloatingPointError on one")
     args = ap.parse_args(argv)
     cfg = config_from_args(args)
+    from ..utils.compilecache import enable_persistent_cache
 
+    enable_persistent_cache()
     import torch
 
     from ..io import ExodusReadError, ExodusSolutionWriter, read_exodus

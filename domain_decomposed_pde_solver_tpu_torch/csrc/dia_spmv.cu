@@ -30,8 +30,17 @@
 //   - A launch shape from the size.  The caller picks the block (32 to 256
 //     threads, one row per thread) from the operator's size
 //     (ops/_kernels.py::dia_launch_shape).
+//   - Many diagonals.  The run-time loop takes up to kMaxDiags = 256
+//     offsets per launch (the __grid_constant__ block: 256 x 8 + 20 B,
+//     inside the 4 KB parameter limit), the HYB format's default cap.  A
+//     longer list runs as launches of at most 256 diagonals in offset
+//     order, each after the first starting from the y the one before
+//     wrote (the run-time loop's accumulating instance, ACC), so the
+//     row's chain of multiply-adds is the one a single launch would run.
+//     The compiled instances never accumulate: their code is unchanged.
 // Every instance and block adds a row's products in ascending d, one fused
-// multiply-add each, starting from 0: all give bit-identical results.
+// multiply-add each, starting from 0 (or from y with accumulate): all give
+// bit-identical results.
 //
 // Contract.  data is (ndiags, n) row-major, storage S (bfloat16 bits as
 // uint16, float or double); x, y and the accumulator are T (float or double)
@@ -52,7 +61,7 @@
 namespace {
 
 constexpr int kMaxBlock = 256;
-constexpr int kMaxDiags = 128;
+constexpr int kMaxDiags = 256;
 
 // ND > 0: a compiled diagonal count; ND == 0: the run-time loop, up to
 // kMaxDiags offsets.  lo and hi bound the rows whose every tap lies inside
@@ -84,14 +93,17 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 }
 
 // A row inside [0, n) whose every tap is in range: no test.  The compiled
-// instances issue every load before the first multiply-add.
-template <typename S, typename T, int ND>
+// instances issue every load before the first multiply-add.  ACC: the
+// row's sum starts from y[i] (a later launch of a long offset list), else
+// from 0.
+template <typename S, typename T, int ND, bool ACC>
 __device__ __forceinline__ void row_interior(const S* __restrict__ data,
                                              const T* __restrict__ x,
                                              T* __restrict__ y, int64_t n,
                                              int64_t i,
                                              const DiaParams<ND>& p) {
   T acc = T(0);
+  if constexpr (ACC) acc = y[i];
   if constexpr (ND > 0) {
     T a[ND];
     T v[ND];
@@ -116,12 +128,13 @@ __device__ __forceinline__ void row_interior(const S* __restrict__ data,
 }
 
 // A row near either end: each tap tested.
-template <typename S, typename T, int ND>
+template <typename S, typename T, int ND, bool ACC>
 __device__ __forceinline__ void row_edge(const S* __restrict__ data,
                                          const T* __restrict__ x,
                                          T* __restrict__ y, int64_t n,
                                          int64_t i, const DiaParams<ND>& p) {
   T acc = T(0);
+  if constexpr (ACC) acc = y[i];
   // A compile-time trip count for the instances, p.nd for the loop.
 #pragma unroll
   for (int d = 0; d < (ND > 0 ? ND : p.nd); ++d) {
@@ -133,7 +146,7 @@ __device__ __forceinline__ void row_edge(const S* __restrict__ data,
   y[i] = acc;
 }
 
-template <typename S, typename T, int ND>
+template <typename S, typename T, int ND, bool ACC>
 __global__ void __launch_bounds__(kMaxBlock)
 dia_spmv_kernel(const S* __restrict__ data, const T* __restrict__ x,
                 T* __restrict__ y, int64_t n,
@@ -141,9 +154,9 @@ dia_spmv_kernel(const S* __restrict__ data, const T* __restrict__ x,
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
   const int64_t i = r0 + threadIdx.x;
   if (r0 >= p.lo && r0 + blockDim.x <= p.hi) {
-    row_interior<S, T, ND>(data, x, y, n, i, p);
+    row_interior<S, T, ND, ACC>(data, x, y, n, i, p);
   } else if (i < n) {
-    row_edge<S, T, ND>(data, x, y, n, i, p);
+    row_edge<S, T, ND, ACC>(data, x, y, n, i, p);
   }
 }
 
@@ -155,7 +168,7 @@ unsigned grid_of(int64_t n, int block) {
   return static_cast<unsigned>((n + block - 1) / block);
 }
 
-template <typename S, typename T, int ND>
+template <typename S, typename T, int ND, bool ACC = false>
 cudaError_t launch_instance(const S* data, const int64_t* off, int nd,
                             const T* x, T* y, int64_t n, int block,
                             cudaStream_t stream) {
@@ -169,18 +182,20 @@ cudaError_t launch_instance(const S* data, const int64_t* off, int nd,
   p.nd = nd;
   p.lo = mn < 0 ? -mn : 0;
   p.hi = mx > 0 ? n - mx : n;
-  dia_spmv_kernel<S, T, ND><<<grid_of(n, block), block, 0, stream>>>(
+  dia_spmv_kernel<S, T, ND, ACC><<<grid_of(n, block), block, 0, stream>>>(
       data, x, y, n, p);
   return cudaGetLastError();
 }
 
 // instance: the compiled diagonal count to run (19, 23 or 27, equal to nd)
-// or 0 for the run-time loop.
+// or 0 for the run-time loop; accumulate (run-time loop only): add to y
+// instead of writing it.
 template <typename S, typename T>
 int launch(const void* data, const void* offsets, int nd, const void* x,
-           void* y, int64_t n, int block, int instance, void* stream) {
+           void* y, int64_t n, int block, int instance, int accumulate,
+           void* stream) {
   if (nd < 1 || nd > kMaxDiags || !valid_block(block) ||
-      (instance != 0 && instance != nd)) {
+      (instance != 0 && (instance != nd || accumulate))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return static_cast<int>(cudaGetLastError());
@@ -201,7 +216,9 @@ int launch(const void* data, const void* offsets, int nd, const void* x,
           launch_instance<S, T, 27>(d, off, nd, xv, yv, n, block, s));
     case 0:
       return static_cast<int>(
-          launch_instance<S, T, 0>(d, off, nd, xv, yv, n, block, s));
+          accumulate
+              ? launch_instance<S, T, 0, true>(d, off, nd, xv, yv, n, block, s)
+              : launch_instance<S, T, 0>(d, off, nd, xv, yv, n, block, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -230,13 +247,15 @@ int launch_copy(const void* x, void* y, int64_t n, int block, void* stream) {
 
 extern "C" {
 
-// offsets: a host array of nd int64 offsets; block: 32, 64, 128 or 256
-// threads; instance: 19, 23, 27 (== nd) or 0.
+// offsets: a host array of nd int64 offsets (1 to 256); block: 32, 64, 128
+// or 256 threads; instance: 19, 23, 27 (== nd) or 0; accumulate: 0 writes
+// y, 1 adds to it.
 #define DDPS_DIA_ENTRY(NAME, S, T)                                           \
   int NAME(const void* data, const void* offsets, int nd, const void* x,     \
-           void* y, int64_t n, int block, int instance, void* stream) {      \
+           void* y, int64_t n, int block, int instance, int accumulate,      \
+           void* stream) {                                                   \
     return launch<S, T>(data, offsets, nd, x, y, n, block, instance,         \
-                        stream);                                             \
+                        accumulate, stream);                                 \
   }
 
 DDPS_DIA_ENTRY(ddps_dia_spmv_bf16_f32, uint16_t, float)

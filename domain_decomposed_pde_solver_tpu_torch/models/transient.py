@@ -72,6 +72,7 @@ def transient_heat_solve(
     maxiter: int = 500,
     record: bool = False,
     callback: Optional[Callable[[int, float, np.ndarray], None]] = None,
+    dtype=None,
 ) -> TransientResult:
     """Integrate du/dt = -(A u - b) with implicit Euler and warm-started CG.
 
@@ -80,7 +81,8 @@ def transient_heat_solve(
     unchanged, on its device.  ``callback(step, t, u_host)`` fires after
     every step (the hook a solution writer uses for one Exodus timestep per
     step); the state is fetched to the host only when ``record`` or
-    ``callback`` asks for it."""
+    ``callback`` asks for it.  ``dtype`` is accepted and not read, as in
+    JAX: the operator's dtype is the working dtype."""
     n = system.n_free
     dtype = operator.dtype
     np_dtype = np.float64 if dtype == torch.float64 else np.float32

@@ -2,10 +2,12 @@
 
 The sources live in ``csrc/`` and are compiled at first use with ``nvcc``
 into shared libraries with a plain C interface, loaded through ``ctypes``
-(no PyTorch headers, so a build takes seconds).  The libraries go to the
-repository's ``build/kernels/`` under names derived from a hash of each
-source and the shared headers (``csrc/*.cuh``), so an edited source never
-loads a stale build.  Nothing is compiled or loaded when this module is
+(no PyTorch headers, so a build takes seconds).  The libraries go to
+:func:`kernel_build_dir` (a checkout's ``build/kernels/``, a per-user
+cache directory for an installed package: ``utils/compilecache.py``)
+under names derived from a hash of each source, the shared headers
+(``csrc/*.cuh``) and the build flags, so an edited source never loads a
+stale build.  Nothing is compiled or loaded when this module is
 imported: the CPU tests import it on machines without ``nvcc``.
 :func:`build_kernels` starts one ``nvcc`` per source, all at once.
 
@@ -15,7 +17,8 @@ raises if ``cudaGetLastError()`` reports a failed launch, and counts its
 launches in plain integers: :attr:`Kernel.launches` in all, and
 :attr:`Kernel.by_entry` per C entry point (one per instantiation), and
 :attr:`Kernel.by_form` per form of a launch (the pad-stencil kernel's
-``"window"`` launches on a z-slab).
+``"window"`` launches on a z-slab, the DIA kernel's ``"runtime"``
+launches of its run-time diagonal loop).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ __all__ = [
     "CLUSTER_SMEM_TAIL",
     "DIA_BLOCKS",
     "DIA_INSTANCES",
+    "DIA_MAX_DIAGS",
     "DIA_SPMV",
     "DiaLaunch",
     "FUSED_CG",
@@ -76,7 +80,12 @@ _F32 = ctypes.c_float
 
 
 def kernel_build_dir() -> pathlib.Path:
-    return _PKG.parent / "build" / "kernels"
+    """Where builds go and are reused: in a checkout its ``build/kernels/``
+    unless :func:`..utils.compilecache.enable_persistent_cache` or the
+    environment says otherwise (that module's rules)."""
+    from ..utils.compilecache import kernel_build_dir as cache_dir
+
+    return cache_dir()
 
 
 def _nvcc() -> str:
@@ -180,8 +189,9 @@ _SELL_TYPES = ("i8_f32", "i8_f64", "bf16_f32", "bf16_f64", "f32_f32",
 SELL_SPMV = Kernel("sell_spmv", _PKG / "csrc" / "spmv.cu", {
     f"ddps_sell_spmv_{t}": _SELL_ARGS for t in _SELL_TYPES})
 
-# data, offsets (host int64), ndiags, x, y, n, block, instance, stream
-_DIA_ARGS = [_P, _P, _INT, _P, _P, _I64, _INT, _INT, _P]
+# data, offsets (host int64), ndiags, x, y, n, block, instance, accumulate,
+# stream
+_DIA_ARGS = [_P, _P, _INT, _P, _P, _I64, _INT, _INT, _INT, _P]
 # x, y, n, block, stream
 _DIA_COPY_ARGS = [_P, _P, _I64, _INT, _P]
 DIA_SPMV = Kernel("dia_spmv", _PKG / "csrc" / "dia_spmv.cu", {
@@ -539,7 +549,7 @@ def fused_cg_cluster_launch(vals: torch.Tensor, lcols: torch.Tensor,
     return x, stats, active.value
 
 
-_DIA_MAX_DIAGS = 128  # the kernel's parameter block holds this many offsets
+DIA_MAX_DIAGS = 256  # the kernel's parameter block holds this many offsets
 # Diagonal counts with a compiled instance: the TETRA4 (19) and HEX8 (27)
 # stencils and the 23 of level 2 of the TETRA4 box's brick hierarchy, the
 # counts of every DIA level the structured routes build.
@@ -575,9 +585,13 @@ def dia_spmv_launch(data: torch.Tensor, offsets, x: torch.Tensor, *,
 
     ``data`` is (ndiags, n_pad), contiguous, bf16/f32 storage with f32 or
     f64 vectors or f64 storage with f64 vectors; ``offsets`` are host ints
-    (at most 128; a contiguous int64 numpy array is passed as it is).
-    ``shape`` overrides :func:`dia_launch_shape` (measurements and tests:
-    every shape gives bit-identical results)."""
+    (a contiguous int64 numpy array is passed as it is).  More than
+    :data:`DIA_MAX_DIAGS` diagonals run as launches of at most that many,
+    in offset-list order, each after the first adding to the y of the one
+    before: the bits of one launch.  ``shape`` overrides
+    :func:`dia_launch_shape` (measurements and tests: every shape gives
+    bit-identical results).  A launch of the run-time loop (instance 0)
+    counts under ``DIA_SPMV.by_form["runtime"]``."""
     dev = _require_cuda(x, "dia_spmv")
     if data.device != dev:
         raise ValueError(f"data is on {data.device}, x on {dev}")
@@ -586,9 +600,8 @@ def dia_spmv_launch(data: torch.Tensor, offsets, x: torch.Tensor, *,
     nd, n = data.shape
     if x.numel() != n:
         raise ValueError(f"x has {x.numel()} entries, the operator {n} rows")
-    if len(offsets) != nd or not 0 < nd <= _DIA_MAX_DIAGS:
-        raise ValueError(f"{len(offsets)} offsets for {nd} diagonals "
-                         f"(the kernel takes 1 to {_DIA_MAX_DIAGS})")
+    if len(offsets) != nd or nd < 1:
+        raise ValueError(f"{len(offsets)} offsets for {nd} diagonals")
     entry = f"ddps_dia_spmv_{_NAME.get(data.dtype)}_{_NAME.get(x.dtype)}"
     if entry not in DIA_SPMV.entries:
         raise TypeError(
@@ -600,11 +613,16 @@ def dia_spmv_launch(data: torch.Tensor, offsets, x: torch.Tensor, *,
         raise ValueError(f"no launch {shape} for {nd} diagonals")
     offs = np.ascontiguousarray(offsets, dtype=np.int64)
     y = torch.empty(n, dtype=x.dtype, device=dev)
+    row_bytes = n * data.element_size()
     with torch.cuda.device(dev):
-        DIA_SPMV.launch(
-            entry, data.data_ptr(), offs.ctypes.data, nd, x.data_ptr(),
-            y.data_ptr(), n, shape.block, shape.instance, _stream(dev),
-        )
+        for d0 in range(0, nd, DIA_MAX_DIAGS):
+            k = min(DIA_MAX_DIAGS, nd - d0)
+            DIA_SPMV.launch(
+                entry, data.data_ptr() + d0 * row_bytes,
+                offs[d0:].ctypes.data, k, x.data_ptr(), y.data_ptr(), n,
+                shape.block, shape.instance, int(d0 > 0), _stream(dev),
+                form="runtime" if shape.instance == 0 else None,
+            )
     return y
 
 

@@ -12,9 +12,16 @@ kernel (``csrc/dia_spmv.cu``, the port of ``ops/pallas/dia_kernel.py``);
 on a CPU tensor it evaluates :func:`.dia_kernel.dia_matvec_plain`, JAX's
 window-slice sum.  :func:`choose_operator` picks the format per matrix in
 JAX's order: lattice stencil or pad-stencil (f32 with ``grid_dims``), then
-DIA, then the sliced-ELL operator (:mod:`.bsg`), which also takes the
-matrices JAX sends to Split-ELL or ELL (TPU gather-avoidance formats that a
-GPU does not need).
+DIA, then the sliced-ELL operator (:mod:`.bsg`).
+
+Where JAX takes Split-ELL or ELL, the port's choice takes the sliced ELL
+too: it computes the same ``y = A x`` on kernel 1.  The two formats exist
+in the port (:mod:`.splitell`, and the DIA + ELL hybrid :mod:`.hyb`) and
+a caller may build either and hand it to any solver, but nothing chooses
+them: both exist to spare a TPU its serialized gathers (Split-ELL caps the
+padded row width, HYB streams the popular diagonals), and a GPU gathers a
+row's entries in parallel, so the sliced ELL's one launch serves every
+unstructured matrix.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .csr import CSRMatrix
-from .ell import PaddedLayout, pad_to
+from .ell import ELLMatrix, PaddedLayout, pad_to
 
 __all__ = [
     "DIAMatrix",
@@ -100,6 +107,17 @@ class DIAMatrix(PaddedLayout):
         from .dia_kernel import dia_spmv
 
         return dia_spmv(self, x_padded)
+
+    def matvec_roll(self, x_padded: torch.Tensor) -> torch.Tensor:
+        """The roll-chain product (``torch.roll(x, -o)[i] = x[i + o]``),
+        diagonals added in offset order: JAX's cross-check of
+        :meth:`matvec`, equal to it within summation order (a wrapped
+        lane always meets a zero coefficient)."""
+        y = torch.zeros_like(x_padded)
+        for d, off in enumerate(self.offsets):
+            y = y + self.data[d].to(x_padded.dtype) * torch.roll(
+                x_padded, -off)
+        return y
 
     def diagonal_padded(self, fill: float = 1.0) -> torch.Tensor:
         if 0 in self.offsets:
@@ -243,8 +261,9 @@ def choose_operator(
       BSG computes in f32; the port's kernel also computes in f64, so the
       port takes it at either dtype.
     - Otherwise sliced ELL in the identity space, padded to 8 rows like
-      JAX's ELL, with coefficients in ``dtype`` — where JAX takes Split-ELL
-      or ELL.
+      JAX's ELL, with coefficients in ``dtype``, where JAX takes Split-ELL
+      or ELL (:func:`.splitell.splitell_from_csr` and
+      :func:`.ell.ell_from_csr` build those formats on request).
 
     ``device`` defaults to the card.
     """
@@ -283,13 +302,27 @@ def choose_operator(
 
 
 def operator_bytes(A) -> int:
-    """Compulsory device-memory traffic of one product with ``A``: every
-    stored coefficient (or index and value) read once, ``x`` read once and
-    ``y`` written once, in the vectors' compute dtype."""
+    """Compulsory device-memory traffic of one product with ``A`` (DIA,
+    Split-ELL, HYB, ELL, the stencils, sliced ELL): every stored
+    coefficient (or index and value) read once, ``x`` read once and ``y``
+    written once, in the vectors' compute dtype."""
     if isinstance(A, DIAMatrix):
         sb = A.data.element_size()  # storage (possibly bf16)
         vb = A.dtype.itemsize  # x/y vectors in compute dtype
         return A.ndiags * A.n_pad * sb + 2 * A.n_pad * vb
+    from .splitell import SplitELLMatrix
+
+    if isinstance(A, SplitELLMatrix):
+        # JAX's formula; indices count at its 4 bytes (int32), as in
+        # :func:`.spmv.spmv_bytes`.
+        vb = A.vals.element_size()
+        tail = int(A.tail_rows.shape[0])
+        return (A.n_pad * A.row_width * (vb + 4) + tail * (vb + 2 * 4)
+                + 2 * A.n_pad * vb)
+    from .hyb import HYBMatrix
+
+    if isinstance(A, HYBMatrix):
+        return operator_bytes(A.dia) + operator_bytes(A.ell)
     from .stencil import StencilOperator
 
     if isinstance(A, StencilOperator):
@@ -305,4 +338,8 @@ def operator_bytes(A) -> int:
     if isinstance(A, BSGMatrix):
         return (A.n_slots * (4 + A.vals.element_size())
                 + A.x_len * 4 + A.n_pad * 4)
+    if isinstance(A, ELLMatrix):
+        from .spmv import spmv_bytes
+
+        return spmv_bytes(A)
     raise TypeError(f"no byte count for {type(A).__name__}")

@@ -85,6 +85,14 @@ class ELLMatrix(PaddedLayout):
     def device(self) -> torch.device:
         return self.vals.device
 
+    def astype(self, dtype) -> "ELLMatrix":
+        """The same slots with the values cast to ``dtype`` (columns
+        kept)."""
+        from .dia import _torch_dtype
+
+        return ELLMatrix(self.cols, self.vals.to(_torch_dtype(dtype)),
+                         self.n_rows, self.n_cols)
+
     def matvec(self, x_padded: torch.Tensor) -> torch.Tensor:
         """y = A @ x on padded vectors (:func:`.spmv.ell_spmv`)."""
         from .spmv import ell_spmv

@@ -94,7 +94,9 @@ class _HaloAMGBlock:
 
     def _smooth(self, x, b, x_zero: bool = False):
         # The single-device V-cycle's Chebyshev smoother, so iteration
-        # counts do not depend on P.
+        # counts do not depend on P; Chebyshev whatever the set-up's
+        # ``smoother`` says, as JAX's HaloAMG._smooth (only the coarse tail
+        # takes it).
         return chebyshev_smooth(self.A.matvec, self.inv_diag, self.lmax,
                                 self.smooth_steps, x, b, x_zero=x_zero)
 
@@ -130,6 +132,7 @@ def build_halo_amg(
                else int(M.coarse_inv.shape[-1]))
     tail = AMGPreconditioner(levels=list(M.levels[1:]),
                              coarse_inv=M.coarse_inv,
+                             smoother=M.smoother,
                              smooth_steps=M.smooth_steps)
     agg_p = np.zeros((plan.nparts, plan.n_local), dtype=np.int32)
     agg_p[plan.part_of_row, plan.local_of_row] = agg

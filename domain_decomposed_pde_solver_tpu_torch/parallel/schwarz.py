@@ -155,7 +155,11 @@ def build_block_amg(
     (default: the card); over a ``mesh`` of several processes, this
     process's parts', the common depth and the outcome agreed across the
     processes.  Returns ``None`` if a uniform structure could not be built
-    (the caller falls back to Jacobi), as JAX does."""
+    (the caller falls back to Jacobi), as JAX does.  ``amg_kwargs`` go to
+    every part's set-up (``smoother="jacobi"`` among them), so each part's
+    hierarchy smooths as it says; the V-cycles per apply are each part
+    preconditioner's ``cycles`` field, as they are the stacked one's in
+    JAX."""
     rows, pr, pc = _block_expansions(A, plan)
     mine = local_parts(plan, mesh)
 

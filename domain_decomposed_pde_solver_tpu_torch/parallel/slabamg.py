@@ -125,7 +125,10 @@ class SlabVCycle:
         return self.tval.shape[0] if self.mesh is None else self.mesh.nparts
 
     def _smooth(self, x, b, x_zero: bool = False):
-        # lmax in the working dtype, so the Chebyshev bounds round as JAX's.
+        # Chebyshev whatever the set-up's ``smoother`` says, as JAX's
+        # SlabAMG._smooth and SlabPadAMG._smooth: only the coarse tail
+        # takes it.  lmax in the working dtype, so the Chebyshev bounds
+        # round as JAX's.
         lmax = torch.tensor(self.lmax, dtype=self.tval.dtype)
         return chebyshev_smooth(self.A.matvec, self.inv_diag, lmax,
                                 self.smooth_steps, x, b, x_zero=x_zero)
@@ -238,6 +241,7 @@ def build_slab_amg(
         smooth_steps=M.smooth_steps,
         tail=AMGPreconditioner(levels=list(M.levels[1:]),
                                coarse_inv=M.coarse_inv,
+                               smoother=M.smoother,
                                smooth_steps=M.smooth_steps),
         n_c=n_c,
         n_pad_c=n_pad_c,

@@ -143,6 +143,7 @@ def build_slab_pad_amg(
         smooth_steps=M.smooth_steps,
         tail=AMGPreconditioner(levels=list(M.levels[1:]),
                                coarse_inv=M.coarse_inv,
+                               smoother=M.smoother,
                                smooth_steps=M.smooth_steps),
         n_c=n_c,
         n_pad_c=n_pad_c,

@@ -117,25 +117,26 @@ def cg_solve_snapshots(
     precond: Any = None,
     tol: float = 1e-14,
     maxiter: int = 300,
+    dot: Callable = torch.dot,
     callback: Optional[Callable[[int, torch.Tensor, float], None]] = None,
 ) -> CGResult:
     """CG with a host callback after every iteration, ``callback(k, x,
     relres)``: the reference's per-iteration solution snapshots
     (``BelosMueLuSolver.cpp:112-133``) on one continuous Krylov
     recurrence.  The stopping test is JAX's: ``||r|| / ||b|| > tol`` on
-    host floats."""
+    host floats.  ``dot`` as in :func:`cg_solve`."""
     M = precond if precond is not None else IdentityPrecond()
-    bnorm = float(torch.sqrt(torch.dot(b, b)))
+    bnorm = float(torch.sqrt(dot(b, b)))
     bnorm = bnorm if bnorm != 0 else 1.0
     r = b - A.matvec(x0)
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     x = x0
-    rnorm = float(torch.sqrt(torch.dot(r, r)))
+    rnorm = float(torch.sqrt(dot(r, r)))
     k = 0
     while rnorm / bnorm > tol and k < maxiter:
-        x, r, p, rz, rn = _cg_step(A, M, x, r, p, rz)
+        x, r, p, rz, rn = _cg_step(A, M, x, r, p, rz, dot)
         rnorm = float(rn)
         k += 1
         if callback is not None:
@@ -207,6 +208,7 @@ def cg_solve_resumable(
     precond: Any = None,
     tol: float = 1e-14,
     maxiter: int = 300,
+    dot: Callable = torch.dot,
 ) -> CGResult:
     """CG with a checkpoint every ``checkpoint_every`` iterations and exact
     resume: the counterpart of the JAX package's ``cg_solve_resumable``,
@@ -221,12 +223,13 @@ def cg_solve_resumable(
     ``b`` as JAX does and the operator's arrays in the order of
     :func:`operator_arrays`; JAX hashes its operator's pytree leaves, so a
     checkpoint written by the JAX package carries another operator hash and
-    is refused here with JAX's ``ValueError``.
+    is refused here with JAX's ``ValueError``.  ``dot`` as in
+    :func:`cg_solve`; it does not enter the fingerprint.
     """
     from ..utils.checkpoint import CGCheckpoint, load_checkpoint, save_checkpoint
 
     M = precond if precond is not None else IdentityPrecond()
-    bnorm = float(torch.sqrt(torch.dot(b, b))) or 1.0
+    bnorm = float(torch.sqrt(dot(b, b))) or 1.0
     b_hash = _blake([_host_array(b)])
     a_hash = _blake(operator_arrays(A))
 
@@ -253,11 +256,11 @@ def cg_solve_resumable(
         x = x0
         r = b - A.matvec(x0)
         p = M(r)
-        rz = torch.dot(r, p)
+        rz = dot(r, p)
         k = 0
-    rnorm = float(torch.sqrt(torch.dot(r, r)))
+    rnorm = float(torch.sqrt(dot(r, r)))
     while rnorm / bnorm > tol and k < maxiter:
-        x, r, p, rz, rn = _cg_step(A, M, x, r, p, rz)
+        x, r, p, rz, rn = _cg_step(A, M, x, r, p, rz, dot)
         rnorm = float(rn)
         k += 1
         if k % checkpoint_every == 0:

@@ -523,20 +523,35 @@ class AMGLevel:
 
 @dataclasses.dataclass
 class AMGPreconditioner:
-    """One V-cycle with Chebyshev smoothing per apply."""
+    """``cycles`` V-cycles per apply, each level smoothed by Chebyshev
+    (JAX's default) or damped Jacobi: JAX's algebra
+    (``solvers/precond/amg.py:616-639`` there)."""
 
     levels: List[AMGLevel]
     coarse_inv: torch.Tensor  # dense inverse of the coarsest operator (padded)
+    smoother: str = "chebyshev"  # "chebyshev" | "jacobi"
     smooth_steps: int = 2
+    cycles: int = 1  # V-cycles per apply
 
     @property
     def num_levels(self) -> int:
         return len(self.levels) + 1
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        return self._vcycle(0, r)
+        x = self._vcycle(0, r)
+        for _ in range(self.cycles - 1):
+            x = x + self._vcycle(0, r - self.levels[0].A.matvec(x))
+        return x
 
     def _smooth(self, lvl: AMGLevel, x, b, x_zero: bool = False):
+        # x_zero: the pre-smooth starts from x = 0, so its first residual
+        # is b and one product per level per cycle is skipped.
+        if self.smoother == "jacobi":
+            omega = 2.0 / 3.0
+            for i in range(self.smooth_steps):
+                r = b if (x_zero and i == 0) else b - lvl.A.matvec(x)
+                x = x + omega * lvl.inv_diag * r
+            return x
         return chebyshev_smooth(
             lvl.A.matvec, lvl.inv_diag, lvl.lmax, self.smooth_steps, x, b,
             x_zero=x_zero,
@@ -581,6 +596,7 @@ def smoothed_aggregation_setup(
     omega: float = 4.0 / 3.0,
     max_levels: int = 10,
     coarse_size: int = 64,
+    smoother: str = "chebyshev",
     smooth_steps: int = 2,
     factored_transfers: bool = True,
     filter_tol: Union[float, str] = "auto",
@@ -591,16 +607,22 @@ def smoothed_aggregation_setup(
     fine_operator=None,
     level_info_out: Optional[list] = None,
     timings_out: Optional[dict] = None,
+    bsg_mid_levels: bool = True,
     bsg_level_min_rows: int = 100_000,
+    bsg_transfers: bool = True,
     bsg_transfer_min_rows: int = 200_000,
     device=None,
 ) -> AMGPreconditioner:
     """Build the SA-AMG hierarchy from the host CSR operator.
 
-    The same hierarchy as the JAX function for the parameters kept here (its
-    Jacobi smoother, multi-cycle apply and the opt-outs of the BSG chain
-    are not ported), plus ``device`` (default: the fine operator's device,
-    else the card).
+    The same hierarchy as the JAX function, with JAX's parameters in its
+    order, plus ``device`` (default: the fine operator's device, else the
+    card).
+
+    - ``smoother``: ``"chebyshev"`` (default) or ``"jacobi"`` (damped,
+      omega = 2/3, ``smooth_steps`` sweeps) on every level.  The number
+      of V-cycles per apply is the preconditioner's ``cycles`` field
+      (1 here; JAX's set-up takes no such keyword either).
 
     - ``fine_operator``: a prebuilt level-0 operator that owns its vector
       space — a sliced-ELL :class:`BSGMatrix` (possibly RCM-permuted) or a
@@ -611,7 +633,13 @@ def smoothed_aggregation_setup(
       ``bsg_level_min_rows`` rows are sliced-ELL operators in a
       host-RCM-relabelled identity space, and transfers of levels with at
       least ``bsg_transfer_min_rows`` rows are rectangular sliced-ELL
-      ``G``/``GT``.
+      ``G``/``GT``.  ``bsg_mid_levels=False`` opts out of the chain: the
+      coarse levels are built as over any other fine level (no host
+      relabel; sliced ELL in the identity space with explicit ELL
+      transfers, where JAX takes Split-ELL or ELL), and a fine level of
+      more than 200,000 rows then composes two aggregation rounds
+      (``aggressive_levels="auto"``).  ``bsg_transfers=False`` keeps the
+      chain's levels with factored transfers.
     - ``grid_dims``: a lexicographic free-node grid matching ``A``; level 0
       then takes ``brick^3`` aggregates and gather-free brick transfers.
     - ``filter_tol="auto"`` is 0.005 on the BSG chain, 0.01 otherwise;
@@ -653,7 +681,7 @@ def smoothed_aggregation_setup(
     # The BSG chain starts at a sliced-ELL fine operator; the distributed
     # builders (level_info_out) take the raw hierarchy without it.
     fine_sell = use_fine_op and isinstance(fine_operator, BSGMatrix)
-    bsg_chain = fine_sell and level_info_out is None
+    bsg_chain = bsg_mid_levels and fine_sell and level_info_out is None
     grid_match = grid_dims is not None and int(np.prod(grid_dims)) == A.n_rows
 
     if aggressive_levels == "auto":
@@ -723,7 +751,8 @@ def smoothed_aggregation_setup(
         if n_c >= A_k.shape[0] or n_c == 0:
             break  # aggregation stalled
         coarse_bsg = this_bsg and n_c > bsg_level_min_rows
-        bsg_tx_level = this_bsg and A_k.shape[0] >= bsg_transfer_min_rows
+        bsg_tx_level = (bsg_transfers and this_bsg
+                        and A_k.shape[0] >= bsg_transfer_min_rows)
         counts = np.bincount(agg, minlength=n_c).astype(np.float64)
         d = A_k.diagonal()
         d = np.where(d != 0, d, 1.0)
@@ -940,6 +969,7 @@ def smoothed_aggregation_setup(
     return AMGPreconditioner(
         levels=levels,
         coarse_inv=coarse_inv,
+        smoother=smoother,
         smooth_steps=smooth_steps,
     )
 

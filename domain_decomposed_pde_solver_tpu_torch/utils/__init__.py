@@ -1,8 +1,9 @@
 """Utilities: explicit device resolution, configuration and flags, debug
 dumps and the output combiner, phase timers and profiler traces,
-checkpoints, the native host library, host allocator tuning, and adoption
-of the JAX package's arrays."""
+checkpoints, the native host library, host allocator tuning, the kernel
+build cache, and adoption of the JAX package's arrays."""
 
+from .compilecache import enable_persistent_cache
 from .config import SolveConfig, add_solve_args, config_from_args
 from .device import resolve_device
 from .hostmem import enable_malloc_reuse
@@ -19,5 +20,6 @@ __all__ = [
     "print_vector",
     "PhaseTimer",
     "enable_malloc_reuse",
+    "enable_persistent_cache",
     "trace_to",
 ]

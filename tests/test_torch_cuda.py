@@ -1643,3 +1643,128 @@ def test_solves_over_processes_equal_one_process(cuda_device, monkeypatch,
     for x, it in procs.run(lambda r: solve(_proc_mesh(4, cuda_device, r, 2))):
         assert it == it1
         np.testing.assert_array_equal(x, x1)
+
+
+# ---------------------------------------------------------------------------
+# HYB and Split-ELL on the card; kernel 4 with many diagonals; the build
+# cache
+# ---------------------------------------------------------------------------
+
+
+def _hyb_split(d, dtype, device):
+    """The HYB (after RCM) and Split-ELL (identity numbering) operators of
+    a refined d^3 box on ``device``."""
+    from domain_decomposed_pde_solver_tpu_torch.ops import (
+        hyb_from_csr,
+        rcm_permute,
+        splitell_from_csr,
+    )
+
+    sy = assemble_heat_system(refine_uniform(box_mesh(d, d, d,
+                                                      elem_type="TETRA4"), 1))
+    Ap, _perm = rcm_permute(sy.A)
+    return (hyb_from_csr(Ap, dtype=dtype, device=device),
+            splitell_from_csr(sy.A, dtype=dtype, device=device))
+
+
+def _far_dia(nd, n, reach, name, device, seed=0):
+    """``nd`` random diagonals of an ``n``-row operator, offsets drawn from
+    [-reach, reach]: with reach ~ n / 2 no block is interior."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import DIAMatrix
+
+    rng = np.random.default_rng(seed)
+    offs = np.sort(rng.choice(np.arange(-reach, reach + 1), nd,
+                              replace=False))
+    data = rng.normal(size=(nd, n)).astype(name)
+    rows = np.arange(n)
+    for d, o in enumerate(offs):  # zero where the column does not exist
+        data[d, (rows + o < 0) | (rows + o >= n)] = 0.0
+    return DIAMatrix(data=torch.from_numpy(data).to(device),
+                     offsets=tuple(int(o) for o in offs), n_rows=n)
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["hyb213", "wide300", "wide256"])
+def test_dia_kernel_many_diagonals_and_far_offsets(cuda_device, case, name):
+    """More than 128 diagonals: the HYB DIA part of a refined 5^3 box (213
+    diagonals to about +- the RCM bandwidth, most rows outside the
+    interior range), and 256 / 300 random ones reaching +- n/2 (no
+    interior block; 300 runs as two launches, the second adding to the
+    first's y).  Equal to the plain version; every block bit-identical."""
+    if case == "hyb213":
+        A = _hyb_split(5, getattr(torch, name), cuda_device)[0].dia
+        assert A.ndiags == 213
+    else:
+        A = _far_dia(int(case[4:]), 6000, 3000, name, cuda_device)
+    lo, hi = -min(A.offsets), A.n_pad - max(A.offsets)
+    assert lo > 0 and hi < A.n_pad  # rows outside the interior range
+    x = torch.as_tensor(np.random.default_rng(36).normal(size=A.n_pad),
+                        dtype=getattr(torch, name), device=cuda_device)
+    launches = -(-A.ndiags // _kernels.DIA_MAX_DIAGS)
+    before = _kernels.DIA_SPMV.launches
+    y0 = A.matvec(x)
+    torch.cuda.synchronize()
+    assert _kernels.DIA_SPMV.launches == before + launches
+    assert _relerr(y0, dia_matvec_plain(A, x)) <= TOL[name]
+    for block in _kernels.DIA_BLOCKS:
+        y = _kernels.dia_spmv_launch(A.data, A.offsets_array, x,
+                                     shape=_kernels.DiaLaunch(0, block))
+        torch.cuda.synchronize()
+        assert torch.equal(y, y0), block
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+def test_hyb_and_splitell_on_the_card_match_their_plain_versions(
+        cuda_device, name):
+    """HYB's DIA part on kernel 4's run-time loop plus its ELL part, and
+    Split-ELL's fixed-order tail (the same bits on two runs), each against
+    its plain version on the card and its product on the CPU."""
+    from domain_decomposed_pde_solver_tpu_torch.ops.splitell import (
+        splitell_matvec_plain,
+    )
+
+    dtype = getattr(torch, name)
+    H, S = _hyb_split(8, dtype, cuda_device)
+    Hc, Sc = _hyb_split(8, dtype, "cpu")
+    x = torch.as_tensor(np.random.default_rng(37).normal(size=H.n_pad),
+                        dtype=dtype)
+    xd = x.to(cuda_device)
+    entry = f"ddps_dia_spmv_{'f32_f32' if name == 'float32' else 'f64_f64'}"
+    before = _kernels.DIA_SPMV.by_entry[entry]
+    yh = H.matvec(xd)
+    torch.cuda.synchronize()
+    assert _kernels.DIA_SPMV.by_entry[entry] == before + 1
+    assert _kernels.dia_launch_shape(H.n_pad, H.dia.ndiags).instance == 0
+    assert _relerr(yh, dia_matvec_plain(H.dia, xd) + H.ell.matvec(xd)
+                   ) <= TOL[name]
+    assert _relerr(yh, Hc.matvec(x)) <= TOL[name]
+    ys = S.matvec(xd)
+    assert torch.equal(S.matvec(xd), ys)
+    assert _relerr(ys, splitell_matvec_plain(S, xd)) <= TOL[name]
+    assert _relerr(ys, Sc.matvec(x)) <= TOL[name]
+    assert torch.equal(S.diagonal_padded().cpu(), Sc.diagonal_padded())
+
+
+def test_build_through_enable_persistent_cache(cuda_device, tmp_path,
+                                               monkeypatch):
+    """``enable_persistent_cache(dir)`` sends the next build there: a fresh
+    kernel 4 builds into ``dir``, loads and launches."""
+    from domain_decomposed_pde_solver_tpu_torch.utils import compilecache
+
+    monkeypatch.setattr(compilecache, "_chosen", compilecache._chosen)
+    cache = tmp_path / "cache"
+    assert compilecache.enable_persistent_cache(str(cache)) == str(cache)
+    k = _kernels.Kernel(_kernels.DIA_SPMV.name, _kernels.DIA_SPMV.src,
+                        _kernels.DIA_SPMV.entries)
+    k.library()
+    assert len(list(cache.glob("libdia_spmv-*.so"))) == 1
+    A = _far_dia(19, 5000, 80, "float32", cuda_device)
+    x = torch.ones(A.n_pad, device=cuda_device)
+    y = torch.empty_like(x)
+    k.launch("ddps_dia_spmv_f32_f32", A.data.data_ptr(),
+             A.offsets_array.ctypes.data, A.ndiags, x.data_ptr(),
+             y.data_ptr(), A.n_pad, 128, 0, 0,
+             torch.cuda.current_stream(cuda_device).cuda_stream)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    assert _relerr(y, dia_matvec_plain(A, x)) <= TOL["float32"]

@@ -2,9 +2,9 @@
 
 For every name in the ``__all__`` of a JAX subpackage, either the port
 defines it, and then exports it by the same import path and lists it in
-its own ``__all__``, or it stands below among the names not ported by
-design, with the reason.  A name the port comes to define must move out
-of that list.
+its own ``__all__``, or it stands below among the names not ported, with
+the reason.  A name the port comes to define must move out of that list,
+which is empty for every subpackage.
 """
 
 import importlib
@@ -19,24 +19,14 @@ import pytest
 JAX = "domain_decomposed_pde_solver_tpu"
 PORT = "domain_decomposed_pde_solver_tpu_torch"
 
-BY_DESIGN = "not ported by design (ROADMAP.md North star)"
-
 NOT_PORTED = {
     "io": {},
     "models": {},
-    "ops": {
-        "HYBMatrix": BY_DESIGN,
-        "hyb_from_csr": BY_DESIGN,
-        "SplitELLMatrix": BY_DESIGN,
-        "splitell_from_csr": BY_DESIGN,
-    },
+    "ops": {},
     "parallel": {},
     "solvers": {},
     "solvers.precond": {},
-    "utils": {
-        "enable_persistent_cache": BY_DESIGN + ": nvcc builds are cached "
-                                               "in build/kernels/",
-    },
+    "utils": {},
 }
 
 
