@@ -261,6 +261,26 @@ L. The last of the JAX package's API, in a process of its own as F-K
    L4. HYB's DIA part on kernel 4 against its bound, its plain version
    and cuSPARSE CSR on the same entries; HYB's, Split-ELL's and kernel
    1's products on the same system beside cuSPARSE on its CSR.
+M. The drivers across processes: the CLI's ``--partitions 4`` routes
+   under ``torchrun --standalone --nproc-per-node 2`` (``--phase-m-worker
+   OUT TAG CLI_ARG ...`` in each process), two processes each holding two
+   parts on the one card over gloo, every launch bounded by
+   ``M_TIMEOUT`` (a process that fails ends the launch), each process's
+   counters at 0 just before its CLI run:
+   M1. H1's command line on H1's 833,048-DOF file (the halo AMG route):
+   both processes exit 0 in H1's iterations, process 0 alone opens the
+   solution file and prints, the file's answer is H1's bit for bit with
+   a host f64 relres <= 2e-6, and each process launches kernel 1.
+   M2. I1's command line on path A's file (the f64 refinement over
+   pad-stencil slabs): I1's sweeps and inner iterations, I1's answer bit
+   for bit, host relres <= 1.5e-8, and each process launches kernel 3 in
+   f32 and f64 and kernel 4.
+   M1 and M2 keep both processes on the smoke's card
+   (``CUDA_VISIBLE_DEVICES``) however many the host has; with two cards
+   or more, M1 once more with a card per process (NCCL) to the same
+   checks; on one card a line says NCCL was not run.  The
+   per-process launches, walls, phases and peak host RSS are recorded;
+   ``--phase-m RESULT`` runs M alone, with its own one-process runs.
 D. Every kernel against its plain PyTorch version on the card, on the
    paths' operators and a few more shapes (relative error limit 1e-5 in
    f32, 1e-12 in f64: the same products summed in another order, with
@@ -1888,6 +1908,9 @@ def run_phase_g(timeout: float = 900.0) -> dict:
 H_PARTS = (4, 8)
 H_SEED = 0  # the CLI's x0: default_rng(seed).uniform(-1, 1)
 H_BLOCK_COARSE = 1024  # block AMG's coarse_size when JAX's 64 falls back
+# H1's command line after --input and --solution (M1's too).
+H1_ARGS = ("--partitions", 4, "--precond", "amg", "--dtype", "float32",
+           "--tolerance", 1e-6, "--no-snapshots", "--verbose")
 
 
 def _cli_x0(n: int):
@@ -1942,9 +1965,7 @@ def phase_h1(device, kernels, refs, cells: int = MESH_CELLS,
     write_exodus(str(exo), refine_uniform(box_mesh(cells, cells, cells,
                                                    "TETRA4"), 1))
     t_mesh = time.perf_counter() - t0
-    args = ["--input", exo, "--solution", sol, "--partitions", 4,
-            "--precond", "amg", "--dtype", "float32", "--tolerance", 1e-6,
-            "--no-snapshots", "--verbose"]
+    args = ["--input", exo, "--solution", sol, *H1_ARGS]
     args += [] if device.type == "cuda" else ["--cpu"]
     rep = {}
     (rc, text), counts, wall = _run_counted(
@@ -2483,6 +2504,9 @@ def run_phase_h(refs: dict, timeout: float = 900.0) -> dict:
 # ---------------------------------------------------------------------------
 
 I_PARTS = 4
+# I1's command line after --partitions (M2's too).
+I1_ARGS = ("--precond", "amg", "--dtype", "float64", "--tolerance", 1e-8,
+           "--no-snapshots", "--verbose")
 I3_L = 66  # the 10M box's slabs at bz = 4, brick 6, P = 4
 
 
@@ -2566,8 +2590,7 @@ def phase_i1(device, kernels, refs, exo, out=OUT, parts=I_PARTS) -> dict:
 
     sol = out / "i1_solution.exo"
     args = ["--input", exo, "--solution", sol, "--partitions", parts,
-            "--precond", "amg", "--dtype", "float64", "--tolerance", 1e-8,
-            "--no-snapshots", "--verbose"]
+            *I1_ARGS]
     args += [] if device.type == "cuda" else ["--cpu"]
     rep = {}
     (rc, _text), counts, wall = _run_counted(
@@ -4446,6 +4469,305 @@ def run_phase_l(refs: dict, timeout: float = 900.0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# M. The drivers across processes: the CLI's --partitions routes run by two
+#    processes under torchrun, each holding its parts on its card
+# ---------------------------------------------------------------------------
+
+M_WORLD = 2
+M_TIMEOUT = 600.0  # seconds one launch of the processes may take
+# The C entries M2's every process must launch: kernel 3 in f32 and f64,
+# and kernel 4 on the hierarchy's DIA levels (none on a small box).
+M_FULL = dict(cells=MESH_CELLS, box=(BOX, BOX, BOX), box_exo=f"box{BOX}.exo",
+              m2_entries=("ddps_pad_stencil_f32", "ddps_pad_stencil_f64",
+                          "ddps_dia_spmv"))
+
+
+def phase_m_worker(out: str, tag: str, *cli_args) -> int:
+    """One process of phase M (``python3 chip_smoke.py --phase-m-worker
+    OUT TAG CLI_ARG ...``), under torchrun or alone: ``cli.solve.main``
+    on ``CLI_ARG ...`` with every launch counter at 0 just before it and
+    read just after, the solution writers it opens counted; writes its
+    record to ``OUT/phase_m_{TAG}.rank{RANK}.json``, with the host f64
+    relres of the file's answer from process 0."""
+    import os
+    import resource
+
+    import numpy as np
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch import io as port_io
+    from domain_decomposed_pde_solver_tpu_torch.cli.solve import main
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+    from domain_decomposed_pde_solver_tpu_torch.parallel.multihost import (
+        choose_backend,
+    )
+
+    rank = int(os.environ.get("RANK", 0))
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    cuda = "--cpu" not in cli_args
+    torch.set_num_threads(2)  # the other process shares the host
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = _kernels.build_kernels() if cuda else _kernels.KERNELS
+    writers = []
+
+    class CountedWriter(port_io.ExodusSolutionWriter):
+        def __init__(self, path, *args, **kwargs):
+            writers.append(str(path))
+            super().__init__(path, *args, **kwargs)
+
+    port_io.ExodusSolutionWriter = CountedWriter  # the CLI imports it late
+    rep = {}
+    (rc, text), counts, wall = _run_counted(
+        kernels, lambda: _captured(lambda: main(list(cli_args), report=rep)))
+    res, mr = rep["result"], rep.get("mixed")
+    rec = dict(
+        rank=rank, world=world, rc=rc, writers=writers, stdout=text,
+        precond=type(rep.get("precond")).__name__,
+        iterations=int(res.iterations), relres=float(res.relres),
+        sweeps=mr.refinements if mr else None,
+        inner_iterations=mr.inner_iterations if mr else None,
+        backend=choose_backend(world, None, None if cuda else "cpu")
+        if world > 1 else None,
+        device=f"cuda:{torch.cuda.current_device()}" if cuda else "cpu",
+        launches=counts, wall_s=wall, phases_s=rep["timer"].as_dict(),
+        peak_rss_mb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        / 1024)
+    if rank == 0:
+        from domain_decomposed_pde_solver_tpu_torch.io import read_nodal_vars
+
+        sy = rep["system"]
+        sol = cli_args[list(cli_args).index("--solution") + 1]
+        u = read_nodal_vars(sol)[2][-1, 0, sy.free_to_node]
+        rec.update(host_relres=host_relres(sy.A, u, sy.b), n_free=sy.n_free,
+                   finite=bool(np.isfinite(u).all()),
+                   u_range=[float(u.min()), float(u.max())])
+    log(f"[M] {tag} rank {rank} of {world} on {rec['device']}: rc {rc}, "
+        f"{rec['iterations']} iterations, launches {_launched(counts)}, "
+        f"wall {wall:.1f} s, peak RSS {rec['peak_rss_mb']:.0f} MiB")
+    pathlib.Path(out, f"phase_m_{tag}.rank{rank}.json").write_text(
+        json.dumps(rec))
+    return 0
+
+
+def _m_launch(tag: str, argv, world: int, out, env=None) -> list:
+    """Run :func:`phase_m_worker` in ``world`` processes (torchrun
+    ``--standalone``, a TCP rendezvous on this host; one process: the
+    script alone), with ``env`` added to their environment, within
+    :data:`M_TIMEOUT`; a process that fails or a launch that outlives it
+    fails the phase (torchrun ends the others).  Returns the records in
+    rank order."""
+    import os
+    import signal
+
+    for f in out.glob(f"phase_m_{tag}.rank*.json"):
+        f.unlink()
+    worker = [str(pathlib.Path(__file__)), "--phase-m-worker", str(out), tag,
+              *map(str, argv)]
+    cmd = [sys.executable, *worker] if world == 1 else [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        f"--nproc-per-node={world}", *worker]
+    sys.stdout.flush()
+    proc = subprocess.Popen(cmd, cwd=REPO,
+                            env={**os.environ, **(env or {})})
+    try:
+        rc = proc.wait(timeout=M_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)  # torchrun stops its workers
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        raise SmokeFailure(f"[M] {tag}: still running after "
+                           f"{M_TIMEOUT:.0f} s")
+    check(rc == 0, f"[M] {tag}: the launch exited with {rc}")
+    return [json.loads((out / f"phase_m_{tag}.rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _m_check(tag: str, recs, ref: dict, sol, ref_sol, want,
+             limit: float) -> None:
+    """One run's checks: every process exits 0 on the route ``want``, with
+    the reference's counts; process 0 alone opens the solution file and
+    prints; its answer is the reference's bit for bit, with a host relres
+    within ``limit``."""
+    import numpy as np
+
+    from domain_decomposed_pde_solver_tpu_torch.io import read_nodal_vars
+
+    for r in recs:
+        check(r["rc"] == 0, f"[{tag}] rank {r['rank']} exited with {r['rc']}")
+        check(r["precond"] == want,
+              f"[{tag}] rank {r['rank']} took {r['precond']}, not {want}")
+        for key in ("iterations", "sweeps", "inner_iterations"):
+            if ref.get(key) is not None:
+                check(r[key] == ref[key],
+                      f"[{tag}] rank {r['rank']}: {r[key]} {key}, one "
+                      f"process {ref[key]}")
+        check(r["writers"] == ([str(sol)] if r["rank"] == 0 else []),
+              f"[{tag}] rank {r['rank']} opened {r['writers']}")
+        if r["rank"]:
+            check(r["stdout"] == "",
+                  f"[{tag}] rank {r['rank']} printed {r['stdout'][:200]!r}")
+    r0 = recs[0]
+    check(r0["finite"] and 100.0 <= r0["u_range"][0]
+          and r0["u_range"][1] <= 1000.0,
+          f"[{tag}] values {r0['u_range']} outside [100, 1000]")
+    check(r0["host_relres"] <= limit,
+          f"[{tag}] host relres {r0['host_relres']:.3e} > {limit}")
+    ours, theirs = read_nodal_vars(str(sol)), read_nodal_vars(str(ref_sol))
+    check(np.array_equal(ours[1], theirs[1])
+          and np.array_equal(ours[2], theirs[2]),
+          f"[{tag}] the answer is not one process's bit for bit")
+
+
+def _m_run(tag, device, exo, args, refs, ref_sol, want, limit, out,
+           kernels_each, env=None) -> dict:
+    """One route of phase M: the one-process reference (``refs`` from the
+    smoke's own run, else run here alone), then the two processes, held to
+    it, over gloo on one device unless ``env`` leaves them a card each
+    (then NCCL); each process must launch ``kernels_each`` (C entry
+    prefixes) on the card."""
+    import torch
+
+    cpu = [] if device.type == "cuda" else ["--cpu"]
+    if refs is None:
+        ref_sol = out / f"{tag.lower()}_one.exo"
+        refs = _m_launch(f"{tag}_one", ["--input", exo, "--solution",
+                                        ref_sol, *args, *cpu], 1, out,
+                         env)[0]
+    sol = out / f"{tag.lower()}_solution.exo"
+    t0 = time.perf_counter()
+    recs = _m_launch(tag, ["--input", exo, "--solution", sol, *args, *cpu],
+                     M_WORLD, out, env)
+    wall = time.perf_counter() - t0
+    _m_check(tag, recs, refs, sol, ref_sol, want, limit)
+    nccl = env is None and device.type == "cuda" and (
+        torch.cuda.device_count() >= M_WORLD)
+    for r in recs:
+        got = (r["backend"], r["device"])
+        check(got == (("nccl", f"cuda:{r['rank']}") if nccl else
+                      ("gloo", "cuda:0" if device.type == "cuda" else "cpu")),
+              f"[{tag}] rank {r['rank']}: {got}")
+        entries = [e for c in r["launches"].values() for e in c["by_entry"]]
+        if device.type == "cuda":
+            for prefix in kernels_each:
+                check(any(e.startswith(prefix) for e in entries),
+                      f"[{tag}] rank {r['rank']} launched no {prefix}: "
+                      f"{entries}")
+        log(f"[{tag}] rank {r['rank']} ({r['backend']}, {r['device']}): "
+            f"launches {_launched(r['launches'])}, peak RSS "
+            f"{r['peak_rss_mb']:.0f} MiB")
+    r0 = recs[0]
+    sweeps = "" if r0["sweeps"] is None else f", {r0['sweeps']} sweeps"
+    log(f"[{tag}] {M_WORLD} processes: {r0['iterations']} iterations"
+        f"{sweeps}, host relres {r0['host_relres']:.3e}, the one-process "
+        f"answer bit for bit; launch wall {wall:.1f} s (workers "
+        f"{[round(r['wall_s'], 1) for r in recs]} s)")
+    keep = ("rank", "backend", "device", "iterations", "sweeps",
+            "inner_iterations", "relres", "wall_s", "phases_s",
+            "peak_rss_mb", "host_relres", "n_free")
+    return dict(workers=[{k: r[k] for k in keep if k in r} | {
+        "launches": {k: c["launches"] for k, c in r["launches"].items()},
+        "by_entry": {k: c["by_entry"] for k, c in r["launches"].items()
+                     if c["launches"]}} for r in recs],
+        one_process={k: refs.get(k) for k in ("iterations", "sweeps",
+                                              "inner_iterations")},
+        launch_wall_s=wall)
+
+
+def phase_m(device, refs=None, cfg=None, out=OUT) -> dict:
+    """M: the CLI's ``--partitions 4`` routes under torchrun, two
+    processes, each holding two parts (on the one card over gloo; on a
+    card each over NCCL where there are two), held to the one-process
+    runs: M1 H1's halo AMG route on path C's mesh, M2 I1's structured f64
+    route on path A's file.  ``refs``: H1's and I1's counts
+    (``h1_iterations``, ``i1_sweeps``, ``i1_inner``), their solution files
+    in ``out``; without them the one-process runs are made here."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.io import (
+        box_mesh,
+        refine_uniform,
+        write_exodus,
+    )
+
+    import os
+
+    t0 = time.perf_counter()
+    refs, cfg = refs or {}, {**M_FULL, **(cfg or {})}
+    out.mkdir(parents=True, exist_ok=True)
+    n = cfg["cells"]
+    exo1 = out / f"h1_refined{n}.exo"  # H1's file
+    if not exo1.exists():
+        write_exodus(str(exo1), refine_uniform(box_mesh(n, n, n, "TETRA4"),
+                                               1))
+    exo2 = out / cfg["box_exo"]  # path A's file
+    if not exo2.exists():
+        write_exodus(str(exo2), box_mesh(*cfg["box"], "TETRA4"))
+    h1 = (dict(iterations=refs["h1_iterations"]) if "h1_iterations" in refs
+          else None)
+    i1 = (dict(sweeps=refs["i1_sweeps"], inner_iterations=refs["i1_inner"])
+          if "i1_sweeps" in refs else None)
+    # M1 and M2 put both processes on this card (gloo) however many the
+    # host has; M1-nccl then gives each its own card.
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    shared = None
+    if cards >= M_WORLD:
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        index = device.index or 0
+        shared = {"CUDA_VISIBLE_DEVICES":
+                  visible.split(",")[index] if visible else str(index)}
+    m1 = _m_run("M1", device, exo1, H1_ARGS, h1, out / "h1_solution.exo",
+                "HaloAMG", 2e-6, out, ["ddps_sell_spmv"], shared)
+    m2 = _m_run("M2", device, exo2, ["--partitions", I_PARTS, *I1_ARGS], i1,
+                out / "i1_solution.exo", "SlabPadAMG", 1.5e-8, out,
+                cfg["m2_entries"], shared)
+    nccl = dict(run=False, cards=cards)
+    if cards >= M_WORLD:
+        nccl = _m_run("M1-nccl", device, exo1, H1_ARGS, dict(
+            iterations=m1["workers"][0]["iterations"]),
+            out / "m1_solution.exo", "HaloAMG", 2e-6, out,
+            ["ddps_sell_spmv"]) | dict(run=True, cards=cards)
+    else:
+        log(f"[M] NCCL not run: {cards} card(s) for {M_WORLD} processes, "
+            f"and NCCL refuses two ranks on one GPU; M1 and M2 ran over "
+            f"gloo, staged through host memory")
+    wall = time.perf_counter() - t0
+    log(f"[M] passed: wall {wall:.1f} s")
+    return dict(M1=m1, M2=m2, nccl=nccl, wall_s=wall)
+
+
+def phase_m_launches(run_m: dict, name: str) -> dict:
+    """One kernel's launches in each process of phase M's runs."""
+    runs = {"M1": run_m["M1"], "M2": run_m["M2"]}
+    if run_m["nccl"]["run"]:
+        runs["M1 nccl"] = run_m["nccl"]
+    return {f"{tag} rank {r['rank']}": r["launches"][name]
+            for tag, run in runs.items() for r in run["workers"]}
+
+
+def phase_m_process(result: str) -> int:
+    """Phase M alone (``python3 chip_smoke.py --phase-m RESULT``): build
+    the kernels (the processes load them), make the one-process runs and
+    run :func:`phase_m`; writes its record to ``RESULT``."""
+    import torch
+
+    from domain_decomposed_pde_solver_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available")
+    _kernels.build_kernels()
+    card = card_line()
+    log(card)
+    rec = phase_m(torch.device("cuda", 0))
+    rec["card"] = card
+    pathlib.Path(result).write_text(json.dumps(rec))
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # D. Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -5937,6 +6259,11 @@ def main() -> int:
         d1_iterations=run_d1["833k"]["unfused"].iterations,
         d1_limit=run_d1["833k"]["limit"]))
     log(f"[L] done at {time.perf_counter() - t_start:.1f} s")
+    run_m = phase_m(device, dict(
+        h1_iterations=run_h["H1"]["iterations"],
+        i1_sweeps=run_i["I1"]["sweeps"],
+        i1_inner=run_i["I1"]["inner_iterations"]))
+    log(f"[M] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- D. kernels against plain versions (launches not counted) --------
     errs = compare_phase(device, run_a, run_b, run_c, run_d1, run_d2)
@@ -6002,6 +6329,7 @@ def main() -> int:
         "multi_process": run_j,
         "examples": run_k,
         "api_tail": run_l,
+        "cli_processes": run_m,
         "timing": rec,
         "total_s": time.perf_counter() - t_start,
     }))
@@ -6042,6 +6370,7 @@ def main() -> int:
         extra["phase_j_launches"] = phase_j_launches(run_j, k.name)
         extra["phase_k_launches"] = phase_k_launches(run_k, k.name)
         extra["phase_l_launches"] = phase_l_launches(run_l, k.name)
+        extra["phase_m_launches"] = phase_m_launches(run_m, k.name)
         if k.name == "dia_spmv":
             # Phase L: HYB's DIA part on the run-time loop at 833k.
             extra["phase_l_hyb_dia"] = {
@@ -6116,6 +6445,10 @@ if __name__ == "__main__":
             sys.exit(phase_l_process(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--phase-j-worker"]:
             sys.exit(phase_j_worker(*sys.argv[2:7]))
+        if sys.argv[1:2] == ["--phase-m"]:
+            sys.exit(phase_m_process(sys.argv[2]))
+        if sys.argv[1:2] == ["--phase-m-worker"]:
+            sys.exit(phase_m_worker(*sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -9,9 +9,13 @@ is the padded ELL in float64 (a plain PyTorch product, as JAX's ELL is an
 XLA one).  With ``--partitions >= 2`` (the reference's >= 2 ranks,
 ``ExodusMatrixTest.cpp:146-149``) the Laplacian is partitioned over a halo
 plan and the power method runs over the parts
-(``parallel.sharded_power_method``, all parts on the one device) in one
-call, printing the final line only, as JAX's does.  It runs on the card;
-``--cpu`` runs it on the CPU.
+(``parallel.sharded_power_method``) in one call, printing the final line
+only, as JAX's does: one process holds every part on its one device;
+under a launcher of K processes each holds ``--partitions`` / K of them on
+its own card, as ``cli/solve.py`` does (every process partitions the
+whole mesh, the partitions are checked to agree, process 0 alone prints,
+a count K does not divide is refused).  It runs on the card; ``--cpu``
+runs it on the CPU.
 
 Usage::
 
@@ -42,20 +46,35 @@ def main(argv=None, report: Optional[dict] = None) -> int:
                     help="run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
 
+    from ..parallel.collectives import from_root
+    from ..parallel.multihost import launch_refusal, launched
+
+    refusal = launch_refusal(args.partitions)
+    if refusal:
+        print(f"error: --partitions {refusal}", file=sys.stderr)
+        return 2
+    with launched(cpu=args.cpu) as device:
+        return from_root(_run(args, device, report))
+
+
+def _run(args, device, report) -> int:
+    """The driver on ``device``, in this process of the launcher's group
+    (or alone)."""
     import numpy as np
     import torch
 
     from ..io import ExodusReadError, read_exodus
     from ..models.laplacian import assemble_full_laplacian
     from ..ops.ell import ell_from_csr
+    from ..parallel.collectives import max_scalar
     from ..solvers.power import power_method
-    from ..utils.device import resolve_device
 
-    device = resolve_device("cpu" if args.cpu else None)
     try:
         mesh = read_exodus(args.input)
     except (ExodusReadError, FileNotFoundError) as e:
         print(f"error: {e}", file=sys.stderr)
+        mesh = None
+    if max_scalar(mesh is None):  # every process stops if one cannot read
         return 1
     L = assemble_full_laplacian(mesh)
     rng = np.random.default_rng(args.seed)
@@ -97,6 +116,7 @@ def _sharded_power(args, mesh, L, z0_host, device, out):
     import numpy as np
 
     from ..ops.csr import coo_to_csr
+    from ..parallel.collectives import agree
     from ..parallel import (
         ShardedOperator,
         build_halo_plan,
@@ -111,6 +131,7 @@ def _sharded_power(args, mesh, L, z0_host, device, out):
                      L.shape, sum_dups=False)
     parts = partition_graph(adj, args.partitions, coords=mesh.coords)
     plan = build_halo_plan(L, parts, args.partitions)
+    agree("the partition", parts, [plan.nparts, plan.n_local, plan.halo_width])
     op = ShardedOperator.from_plan(
         plan, make_device_mesh(args.partitions, [device]))
     out.update(laplacian=L, operator=op, plan=plan)

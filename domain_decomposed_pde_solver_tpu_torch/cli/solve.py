@@ -19,7 +19,7 @@ X.  The solve routes, chosen as JAX chooses them:
   ilu0/ilut (the reference's GMRES+ILUT, ``BelosMueLuSolver.cpp:92-106``)
   on an identity-layout operator;
 - ``--partitions N > 1``: the domain-decomposed solve over a halo plan
-  (``parallel/``), every part on the one device, in JAX's branch order:
+  (``parallel/``), in JAX's branch order:
   CG with the global halo AMG for ``--precond amg`` (block-Schwarz AMG if
   that build fails, then Jacobi), else CG or GMRES with Jacobi or
   Chebyshev on the partitioned operator, whose local products run on the
@@ -34,6 +34,17 @@ X.  The solve routes, chosen as JAX chooses them:
   or lattice-stencil fine levels; when no slab hierarchy fits, the halo
   route above.
 
+One process holds every part on its one device.  Under a launcher of K
+processes (``torchrun --nproc-per-node K``, or JAX's ``DDPS_COORDINATOR``
+/ ``DDPS_NUM_PROCESSES`` / ``DDPS_PROCESS_ID`` set per process), as JAX
+shards over N devices, each process joins the group and holds N / K
+parts on its own card (its local rank's; the CPU with ``--cpu``): every
+process reads, assembles and partitions the whole mesh, as every MPI
+rank of the reference does, the processes check that their partitions
+agree, and process 0 alone writes the solution file and the dumps and
+prints.  An N that K does not divide is refused on every process before
+any collective; every process returns process 0's exit code.
+
 The solve runs on the card; ``--cpu`` runs it on the CPU.  ``--x64`` is
 accepted for JAX's command lines and changes nothing (``--dtype`` sets the
 precision); ``--debug-nans`` checks the answer and its reported residual
@@ -44,11 +55,15 @@ Usage::
     python -m domain_decomposed_pde_solver_tpu_torch.cli.solve \\
         --input mesh.exo --solution solution.exo --tolerance 1e-8 \\
         --dtype float64 --precond amg --no-snapshots
+    torchrun --nproc-per-node 4 \\
+        -m domain_decomposed_pde_solver_tpu_torch.cli.solve \\
+        --input mesh.exo --solution solution.exo --partitions 8
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 from typing import Optional
@@ -91,16 +106,30 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     from ..utils.compilecache import enable_persistent_cache
 
     enable_persistent_cache()
+    from ..parallel.collectives import from_root
+    from ..parallel.multihost import launch_refusal, launched
+
+    refusal = launch_refusal(cfg.partitions)
+    if refusal:
+        print(f"error: --partitions {refusal}", file=sys.stderr)
+        return 2
+    with launched(cpu=args.cpu) as device:
+        return from_root(_run(cfg, args, device, report))
+
+
+def _run(cfg, args, device, report) -> int:
+    """The driver on ``device``, in this process of the launcher's group
+    (or alone)."""
     import torch
 
     from ..io import ExodusReadError, ExodusSolutionWriter, read_exodus
     from ..models.heat import assemble_heat_system
     from ..parallel import decompose_mesh
-    from ..utils.device import resolve_device
+    from ..parallel.collectives import max_scalar, process_rank
     from ..utils.logging import print_csr_matrix, print_vector
     from ..utils.timers import PhaseTimer
 
-    device = resolve_device("cpu" if args.cpu else None)
+    root = process_rank() == 0  # writes the files
     timer = PhaseTimer()
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
     out = {} if report is None else report
@@ -111,7 +140,9 @@ def main(argv=None, report: Optional[dict] = None) -> int:
             mesh = read_exodus(cfg.input)
         except (ExodusReadError, FileNotFoundError) as e:
             print(f"error: {e}", file=sys.stderr)
-            return 1
+            mesh = None
+    if max_scalar(mesh is None):  # every process stops if one cannot read
+        return 1
     if cfg.refine > 0:
         from ..io import refine_uniform
 
@@ -135,7 +166,7 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         f"(nnz={system.A.nnz}) from {mesh.num_nodes} nodes"
     )
 
-    if cfg.output_prefix:
+    if cfg.output_prefix and root:
         with timer.phase("debug-dumps"):
             print_csr_matrix(system.A, "Laplacian: A", cfg.output_prefix)
             print_vector(system.b, "RHS: B", cfg.output_prefix)
@@ -143,7 +174,8 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     # Solution file: mesh decomposed into max(2, nparts) partition blocks
     # (the reference hardwires the same, ``BelosMueLuSolver.cpp:210``).
     with timer.phase("decompose"):
-        out_mesh = decompose_mesh(mesh, max(2, cfg.partitions))
+        out_mesh = decompose_mesh(mesh, max(2, cfg.partitions)) if root \
+            else None
 
     # Initial X randomized like the reference (``ExodusIO.hpp:664-666``).
     rng = np.random.default_rng(cfg.seed)
@@ -161,19 +193,24 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     )
     with timer.phase("solve"):
         if cfg.partitions > 1:
-            with ExodusSolutionWriter(cfg.solution, out_mesh) as writer:
-                writer.write_boundary_timestep()
+            # Every process gathers each snapshot (a collective); process 0
+            # writes it.
+            with (ExodusSolutionWriter(cfg.solution, out_mesh) if root
+                  else contextlib.nullcontext()) as writer:
+                if writer:
+                    writer.write_boundary_timestep()
 
                 def snap(total, x_now):
-                    writer.write_solution(x_now, system.free_to_node, total)
+                    if writer:
+                        writer.write_solution(x_now, system.free_to_node,
+                                              total)
 
                 result, x_host = _solve_sharded(
                     cfg, system, x0_host, dtype, op_dims, device, timer,
                     out, snapshot_cb=snap if cfg.snapshots else None,
                 )
                 if not cfg.snapshots:
-                    writer.write_solution(x_host, system.free_to_node,
-                                          int(result.iterations))
+                    snap(int(result.iterations), x_host)
         elif (
             cfg.dtype == "float64"
             and cfg.precond == "amg"
@@ -237,7 +274,7 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         + f" in {int(result.iterations)} iterations "
         f"(achieved tolerance {float(result.relres):.6e})"
     )
-    if cfg.output_prefix:
+    if cfg.output_prefix and root:
         print_vector(np.asarray(x_host), "Solution: X", cfg.output_prefix)
     if cfg.verbose:
         print(timer.report())
@@ -320,10 +357,13 @@ def _solve_krylov(cfg, system, x0_host, dtype, op_dims, device, out_mesh,
 def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
                    snapshot_cb=None):
     """The domain-decomposed route (JAX's ``_solve_sharded``,
-    ``cli/solve.py:397-647`` there), every part on ``device``."""
+    ``cli/solve.py:397-647`` there), this process's parts on ``device``.
+    Every process takes each decision alike (``DeviceMesh.max`` of what
+    each saw) and checks that the partitions agree."""
     import torch
 
     from ..ops.csr import coo_to_csr
+    from ..parallel.collectives import agree
     from ..parallel import (
         BSGShardedOperator,
         ShardedOperator,
@@ -336,6 +376,7 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
     )
 
     nparts = cfg.partitions
+    mesh = make_device_mesh(nparts, [device])
     np_dt = np.float64 if dtype == torch.float64 else np.float32
     # Structured meshes with AMG take the slab engines (the global
     # hierarchy over z-slabs); a build that does not fit falls through to
@@ -343,7 +384,7 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
     if (cfg.precond == "amg" and cfg.solver != "gmres" and op_dims is not None
             and int(np.prod(op_dims)) == system.A.n_rows):
         routed = _solve_slab(cfg, system, x0_host, dtype, op_dims, device,
-                             timer, out)
+                             mesh, timer, out)
         if routed is not None:
             result, x_host = routed
             if snapshot_cb is not None:
@@ -360,6 +401,8 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
         parts = partition_graph(adj, nparts, coords=coords)
     with timer.phase("solve.plan"):
         plan = build_halo_plan(A, parts, nparts, dtype=np_dt)
+        agree("the partition", parts,
+              [plan.nparts, plan.n_local, plan.halo_width])
     out["plan"] = plan
     # f32 with an operator-space preconditioner: the local products run on
     # the sliced-ELL kernel (JAX's rule, with a CUDA device for its TPU).
@@ -368,7 +411,7 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
             and cfg.precond in ("none", "jacobi", "chebyshev")):
         op_cls = BSGShardedOperator
     with timer.phase("solve.operator"):
-        op = op_cls.from_plan(plan, make_device_mesh(nparts, [device]))
+        op = op_cls.from_plan(plan, mesh)
     if cfg.verbose:
         print(f"operator format: {op_cls.__name__} over {nparts} parts "
               f"(n_local {plan.n_local}, halo width {plan.halo_width})")
@@ -390,12 +433,14 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
                 from ..parallel.haloamg import build_halo_amg
 
                 halo_amg = build_halo_amg(A, plan, dtype=dtype, device=device)
-                if halo_amg is None:
+                if mesh.max(halo_amg is None):
                     from ..parallel.schwarz import build_block_amg
 
+                    halo_amg = None
                     block_amg = build_block_amg(A, plan, dtype=dtype,
-                                                device=device, mesh=op.mesh)
-                    if block_amg is None:
+                                                device=device, mesh=mesh)
+                    if mesh.max(block_amg is None):
+                        block_amg = None
                         print("warning: AMG build failed; using Jacobi")
     out.update(operator=op, precond=halo_amg or block_amg)
     with timer.phase("solve.iterate"):
@@ -455,14 +500,16 @@ def _solve_sharded(cfg, system, x0_host, dtype, op_dims, device, timer, out,
         return result, op.get_vector(result.x)
 
 
-def _solve_slab(cfg, system, x0_host, dtype, op_dims, device, timer, out):
+def _solve_slab(cfg, system, x0_host, dtype, op_dims, device, mesh, timer,
+                out):
     """The structured ``--partitions N --precond amg`` route, in JAX's
     branch order (``cli/solve.py:411-502`` there): f32 on a CUDA device
     (JAX: on a TPU) the slab-pad AMG, kernel 3 on every slab; f64 with
     f32-exact values the refinement over the slabs; else, or when those
     builds do not fit, the global AMG over slab DIA (or lattice-stencil)
-    fine levels.  Returns ``(result, x_host)``, or None when no slab
-    hierarchy fits (the caller takes the halo route)."""
+    fine levels, each over ``mesh``.  Returns ``(result, x_host)``, or None
+    when no slab hierarchy fits on some process (the caller takes the halo
+    route)."""
     import torch
 
     from ..parallel.slab import SlabStencilOperator
@@ -477,8 +524,9 @@ def _solve_slab(cfg, system, x0_host, dtype, op_dims, device, timer, out):
                  or (dtype == torch.float64 and f32_exact))
     if pad_route:
         with timer.phase("solve.precond"):
-            spamg = build_slab_pad_amg(A, op_dims, nparts, device=device)
-        if spamg is not None:
+            spamg = build_slab_pad_amg(A, op_dims, nparts, device=device,
+                                       mesh=mesh)
+        if not mesh.max(spamg is None):
             out.update(operator=spamg.A, precond=spamg,
                        plan=spamg.plan)
             if cfg.verbose:
@@ -500,8 +548,9 @@ def _solve_slab(cfg, system, x0_host, dtype, op_dims, device, timer, out):
                             relres=mr.relres, converged=mr.converged), mr.x
     np_dt = np.float64 if dtype == torch.float64 else np.float32
     with timer.phase("solve.precond"):
-        samg = build_slab_amg(A, op_dims, nparts, dtype=np_dt, device=device)
-    if samg is None:
+        samg = build_slab_amg(A, op_dims, nparts, dtype=np_dt, device=device,
+                              mesh=mesh)
+    if mesh.max(samg is None):
         return None
     out.update(precond=samg, plan=samg.plan)
     if cfg.verbose:

@@ -6,10 +6,13 @@ Two partitioning strategies:
 
 JAX runs one part per device under ``shard_map``; the port drives all P
 parts from one controller on one device (the card by default, ``--cpu``
-for the CPU), so every P runs without more devices.  Over several
-processes each holds its own parts (``parallel.initialize_multihost``).
+for the CPU), so every P runs without more devices.  Under a launcher of
+several processes each holds its own parts on its own card and process 0
+prints (``parallel.multihost.launched``).
 
 Run:  python domain_decomposed_pde_solver_tpu_torch/examples/02_multi_device.py [--cpu]
+      torchrun --nproc-per-node 2 \\
+          domain_decomposed_pde_solver_tpu_torch/examples/02_multi_device.py
 """
 
 import argparse
@@ -29,6 +32,7 @@ from domain_decomposed_pde_solver_tpu_torch.parallel import (
     sharded_cg_solve,
     slab_cg_solve,
 )
+from domain_decomposed_pde_solver_tpu_torch.parallel.multihost import launched
 
 P = 8
 
@@ -37,8 +41,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true", help="compute on the CPU")
     args = ap.parse_args(argv)
-    dmesh = make_device_mesh(P, ["cpu"] if args.cpu else None)
+    with launched(cpu=args.cpu) as device:
+        run(make_device_mesh(P, [device]))
 
+
+def run(dmesh):
     mesh = box_mesh(16, 16, 16, elem_type="TETRA4")
     system = assemble_heat_system(mesh)
     print(f"{system.n_free} DOF over {P} parts")

@@ -7,9 +7,13 @@ level is split into z-slabs (neighbour-strip halos), the brick grid
 transfers stay local to each slab, and the tiny coarse levels are
 replicated on every part.  The port drives every part from one
 controller on one device (the card by default, ``--cpu`` for the CPU),
-so every P runs.
+so every P runs; under a launcher of several processes each holds its
+own parts on its own card and process 0 prints
+(``parallel.multihost.launched``), over every P they divide.
 
 Run:  python domain_decomposed_pde_solver_tpu_torch/examples/06_distributed_amg.py [--cpu]
+      torchrun --nproc-per-node 2 \\
+          domain_decomposed_pde_solver_tpu_torch/examples/06_distributed_amg.py
 """
 
 import argparse
@@ -25,6 +29,10 @@ from domain_decomposed_pde_solver_tpu_torch.parallel import (
     make_device_mesh,
     slab_amg_cg_solve,
 )
+from domain_decomposed_pde_solver_tpu_torch.parallel.multihost import (
+    launch_refusal,
+    launched,
+)
 from domain_decomposed_pde_solver_tpu_torch.solvers import cg_solve
 from domain_decomposed_pde_solver_tpu_torch.solvers.precond.amg import (
     infer_free_grid,
@@ -36,8 +44,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true", help="compute on the CPU")
     args = ap.parse_args(argv)
-    device = "cpu" if args.cpu else None  # None: the card
+    with launched(cpu=args.cpu) as device:
+        run(device)
 
+
+def run(device):
     mesh = box_mesh(30, 30, 48, elem_type="TETRA4")
     system = assemble_heat_system(mesh)
     dims = infer_free_grid(mesh, system.free_to_node)
@@ -57,8 +68,12 @@ def main(argv=None):
 
     # The SAME hierarchy over P parts.
     for P in (2, 4, 8):
+        refusal = launch_refusal(P)
+        if refusal:
+            print(f"P={P}: not run, {refusal}")
+            continue
         samg = build_slab_amg(system.A, dims, P, device=device,
-                              mesh=make_device_mesh(P, [device] if device else None))
+                              mesh=make_device_mesh(P, [device]))
         if samg is None:
             print(f"P={P}: slab layout unavailable for these dims")
             continue

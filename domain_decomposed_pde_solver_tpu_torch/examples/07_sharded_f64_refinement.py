@@ -7,9 +7,14 @@ drives the true residual below anything a pure-f32 solve can reach -- the
 1e-8+ BASELINE accuracy metric, over P parts.  The reference has no
 distributed mixed-precision capability (``BelosMueLuSolver.cpp:87-139``
 is f64 GMRES+ILUT throughout).  The port drives every part from one
-controller on one device (the card by default, ``--cpu`` for the CPU).
+controller on one device (the card by default, ``--cpu`` for the CPU);
+under a launcher of several processes each holds its own parts on its
+own card and process 0 prints (``parallel.multihost.launched``), over
+every P they divide.
 
 Run:  python domain_decomposed_pde_solver_tpu_torch/examples/07_sharded_f64_refinement.py [--cpu]
+      torchrun --nproc-per-node 2 \\
+          domain_decomposed_pde_solver_tpu_torch/examples/07_sharded_f64_refinement.py
 """
 
 import argparse
@@ -24,6 +29,10 @@ from domain_decomposed_pde_solver_tpu_torch.parallel import (
     make_device_mesh,
     slab_pad_amg_refine_solve,
 )
+from domain_decomposed_pde_solver_tpu_torch.parallel.multihost import (
+    launch_refusal,
+    launched,
+)
 from domain_decomposed_pde_solver_tpu_torch.solvers.precond.amg import (
     infer_free_grid,
 )
@@ -33,8 +42,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true", help="compute on the CPU")
     args = ap.parse_args(argv)
-    device = "cpu" if args.cpu else None  # None: the card
+    with launched(cpu=args.cpu) as device:
+        run(device)
 
+
+def run(device):
     mesh = box_mesh(26, 26, 46, elem_type="TETRA4")
     system = assemble_heat_system(mesh)
     dims = infer_free_grid(mesh, system.free_to_node)
@@ -45,8 +57,12 @@ def main(argv=None):
     )
 
     for P in (2, 4):
+        refusal = launch_refusal(P)
+        if refusal:
+            print(f"P={P}: not run, {refusal}")
+            continue
         samg = build_slab_pad_amg(system.A, dims, P, device=device,
-                                  mesh=make_device_mesh(P, [device] if device else None))
+                                  mesh=make_device_mesh(P, [device]))
         if samg is None:
             print(f"P={P}: slab layout unavailable for these dims")
             continue

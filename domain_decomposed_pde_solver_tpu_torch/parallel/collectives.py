@@ -37,15 +37,19 @@ the host and back is explicit, and the arithmetic stays on the card.
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = [
+    "agree",
     "comm_device",
     "exchange_rows",
+    "from_root",
     "gather_parts",
     "local_card",
     "local_processes",
@@ -161,8 +165,35 @@ def ring_strips(first: torch.Tensor,
 def max_scalar(value: int) -> int:
     """The largest of every process's ``value`` (``value`` itself with one
     process)."""
-    if process_world() == 1:
-        return int(value)
-    vals = gather_parts(torch.tensor([int(value)], dtype=torch.int64,
+    return int(value) if process_world() == 1 else int(_gathered(value).max())
+
+
+def _gathered(value: int) -> torch.Tensor:
+    return gather_parts(torch.tensor([int(value)], dtype=torch.int64,
                                      device=comm_device()))
-    return int(vals.max())
+
+
+def from_root(value: int) -> int:
+    """Process 0's ``value`` on every process (``value`` itself with one
+    process): the exit code a driver's processes return alike."""
+    return int(value) if process_world() == 1 else int(_gathered(value)[0])
+
+
+def agree(what: str, *arrays) -> None:
+    """Raise ``ValueError`` on every process unless every process holds
+    the same ``arrays`` (shapes, types and bytes, as one SHA-256 digest):
+    what each process builds alike from the same input, such as a
+    partition, checked before the processes use it together.  Nothing
+    with one process."""
+    if process_world() == 1:
+        return
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(repr((a.shape, a.dtype.str)).encode())
+        h.update(a.tobytes())
+    digests = _gathered(int.from_bytes(h.digest()[:8], "little", signed=True))
+    if bool((digests != digests[0]).any()):
+        raise ValueError(
+            f"{what} differs between the processes: digests "
+            f"{[f'{int(d) & (2**64 - 1):016x}' for d in digests]}")

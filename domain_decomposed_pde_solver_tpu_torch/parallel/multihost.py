@@ -12,6 +12,11 @@ process, each over its own parts (:mod:`.collectives`):
 - :func:`initialize_multihost` -- the process group from arguments or
   JAX's ``DDPS_*`` environment variables, with the backend chosen by an
   explicit rule (:func:`choose_backend`);
+- :func:`launcher_settings`, :func:`launch_refusal` and :func:`launched`
+  -- the group a launcher
+  (torchrun, or the ``DDPS_*`` variables set per process) asks a driver
+  to join, and the driver's run in it: this process's card, process 0
+  alone printing;
 - :func:`put_global` -- this process's rows on its device: no process
   uploads data it does not own (the reference's block element
   distribution, ``ExodusIO.hpp:781-828``);
@@ -23,10 +28,11 @@ process, each over its own parts (:mod:`.collectives`):
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +43,9 @@ from .collectives import local_card, local_processes, process_rank, staged
 __all__ = [
     "choose_backend",
     "initialize_multihost",
+    "launch_refusal",
+    "launched",
+    "launcher_settings",
     "put_global",
     "multihost_slab_cg_solve",
     "save_sharded_checkpoint",
@@ -123,6 +132,83 @@ def initialize_multihost(
         "; tensors on the card are staged through host memory for every "
         "collective" if cuda and staged(torch.device("cuda")) else "")
     return dist.get_rank()
+
+
+def launcher_settings() -> Optional[Tuple[str, int, int]]:
+    """The process group a launcher asks this process to join, as
+    :func:`initialize_multihost`'s ``(coordinator_address, num_processes,
+    process_id)``, or None when the process runs alone.  JAX's
+    ``DDPS_COORDINATOR`` / ``DDPS_NUM_PROCESSES`` / ``DDPS_PROCESS_ID``
+    where ``DDPS_NUM_PROCESSES`` is set, else torchrun's
+    ``MASTER_ADDR:MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``; a count of one
+    process is None too."""
+    env = os.environ
+    if "DDPS_NUM_PROCESSES" in env:
+        names = ("DDPS_COORDINATOR", "DDPS_NUM_PROCESSES", "DDPS_PROCESS_ID")
+    elif "WORLD_SIZE" in env:
+        names = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+    else:
+        return None
+    world = int(env[names[-2]])
+    if world <= 1:
+        return None
+    missing = [k for k in names if k not in env]
+    if missing:
+        raise ValueError(f"{names[-2]}={world} without {', '.join(missing)}")
+    address = ":".join(env[k] for k in names[:-2])
+    return address, world, int(env[names[-1]])
+
+
+def launch_refusal(nparts: int) -> Optional[str]:
+    """Why a driver of ``nparts`` parts cannot run in the launcher's group
+    (:func:`launcher_settings`): a count its processes do not divide, as
+    JAX's ``_local_rows`` refuses; None when it can.  Every process finds
+    the same answer without a collective."""
+    settings = launcher_settings()
+    if settings is None or nparts % settings[1] == 0:
+        return None
+    return (f"{nparts} is not a multiple of the {settings[1]} processes: "
+            "each process holds parts / processes parts")
+
+
+@contextlib.contextmanager
+def launched(cpu: bool = False) -> Iterator[torch.device]:
+    """A driver's run, alone or in the group a launcher asks for
+    (:func:`launcher_settings`); yields the device it computes on.
+
+    Alone: the CPU with ``cpu``, else the card (``resolve_device(None)``,
+    which raises without one).  In a group of several processes: the CPU
+    with ``cpu``, else this process's card :func:`.collectives.local_card`;
+    the process joins the group (:func:`initialize_multihost`: gloo on the
+    CPU and on a shared card, NCCL with a card per process) unless it is
+    in one already, and leaves it at the end if it joined.  Only process 0
+    prints: the others' standard output is discarded for the run (their
+    errors are not)."""
+    from ..utils.device import resolve_device
+
+    settings = launcher_settings()
+    if settings is None:
+        yield resolve_device("cpu" if cpu else None)
+        return
+    address, world, rank = settings
+    if cpu:
+        device = torch.device("cpu")
+    else:
+        resolve_device(None)  # raises without a card
+        device = torch.device("cuda", local_card(rank))
+        torch.cuda.set_device(device)  # the kernels launch on this card
+    joined = not dist.is_initialized()
+    if joined:
+        initialize_multihost(address, world, rank, device=str(device))
+    try:
+        with contextlib.ExitStack() as stack:
+            if dist.get_rank():
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            yield device
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def put_global(local, mesh) -> torch.Tensor:

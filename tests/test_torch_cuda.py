@@ -9,9 +9,10 @@ the card against the CPU's iterations, and the pad-stencil kernel on the
 windows of a z-slab split (``parallel.build_slab_pad_stencil``) with the
 slab-pad AMG solve on the card against the CPU's iterations; two
 processes sharing the card over gloo (``chip_smoke.py`` phase J at a
-small size); and, with two processes emulated by threads, each part's
-sums, products and solves on a process holding k of P parts against one
-process holding all P, bit for bit.
+small size), and the CLI's ``--partitions`` routes run by two processes
+on the card (phase M at a small size); and, with two processes emulated
+by threads, each part's sums, products and solves on a process holding k
+of P parts against one process holding all P, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -1328,6 +1329,28 @@ def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
         assert r["J2"]["launches"] == r["J2"]["iterations"] + 1
         assert r["J3"]["iterations"] == run["workers"][0]["J3"]["iterations"]
     assert run["checkpoint_rows"] == [0, 1, 2, 3]
+
+
+def test_the_cli_over_two_processes_on_the_card(cuda_device, tmp_path):
+    """``chip_smoke.py`` phase M at a small size: the CLI's ``--partitions
+    4`` routes under torchrun, two processes on the card, on a refined 6^3
+    tet box (the halo AMG route, kernel 1 in each process) and a 8 x 6 x
+    92 box (the f64 refinement over four pad-stencil slabs, kernel 3 in
+    f32 and f64 in each process), each bit for bit the same command line
+    in one process; the phase's own checks fail it otherwise."""
+    import chip_smoke
+
+    run = chip_smoke.phase_m(cuda_device, cfg=dict(
+        cells=6, box=(8, 6, 92), box_exo="box8x6x92.exo",
+        m2_entries=("ddps_pad_stencil_f32", "ddps_pad_stencil_f64")),
+        out=tmp_path)  # no DIA level in this box's hierarchy
+    for tag in ("M1", "M2"):
+        for r in run[tag]["workers"]:
+            assert (r["backend"], r["device"]) == ("gloo", "cuda:0")
+            assert r["iterations"] == run[tag]["one_process"]["iterations"]
+    assert run["nccl"]["run"] == (torch.cuda.device_count() >= 2)
+    launches = chip_smoke.phase_m_launches(run, "sell_spmv")
+    assert launches["M1 rank 0"] > 0 and launches["M1 rank 1"] > 0
 
 
 # ---------------------------------------------------------------------------

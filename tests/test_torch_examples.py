@@ -1,6 +1,7 @@
 """The port's example scripts (``domain_decomposed_pde_solver_tpu_torch/
 examples/``) run on the CPU and load no JAX; 06's count does not depend
-on P; and the rule that holds two runs' printed numbers
+on P; 02 over two processes prints its one-process lines; and the rule
+that holds two runs' printed numbers
 (``chip_smoke.example_mismatches``, phase K's and
 ``test_torch_examples_jax.py``'s) catches each kind of number.
 
@@ -84,6 +85,31 @@ def test_06_count_does_not_depend_on_p():
     count at every P (one device, then P = 2, 4 and 8)."""
     its = chip_smoke.p_counts(port_output("06_distributed_amg.py"))
     assert len(its) == 4 and len(set(its)) == 1, its
+
+
+def test_02_over_two_processes_prints_its_one_process_lines(tmp_path):
+    """02 under a launcher of two processes (the ``DDPS_*`` variables, a
+    ``file://`` rendezvous): process 0 prints the one-process run's lines,
+    the same iterations and residuals, and process 1 prints nothing."""
+    script = PORT_EXAMPLES / "02_multi_device.py"
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), "--cpu"], cwd=REPO,
+        env=_env() | dict(OMP_NUM_THREADS="1",
+                          DDPS_COORDINATOR=f"file://{tmp_path / 'rdv'}",
+                          DDPS_NUM_PROCESSES="2", DDPS_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert outs[0][0] == port_output("02_multi_device.py")
+    assert outs[1][0] == ""
 
 
 @pytest.mark.parametrize("script,got,ref,ok", [

@@ -19,12 +19,19 @@ Tasks:
   on ``box_mesh(NX, NY, NZ, "TETRA4")``, then a sharded checkpoint of the
   iterate written and read back, a mesh of parts that the processes do not
   divide, and the other entry points over the process mesh (:func:`routes`).
+- ``cli ROUTES``: the drivers under a launcher (:func:`cli`); the process
+  joins a group per run itself, from the ``DDPS_*`` variables.
 """
 
+import contextlib
+import io
+import json
 import os
 import pathlib
 import subprocess
 import sys
+import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -329,16 +336,75 @@ def slab_routes(out: dict, mesh) -> None:
         out[f"slab_pad_refine_{name}_it"] = mr.inner_iterations
 
 
+def _patched(route: str, rank: int):
+    """What a route changes in process 1, to see the others fail with it:
+    ``mismatch`` swaps two parts of its partition, ``raise`` raises in
+    its halo plan's build."""
+    from domain_decomposed_pde_solver_tpu_torch import parallel
+
+    if rank != 1 or route not in ("mismatch", "raise"):
+        return contextlib.nullcontext()
+    if route == "raise":
+        return mock.patch.object(parallel, "build_halo_plan", side_effect=(
+            RuntimeError("a failure in process 1")))
+    real = parallel.partition_graph
+
+    def swapped(*a, **k):
+        parts = real(*a, **k)
+        return np.where(parts == 0, 1, np.where(parts == 1, 0, parts))
+
+    return mock.patch.object(parallel, "partition_graph", swapped)
+
+
+def cli(out: dict, routes: str) -> None:
+    """Each run of the JSON file ``routes`` (``{name: [driver, arg, ...]}``,
+    ``driver`` ``solve`` or ``matrix_test``, ``{rank}`` in an argument this
+    process's rank) through the driver's ``main``, as under a launcher: the
+    ``DDPS_*`` variables name a rendezvous file per run, and ``main`` joins
+    and leaves the group.  Keeps each run's exit code, standard output and
+    error, the exception it raised and its seconds."""
+    from domain_decomposed_pde_solver_tpu_torch.cli import matrix_test, solve
+
+    rank = int(os.environ["DDPS_PROCESS_ID"])
+    outdir = pathlib.Path(out["path"]).resolve().parent
+    for name, (driver, *argv) in json.loads(
+            pathlib.Path(routes).read_text()).items():
+        os.environ["DDPS_COORDINATOR"] = \
+            f"file://{outdir / f'cli.{name}.rendezvous'}"
+        main = {"solve": solve.main, "matrix_test": matrix_test.main}[driver]
+        stdout, stderr = io.StringIO(), io.StringIO()
+        rc, error, rep, t0 = -1, "", {}, time.perf_counter()
+        with _patched(name, rank), contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            try:
+                rc = main([a.format(rank=rank) for a in argv], report=rep)
+            except (RuntimeError, ValueError, SystemExit) as exc:
+                error = f"{type(exc).__name__}: {exc}"
+        out.update({f"{name}_rc": rc, f"{name}_stdout": stdout.getvalue(),
+                    f"{name}_precond": type(rep.get("precond")).__name__,
+                    f"{name}_stderr": stderr.getvalue(),
+                    f"{name}_error": error,
+                    f"{name}_s": time.perf_counter() - t0})
+
+
 def main(task, rank, world, url, outdir, *args) -> int:
     torch.set_num_threads(1)
     rank, world = int(rank), int(world)
-    got = initialize_multihost(url, world, rank, device="cpu", timeout_s=120)
-    assert got == rank, (got, rank)
+    joins = task != "cli"  # the drivers join a group themselves
+    if joins:
+        got = initialize_multihost(url, world, rank, device="cpu",
+                                   timeout_s=120)
+        assert got == rank, (got, rank)
+    else:
+        os.environ.update(DDPS_NUM_PROCESSES=str(world),
+                          DDPS_PROCESS_ID=str(rank))
     out = {"path": os.path.join(outdir, f"{task}.rank{rank}.npz")}
-    {"distassembly": distassembly, "slabcg": slabcg}[task](out, *args)
+    {"distassembly": distassembly, "slabcg": slabcg, "cli": cli}[task](
+        out, *args)
     path = out.pop("path")
     np.savez(path, **out)
-    torch.distributed.destroy_process_group()
+    if joins:
+        torch.distributed.destroy_process_group()
     return 0
 
 
