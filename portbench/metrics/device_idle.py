@@ -1,0 +1,9 @@
+"""Device: percent of the traced window in which no kernel, copy or fill
+runs on the card (the union of the trace's device intervals)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or t.busy_ns <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
