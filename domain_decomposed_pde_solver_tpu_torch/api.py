@@ -23,6 +23,7 @@ import torch
 from .io.mesh import MeshModel
 from .models.heat import HeatSystem, assemble_heat_system
 from .utils.device import resolve_device
+from .utils.timers import span, spanned
 
 __all__ = ["SteadyHeatSolver"]
 
@@ -46,16 +47,18 @@ class SteadyHeatSolver:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.dtype = dtype if dtype is not None else torch.float64
-        self.system: HeatSystem = assemble_heat_system(mesh)
+        with span("setup.assembly"):
+            self.system: HeatSystem = assemble_heat_system(mesh)
         # Fastest format for the mesh class, as JAX chooses: the lattice
         # stencil (f32) or DIA (f64) on lexicographic grids, the sliced-ELL
         # operator (RCM, the SpMV kernel) on unstructured meshes, which the
         # AMG hierarchy then takes as its fine level.
         self._grid_dims = infer_free_grid(mesh, self.system.free_to_node)
-        self.operator = choose_operator(
-            self.system.A, dtype=self.dtype, grid_dims=self._grid_dims,
-            bsg="auto", device=self.device,
-        )
+        with span("setup.operator"):
+            self.operator = choose_operator(
+                self.system.A, dtype=self.dtype, grid_dims=self._grid_dims,
+                bsg="auto", device=self.device,
+            )
         self._precond_kind = precond
         self._precond = self._build_precond(precond)
         self._last_x: Optional[np.ndarray] = None
@@ -88,6 +91,7 @@ class SteadyHeatSolver:
             )
         return None
 
+    @spanned("request.rhs")
     def rhs_for(self, bc: Optional[Dict[int, float]] = None) -> np.ndarray:
         """RHS for per-nodeset Dirichlet values.
 
@@ -128,6 +132,7 @@ class SteadyHeatSolver:
             )
         return vals
 
+    @spanned("request")
     def solve(
         self,
         bc: Optional[Dict[int, float]] = None,

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.timers import spanned, to_device, to_host
 from ._kernels import WARP_CHUNKS
 from .csr import CSRMatrix
 from .reorder import rcm_order
@@ -158,21 +159,23 @@ class BSGMatrix:
     def n_chunks(self) -> int:
         return int(self.tmap.numel()) if self.chunk else 0
 
+    @spanned("request.put")
     def put_vector(self, x, dtype=torch.float32) -> torch.Tensor:
         """Original-order (n,) host vector -> internal padded device vector."""
         x = torch.as_tensor(np.asarray(x), dtype=dtype)
         out = torch.zeros(self.n_pad, dtype=dtype)
         if self.perm is not None:
-            out[self.perm.cpu()] = x
+            out[to_host(self.perm)] = x
         else:
             out[: self.n_rows] = x
-        return out.to(self.device)
+        return to_device(out, self.device)
 
+    @spanned("request.get")
     def get_vector(self, xp: torch.Tensor) -> np.ndarray:
         """Internal padded device vector -> original-order (n,) host vector."""
         if self.perm is not None:
-            return xp[self.perm].cpu().numpy()
-        return xp[: self.n_rows].cpu().numpy()
+            return to_host(xp[self.perm]).numpy()
+        return to_host(xp[: self.n_rows]).numpy()
 
     def diagonal_padded(self, fill: float = 1.0) -> torch.Tensor:
         return self.diag.masked_fill(self.diag == 0, fill)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.timers import spanned, to_device, to_host
 from .csr import CSRMatrix
 
 __all__ = [
@@ -44,12 +45,14 @@ class PaddedLayout:
     methods themselves, so solvers and drivers stay format-agnostic.
     Subclasses provide ``n_pad``, ``n_rows`` and ``device``."""
 
+    @spanned("request.put")
     def put_vector(self, x, dtype=None) -> torch.Tensor:
         """Host (n,) vector -> device padded vector (input dtype kept
         unless ``dtype`` is given)."""
         return pad_vector(np.asarray(x), self.n_pad, dtype=dtype,
                           device=self.device)
 
+    @spanned("request.get")
     def get_vector(self, xp: torch.Tensor) -> np.ndarray:
         """Device padded vector -> host (n,) vector."""
         return unpad_vector(xp, self.n_rows)
@@ -159,8 +162,8 @@ def pad_vector(x: np.ndarray, n_pad: int, dtype=None,
     out = torch.zeros(n_pad, dtype=x.dtype if dtype is None else dtype)
     out[: x.numel()] = x
     dev = resolve_device(device)
-    return out.to(dev)
+    return to_device(out, dev)
 
 
 def unpad_vector(x: torch.Tensor, n: int) -> np.ndarray:
-    return x[:n].cpu().numpy()
+    return to_host(x[:n]).numpy()

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.timers import spanned, to_device, to_host
 from .stencil import StencilOperator, _pattern_field, stencil_core
 
 __all__ = [
@@ -101,13 +102,15 @@ class PadStencilOperator:
         return self.corr.device
 
     # -- host <-> device vector interface ----------------------------------
+    @spanned("request.put")
     def put_vector(self, x, dtype=torch.float32) -> torch.Tensor:
         mx, my, mz = self.dims
         x3 = torch.zeros((self.Z, self.myp, self.mxp), dtype=dtype)
         x3[1 : mz + 1, 1 : my + 1, :mx] = torch.as_tensor(
             np.asarray(x)).reshape(mz, my, mx).to(dtype)
-        return x3.reshape(-1).to(self.device)
+        return to_device(x3.reshape(-1), self.device)
 
+    @spanned("request.put")
     def put_vector_sparse(self, x, dtype=torch.float32) -> torch.Tensor:
         """Like :meth:`put_vector`, but ships only the nonzeros when the
         vector is sparse enough (a boundary-driven right-hand side)."""
@@ -116,12 +119,13 @@ class PadStencilOperator:
         if nz.size >= 0.25 * x.size:
             return self.put_vector(x, dtype)
         out = torch.zeros(self.n_pad, dtype=dtype, device=self.device)
-        slots = torch.from_numpy(self._slots(nz)).to(self.device)
-        out[slots] = torch.as_tensor(x[nz]).to(dtype).to(self.device)
+        slots = to_device(torch.from_numpy(self._slots(nz)), self.device)
+        out[slots] = to_device(torch.as_tensor(x[nz]).to(dtype), self.device)
         return out
 
+    @spanned("request.get")
     def get_vector(self, xp: torch.Tensor) -> np.ndarray:
-        return self.extract_device(xp).cpu().numpy()
+        return to_host(self.extract_device(xp)).numpy()
 
     def embed_device(self, x3_flat: torch.Tensor) -> torch.Tensor:
         """(mz*my*mx,) interior (lexicographic) -> padded space, on device."""

@@ -24,7 +24,6 @@ so the f64 residual is exact to f64 rounding.  JAX refuses to run without
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -32,6 +31,7 @@ import torch
 
 from ..solvers.cg import cg_solve
 from ..solvers.mixed import MixedSolveResult, _adaptive_inner_tol, _sync
+from ..utils.timers import host_value, span, spanned
 from .sharded import DeviceMesh
 from .slab import plan_mesh
 from .slabpadamg import SlabPadAMG
@@ -39,6 +39,7 @@ from .slabpadamg import SlabPadAMG
 __all__ = ["slab_pad_amg_refine_solve"]
 
 
+@spanned("refine")
 def slab_pad_amg_refine_solve(
     samg: SlabPadAMG,
     pad_op=None,
@@ -71,41 +72,41 @@ def slab_pad_amg_refine_solve(
     dot = plan_mesh(plan, mesh).dot
     dev = plan.device
 
-    t0 = time.perf_counter()
-    op = samg.A
-    b64 = plan.put_vector(np.asarray(b, np.float64), dtype=np.float64)
-    bnorm = float(np.linalg.norm(np.asarray(b, np.float64))) or 1.0
-    if x0 is None:
-        x64 = torch.zeros_like(b64)
-        r64 = b64  # r0 = b exactly, no product
-        relres = 1.0
-    else:
-        x64 = plan.put_vector(np.asarray(x0, np.float64), dtype=np.float64)
-        r64 = b64 - op.matvec(x64)
-        relres = float(torch.sqrt(dot(r64, r64))) / bnorm
-    _sync(dev)
+    with span("refine.stage") as stage:
+        op = samg.A
+        b64 = plan.put_vector(np.asarray(b, np.float64), dtype=np.float64)
+        bnorm = float(np.linalg.norm(np.asarray(b, np.float64))) or 1.0
+        if x0 is None:
+            x64 = torch.zeros_like(b64)
+            r64 = b64  # r0 = b exactly, no product
+            relres = 1.0
+        else:
+            x64 = plan.put_vector(np.asarray(x0, np.float64),
+                                  dtype=np.float64)
+            r64 = b64 - op.matvec(x64)
+            relres = host_value(torch.sqrt(dot(r64, r64))) / bnorm
+        _sync(dev)
 
-    t1 = time.perf_counter()
-    inner_total = 0
-    refinements = 0
-    while relres > tol and refinements < max_refinements:
-        itol = _adaptive_inner_tol(inner_tol, tol, relres)
-        rnorm = torch.sqrt(dot(r64, r64))
-        rnorm = torch.where(rnorm == 0, torch.ones_like(rnorm), rnorm)
-        r32 = (r64 / rnorm).to(torch.float32)
-        res = cg_solve(op, r32, torch.zeros_like(r32), precond=samg, tol=itol,
-                       maxiter=inner_maxiter, dot=dot)
-        x_new = x64 + res.x.to(torch.float64) * rnorm
-        r_new = b64 - op.matvec(x_new)
-        new_relres = float(torch.sqrt(dot(r_new, r_new))) / bnorm
-        inner_total += int(res.iterations)
-        refinements += 1
-        if new_relres >= relres:  # stagnation at the f32 floor
-            break
-        x64, r64, relres = x_new, r_new, new_relres
-    t2 = time.perf_counter()
-    x_host = plan.gather_vector(x64).astype(np.float64)
-    t3 = time.perf_counter()
+    with span("refine.sweeps") as sweeps:
+        inner_total = 0
+        refinements = 0
+        while relres > tol and refinements < max_refinements:
+            itol = _adaptive_inner_tol(inner_tol, tol, relres)
+            rnorm = torch.sqrt(dot(r64, r64))
+            rnorm = torch.where(rnorm == 0, torch.ones_like(rnorm), rnorm)
+            r32 = (r64 / rnorm).to(torch.float32)
+            res = cg_solve(op, r32, torch.zeros_like(r32), precond=samg,
+                           tol=itol, maxiter=inner_maxiter, dot=dot)
+            x_new = x64 + res.x.to(torch.float64) * rnorm
+            r_new = b64 - op.matvec(x_new)
+            new_relres = host_value(torch.sqrt(dot(r_new, r_new))) / bnorm
+            inner_total += int(res.iterations)
+            refinements += 1
+            if new_relres >= relres:  # stagnation at the f32 floor
+                break
+            x64, r64, relres = x_new, r_new, new_relres
+    with span("refine.fetch") as fetch:
+        x_host = plan.gather_vector(x64).astype(np.float64)
     return MixedSolveResult(
         x=x_host,
         refinements=refinements,
@@ -113,8 +114,8 @@ def slab_pad_amg_refine_solve(
         relres=relres,
         converged=relres <= tol,
         timings={
-            "stage_ms": (t1 - t0) * 1e3,
-            "sweeps_ms": (t2 - t1) * 1e3,
-            "fetch_ms": (t3 - t2) * 1e3,
+            "stage_ms": stage.ms,
+            "sweeps_ms": sweeps.ms,
+            "fetch_ms": fetch.ms,
         },
     )

@@ -5,6 +5,10 @@ stopping rule (``||r|| <= tol * ||b||``, compared in the vectors' dtype) and
 result record.  JAX runs the loop as one ``lax.while_loop`` program; here it
 is a Python loop that reads one boolean from the device per iteration (the
 stopping test).  Capturing the loop in a CUDA graph is later work.
+:func:`cg_solve_with_state` is a span ``cg`` of the recorder
+(``utils/timers.py``); each pass of its loop is a span ``cg.iter``, whose
+stopping test's read is a span ``cg.sync`` (the test before the first pass
+is one directly under ``cg``).
 
 Operators are objects with ``.matvec(x)``; preconditioners are callables.
 The dot product is injectable (``dot=``, default :func:`torch.dot`), as in
@@ -23,6 +27,8 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..utils.timers import host_value, span, to_device
 
 __all__ = [
     "CGResult",
@@ -80,33 +86,44 @@ def cg_solve_with_state(
 ):
     """Like :func:`cg_solve` but returns ``(result, (r, p, rz))`` and can
     resume from a prior state exactly."""
-    M = precond if precond is not None else IdentityPrecond()
-    bnorm = torch.sqrt(dot(b, b))
-    bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
-    target = torch.as_tensor(tol, dtype=b.dtype, device=b.device) * bnorm
+    with span("cg"):
+        M = precond if precond is not None else IdentityPrecond()
+        bnorm = torch.sqrt(dot(b, b))
+        bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
+        target = to_device(torch.tensor(tol, dtype=b.dtype), b.device) * bnorm
 
-    if state is None:
-        r = b - A.matvec(x0)
-        z = M(r)
-        p = z
-        rz = dot(r, z)
-    else:
-        r, p, rz = state
-    x = x0
-    rnorm = torch.sqrt(dot(r, r))
-    k = 0
-    while k < maxiter and bool(rnorm > target):
-        x, r, p, rz, rnorm = _cg_step(A, M, x, r, p, rz, dot)
-        k += 1
-    return (
-        CGResult(
+        if state is None:
+            r = b - A.matvec(x0)
+            z = M(r)
+            p = z
+            rz = dot(r, z)
+        else:
+            r, p, rz = state
+        x = x0
+        rnorm = torch.sqrt(dot(r, r))
+        k = 0
+        go = k < maxiter and _more(rnorm, target)
+        while go:
+            # One pass: the step and the stopping test that decides the next.
+            with span("cg.iter"):
+                x, r, p, rz, rnorm = _cg_step(A, M, x, r, p, rz, dot)
+                k += 1
+                go = k < maxiter and _more(rnorm, target)
+        result = CGResult(
             x=x,
             iterations=k,
-            relres=float(rnorm / bnorm),
-            converged=bool(rnorm <= target),
-        ),
-        (r, p, rz),
-    )
+            relres=host_value(rnorm / bnorm),
+            converged=host_value(rnorm <= target),
+        )
+    return result, (r, p, rz)
+
+
+def _more(rnorm: torch.Tensor, target: torch.Tensor) -> bool:
+    """The stopping test's device read, a span ``cg.sync``: True while the
+    residual norm is above the target."""
+    more = rnorm > target
+    with span("cg.sync"):
+        return host_value(more)
 
 
 def cg_solve_snapshots(

@@ -17,7 +17,6 @@ instantiation on the card); otherwise on the host CSR.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Optional
 
 import numpy as np
@@ -25,6 +24,7 @@ import torch
 
 from ..ops.csr import CSRMatrix
 from ..ops.dia import choose_operator
+from ..utils.timers import host_value, span, spanned
 from .cg import cg_solve
 from .precond.jacobi import DiagonalPreconditioner
 
@@ -92,7 +92,8 @@ class MixedSolveResult:
     relres: float  # f64 relative residual
     converged: bool
     # Device path only: {"stage_ms", "sweeps_ms", "fetch_ms"} — staging of
-    # b and x0, the sweep loop (the solve), the answer's copy to the host.
+    # b and x0, the sweep loop (the solve), the answer's copy to the host:
+    # the durations of the spans refine.stage, refine.sweeps, refine.fetch.
     timings: Optional[dict] = None
 
 
@@ -108,39 +109,39 @@ def _refine_device(
     """Device-resident refinement loop: one host read (the residual norm)
     per sweep; ``b_device`` lets callers stage the right-hand side once."""
     dev = A32.device
-    t0 = time.perf_counter()
-    b64 = (
-        b_device.to(torch.float64)
-        if b_device is not None
-        else A32.put_vector(b, dtype=torch.float64)
-    )
-    if x0_is_zero:
-        x64 = torch.zeros(A32.n_pad, dtype=torch.float64, device=dev)
-        r64 = b64  # r0 = b exactly
-        relres = 1.0
-    else:
-        x64 = A32.put_vector(x, dtype=torch.float64)
-        r64 = b64 - _matvec_f64(A32, x64)
-        relres = float(torch.sqrt(torch.dot(r64, r64))) / bnorm
-    _sync(dev)
-    t1 = time.perf_counter()
-    inner_total = 0
-    refinements = 0
-    while relres > tol and refinements < max_refinements:
-        x_new, r_new, rnorm_new, iters = _refine_sweep(
-            A32, M, b64, x64, r64,
-            inner_tol=_adaptive_inner_tol(inner_tol, tol, relres),
-            inner_maxiter=inner_maxiter,
+    with span("refine.stage") as stage:
+        b64 = (
+            b_device.to(torch.float64)
+            if b_device is not None
+            else A32.put_vector(b, dtype=torch.float64)
         )
-        new_relres = float(rnorm_new) / bnorm  # host read = the sync point
-        inner_total += int(iters)
-        refinements += 1
-        if new_relres >= relres:  # stagnation at the f32 floor
-            break
-        x64, r64, relres = x_new, r_new, new_relres
-    t2 = time.perf_counter()
-    x_host = np.asarray(A32.get_vector(x64), dtype=np.float64)
-    t3 = time.perf_counter()
+        if x0_is_zero:
+            x64 = torch.zeros(A32.n_pad, dtype=torch.float64, device=dev)
+            r64 = b64  # r0 = b exactly
+            relres = 1.0
+        else:
+            x64 = A32.put_vector(x, dtype=torch.float64)
+            r64 = b64 - _matvec_f64(A32, x64)
+            relres = host_value(torch.sqrt(torch.dot(r64, r64))) / bnorm
+        _sync(dev)
+    with span("refine.sweeps") as sweeps:
+        inner_total = 0
+        refinements = 0
+        while relres > tol and refinements < max_refinements:
+            x_new, r_new, rnorm_new, iters = _refine_sweep(
+                A32, M, b64, x64, r64,
+                inner_tol=_adaptive_inner_tol(inner_tol, tol, relres),
+                inner_maxiter=inner_maxiter,
+            )
+            # The host read is the sync point.
+            new_relres = host_value(rnorm_new) / bnorm
+            inner_total += int(iters)
+            refinements += 1
+            if new_relres >= relres:  # stagnation at the f32 floor
+                break
+            x64, r64, relres = x_new, r_new, new_relres
+    with span("refine.fetch") as fetch:
+        x_host = np.asarray(A32.get_vector(x64), dtype=np.float64)
     return MixedSolveResult(
         x=x_host,
         refinements=refinements,
@@ -148,13 +149,14 @@ def _refine_device(
         relres=relres,
         converged=relres <= tol,
         timings={
-            "stage_ms": (t1 - t0) * 1e3,
-            "sweeps_ms": (t2 - t1) * 1e3,
-            "fetch_ms": (t3 - t2) * 1e3,
+            "stage_ms": stage.ms,
+            "sweeps_ms": sweeps.ms,
+            "fetch_ms": fetch.ms,
         },
     )
 
 
+@spanned("refine")
 def iterative_refinement_solve(
     A: CSRMatrix,
     b: np.ndarray,

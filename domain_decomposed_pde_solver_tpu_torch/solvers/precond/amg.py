@@ -53,6 +53,7 @@ from ...ops.ell import ELLMatrix, ell_from_csr, pad_to
 from ...ops.stencil import StencilOperator
 from ...ops.stencil_kernel import PadStencilOperator
 from ...utils.device import resolve_device
+from ...utils.timers import record, spanned
 from .cheby import chebyshev_smooth
 
 __all__ = [
@@ -589,6 +590,7 @@ def _np_dtype(dtype) -> np.dtype:
     return np.dtype(str(dtype).replace("torch.", ""))
 
 
+@spanned("setup.amg")
 def smoothed_aggregation_setup(
     A: CSRMatrix,
     dtype=torch.float32,
@@ -660,11 +662,14 @@ def smoothed_aggregation_setup(
         raise ValueError(
             f"operator_format must be auto|ell, got {operator_format!r}")
     _tm = {} if timings_out is None else timings_out
-    _last = [time.perf_counter()]
+    _last = [time.time_ns()]
 
     def _mark(name):
-        now = time.perf_counter()
-        _tm[name] = _tm.get(name, 0.0) + (now - _last[0])
+        # The phase since the last mark: a child span of setup.amg, whose
+        # seconds timings_out sums by phase.
+        now = time.time_ns()
+        s = record(f"setup.amg.{name}", _last[0], now)
+        _tm[name] = _tm.get(name, 0.0) + s.seconds
         _last[0] = now
 
     use_fine_op = isinstance(fine_operator, (BSGMatrix, PadStencilOperator))

@@ -47,6 +47,7 @@ from domain_decomposed_pde_solver_tpu_torch.solvers.precond.amg import (
 from domain_decomposed_pde_solver_tpu_torch.utils.convert import (
     pad_stencil_from_parts,
 )
+from domain_decomposed_pde_solver_tpu_torch.utils.timers import RECORDER
 from torch_parity import port_csr, relerr
 
 torch.set_num_threads(1)
@@ -136,6 +137,12 @@ def test_slab_pad_amg_refine_equals_jax(start):
     r = sy.b - sy.A.matvec(mt.x)
     assert np.linalg.norm(r) <= 1.5e-8 * np.linalg.norm(sy.b)
     assert set(mt.timings) == {"stage_ms", "sweeps_ms", "fetch_ms"}
+    # The timings are the durations of the refinement's own spans.
+    spans = RECORDER.spans()
+    root = [s for s in spans if s.name == "refine"][-1]
+    phases = {s.name[len("refine."):] + "_ms": s.ms for s in spans
+              if s.parent == root.id}
+    assert mt.timings == phases
 
 
 def test_refine_argument_errors_follow_jax():
