@@ -51,9 +51,10 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.timers import spanned, to_device, to_host
+from ..utils.timers import spanned
 from ._kernels import WARP_CHUNKS
 from .csr import CSRMatrix
+from .ell import fetch_vector, stage_vector
 from .reorder import rcm_order
 
 __all__ = [
@@ -161,21 +162,23 @@ class BSGMatrix:
 
     @spanned("request.put")
     def put_vector(self, x, dtype=torch.float32) -> torch.Tensor:
-        """Original-order (n,) host vector -> internal padded device vector."""
-        x = torch.as_tensor(np.asarray(x), dtype=dtype)
-        out = torch.zeros(self.n_pad, dtype=dtype)
+        """Original-order (n,) host vector -> internal padded device vector:
+        the real entries go up (:func:`.ell.stage_vector`) and are
+        scattered by ``perm`` on the device."""
+        xd = stage_vector(x, self.device, dtype)
+        out = torch.zeros(self.n_pad, dtype=dtype, device=self.device)
         if self.perm is not None:
-            out[to_host(self.perm)] = x
+            out[self.perm] = xd
         else:
-            out[: self.n_rows] = x
-        return to_device(out, self.device)
+            out[: self.n_rows] = xd
+        return out
 
     @spanned("request.get")
     def get_vector(self, xp: torch.Tensor) -> np.ndarray:
         """Internal padded device vector -> original-order (n,) host vector."""
         if self.perm is not None:
-            return to_host(xp[self.perm]).numpy()
-        return to_host(xp[: self.n_rows]).numpy()
+            return fetch_vector(xp[self.perm])
+        return fetch_vector(xp[: self.n_rows])
 
     def diagonal_padded(self, fill: float = 1.0) -> torch.Tensor:
         return self.diag.masked_fill(self.diag == 0, fill)

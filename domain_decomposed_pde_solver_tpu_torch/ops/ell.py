@@ -23,8 +23,10 @@ __all__ = [
     "ELLMatrix",
     "PaddedLayout",
     "ell_from_csr",
+    "fetch_vector",
     "pad_to",
     "pad_vector",
+    "stage_vector",
     "unpad_vector",
 ]
 
@@ -49,8 +51,7 @@ class PaddedLayout:
     def put_vector(self, x, dtype=None) -> torch.Tensor:
         """Host (n,) vector -> device padded vector (input dtype kept
         unless ``dtype`` is given)."""
-        return pad_vector(np.asarray(x), self.n_pad, dtype=dtype,
-                          device=self.device)
+        return pad_vector(x, self.n_pad, dtype=dtype, device=self.device)
 
     @spanned("request.get")
     def get_vector(self, xp: torch.Tensor) -> np.ndarray:
@@ -156,14 +157,44 @@ def ell_from_csr(
     )
 
 
+def stage_vector(x, device, dtype=None) -> torch.Tensor:
+    """Host array -> flat tensor on ``device``, in ``dtype`` (the input's
+    when None): the put of every operator's vector, before it is laid out
+    in the operator's space on the device.
+
+    The array is copied, and converted where ``dtype`` asks, into a new
+    host buffer, page-locked when the device is a card, whence it goes up
+    asynchronously; PyTorch's caching host allocator keeps a page-locked
+    buffer for later requests and hands it out again only once its copy
+    has finished.  numpy makes the host copy: one thread, which in a
+    request costs no wake-up of PyTorch's thread pool."""
+    xs = np.asarray(x).reshape(-1)
+    dtype = torch.as_tensor(xs).dtype if dtype is None else dtype
+    device = torch.device(device)
+    buf = torch.empty(xs.shape, dtype=dtype,
+                      pin_memory=device.type == "cuda")
+    np.copyto(buf.numpy(), xs, casting="unsafe")
+    return to_device(buf, device, non_blocking=True)
+
+
+def fetch_vector(t: torch.Tensor) -> np.ndarray:
+    """Device tensor -> a new host array that the caller owns (never a
+    view of a staging buffer or of ``t``): the get of every operator's
+    vector.  From a card the copy lands in a page-locked buffer first."""
+    buf = torch.empty(t.shape, dtype=t.dtype,
+                      pin_memory=t.device.type == "cuda")
+    return to_host(t, out=buf).numpy().copy()
+
+
 def pad_vector(x: np.ndarray, n_pad: int, dtype=None,
                device=None) -> torch.Tensor:
-    x = torch.as_tensor(np.asarray(x))
-    out = torch.zeros(n_pad, dtype=x.dtype if dtype is None else dtype)
-    out[: x.numel()] = x
-    dev = resolve_device(device)
-    return to_device(out, dev)
+    """Host (n,) vector -> (n_pad,) device vector, zero-padded on the
+    device (:func:`stage_vector`)."""
+    xd = stage_vector(x, resolve_device(device), dtype)
+    out = torch.zeros(n_pad, dtype=xd.dtype, device=xd.device)
+    out[: xd.numel()] = xd
+    return out
 
 
 def unpad_vector(x: torch.Tensor, n: int) -> np.ndarray:
-    return to_host(x[:n]).numpy()
+    return fetch_vector(x[:n])

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.timers import spanned, to_device, to_host
+from ..utils.timers import spanned, to_device
+from .ell import fetch_vector, stage_vector
 from .stencil import StencilOperator, _pattern_field, stencil_core
 
 __all__ = [
@@ -104,11 +105,10 @@ class PadStencilOperator:
     # -- host <-> device vector interface ----------------------------------
     @spanned("request.put")
     def put_vector(self, x, dtype=torch.float32) -> torch.Tensor:
-        mx, my, mz = self.dims
-        x3 = torch.zeros((self.Z, self.myp, self.mxp), dtype=dtype)
-        x3[1 : mz + 1, 1 : my + 1, :mx] = torch.as_tensor(
-            np.asarray(x)).reshape(mz, my, mx).to(dtype)
-        return to_device(x3.reshape(-1), self.device)
+        """Host (mz*my*mx,) vector -> padded space: the real entries go up
+        (:func:`.ell.stage_vector`) and are padded on the device."""
+        xd = stage_vector(x, self.device, dtype)
+        return self.embed_device(xd.view(self.n_rows))
 
     @spanned("request.put")
     def put_vector_sparse(self, x, dtype=torch.float32) -> torch.Tensor:
@@ -125,7 +125,7 @@ class PadStencilOperator:
 
     @spanned("request.get")
     def get_vector(self, xp: torch.Tensor) -> np.ndarray:
-        return to_host(self.extract_device(xp)).numpy()
+        return fetch_vector(self.extract_device(xp))
 
     def embed_device(self, x3_flat: torch.Tensor) -> torch.Tensor:
         """(mz*my*mx,) interior (lexicographic) -> padded space, on device."""

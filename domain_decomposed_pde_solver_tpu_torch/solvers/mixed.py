@@ -103,11 +103,12 @@ def _sync(device: torch.device) -> None:
 
 
 def _refine_device(
-    A32, b, x, bnorm, M, *, tol, inner_tol, inner_maxiter, max_refinements,
-    b_device=None, x0_is_zero=False,
+    A32, b, x0, bnorm, M, *, tol, inner_tol, inner_maxiter, max_refinements,
+    b_device=None,
 ) -> MixedSolveResult:
     """Device-resident refinement loop: one host read (the residual norm)
-    per sweep; ``b_device`` lets callers stage the right-hand side once."""
+    per sweep; ``b_device`` lets callers stage the right-hand side once.
+    ``x0`` (None: zero) is staged as it is, never written to."""
     dev = A32.device
     with span("refine.stage") as stage:
         b64 = (
@@ -115,12 +116,12 @@ def _refine_device(
             if b_device is not None
             else A32.put_vector(b, dtype=torch.float64)
         )
-        if x0_is_zero:
+        if x0 is None:
             x64 = torch.zeros(A32.n_pad, dtype=torch.float64, device=dev)
             r64 = b64  # r0 = b exactly
             relres = 1.0
         else:
-            x64 = A32.put_vector(x, dtype=torch.float64)
+            x64 = A32.put_vector(x0, dtype=torch.float64)
             r64 = b64 - _matvec_f64(A32, x64)
             relres = host_value(torch.sqrt(torch.dot(r64, r64))) / bnorm
         _sync(dev)
@@ -187,7 +188,6 @@ def iterative_refinement_solve(
     path only)."""
     n = A.n_rows
     b = np.asarray(b, dtype=np.float64)
-    x = np.zeros(n) if x0 is None else np.asarray(x0, dtype=np.float64).copy()
     bnorm = float(np.linalg.norm(b)) or 1.0
 
     A32 = (operator if operator is not None
@@ -201,12 +201,13 @@ def iterative_refinement_solve(
         device_residual = _stencil_like(A32) and _f32_exact(A)
     if device_residual:
         return _refine_device(
-            A32, b, x, bnorm, M,
+            A32, b, x0, bnorm, M,
             tol=tol, inner_tol=inner_tol, inner_maxiter=inner_maxiter,
             max_refinements=max_refinements, b_device=b_device,
-            x0_is_zero=x0 is None,
         )
 
+    # The host loop returns its iterate: a copy, never the caller's x0.
+    x = np.zeros(n) if x0 is None else np.array(x0, dtype=np.float64)
     inner_total = 0
     refinements = 0
     relres = float(np.linalg.norm(b - A.matvec(x))) / bnorm

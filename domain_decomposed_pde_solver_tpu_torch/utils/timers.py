@@ -17,7 +17,8 @@ events with it as without it.
   so nothing is counted twice up the tree.  Counting launches no work and
   synchronises nothing (bytes come from ``numel() * element_size()``).
   The counters the port keeps: ``h2d_bytes`` and ``d2h_bytes``, each copy
-  between the host and a card (:func:`to_device`, :func:`to_host`), and
+  between the host and a card (:func:`to_device`, :func:`to_host`), of
+  which ``pinned_bytes`` those whose host side is page-locked, and
   ``host_syncs``, each blocking read of a device value by the host
   (:func:`to_host`, :func:`host_value`), counted at the call on the CPU
   too, where nothing waits.
@@ -237,22 +238,33 @@ def spanned(name: str):
     return wrap
 
 
-def to_device(t: torch.Tensor, device) -> torch.Tensor:
-    """``t.to(device)``; a copy from the host to a card adds its bytes to
-    ``h2d_bytes``."""
-    out = t.to(device)
+def to_device(t: torch.Tensor, device, non_blocking: bool = False
+              ) -> torch.Tensor:
+    """``t.to(device, non_blocking=...)``; a copy from the host to a card
+    adds its bytes to ``h2d_bytes``, and to ``pinned_bytes`` when ``t`` is
+    page-locked."""
+    out = t.to(device, non_blocking=non_blocking)
     if t.device.type == "cpu" and out.device.type != "cpu":
-        count("h2d_bytes", t.numel() * t.element_size())
+        n = t.numel() * t.element_size()
+        count("h2d_bytes", n)
+        if t.is_pinned():
+            count("pinned_bytes", n)
     return out
 
 
-def to_host(t: torch.Tensor) -> torch.Tensor:
-    """``t.cpu()``, a blocking read: one ``host_syncs``, and the bytes to
-    ``d2h_bytes`` when ``t`` is on a card."""
+def to_host(t: torch.Tensor, out: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """``t.cpu()``, or ``out.copy_(t)`` into the host tensor ``out``: a
+    blocking read, one ``host_syncs``, and the bytes to ``d2h_bytes`` when
+    ``t`` is on a card (and to ``pinned_bytes`` when ``out`` is
+    page-locked)."""
     count("host_syncs")
     if t.device.type != "cpu":
-        count("d2h_bytes", t.numel() * t.element_size())
-    return t.cpu()
+        n = t.numel() * t.element_size()
+        count("d2h_bytes", n)
+        if out is not None and out.is_pinned():
+            count("pinned_bytes", n)
+    return t.cpu() if out is None else out.copy_(t)
 
 
 def host_value(t: torch.Tensor):

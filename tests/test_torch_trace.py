@@ -8,7 +8,9 @@ set-up (whose ``timings_out`` are its child spans'), of ``PhaseTimer`` and
 in ``trace_to``'s file.
 
 The ``cuda`` cases count the bytes of one put and one get of a sliced-ELL
-and a pad-stencil operator on the card; they skip without one.  The file
+and a pad-stencil operator on the card, and check that back-to-back puts
+and fetches through page-locked buffers keep their own data; they skip
+without one.  The file
 imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_trace.py
@@ -30,6 +32,10 @@ from domain_decomposed_pde_solver_tpu_torch import SteadyHeatSolver
 from domain_decomposed_pde_solver_tpu_torch.io import box_mesh, refine_uniform
 from domain_decomposed_pde_solver_tpu_torch.models import structured
 from domain_decomposed_pde_solver_tpu_torch.ops.bsg import BSGMatrix
+from domain_decomposed_pde_solver_tpu_torch.ops.ell import (
+    fetch_vector,
+    stage_vector,
+)
 from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
     pad_stencil_from_parts,
 )
@@ -233,9 +239,10 @@ def test_one_solve_records_its_tree(solver):
 
 
 def test_host_syncs_are_what_the_loop_and_the_fetches_read(solver):
-    """Per solve: each put's fetch of the permutation, each stopping test,
-    the residual and the verdict read as host values, the answer's fetch;
-    on the CPU no byte crosses between host and card."""
+    """Per solve: each stopping test, the residual and the verdict read as
+    host values, the answer's fetch (a put reads nothing back: its
+    permutation is applied on the device); on the CPU no byte crosses
+    between host and card."""
     _u, res = solver.solve(bc={100: 200.0, 1000: 800.0}, tol=1e-6,
                            maxiter=200)
     spans = RECORDER.spans()
@@ -246,10 +253,10 @@ def test_host_syncs_are_what_the_loop_and_the_fetches_read(solver):
         if s.counts:
             syncs[s.name] = syncs.get(s.name, 0) + s.counts.get(
                 "host_syncs", 0)
-            assert "h2d_bytes" not in s.counts and "d2h_bytes" not in s.counts
+            assert not {"h2d_bytes", "d2h_bytes", "pinned_bytes"} & set(
+                s.counts)
     k = res.iterations
-    assert syncs == {"request.put": 2, "cg.sync": k + 1, "cg": 2,
-                     "request.get": 1}
+    assert syncs == {"cg.sync": k + 1, "cg": 2, "request.get": 1}
 
 
 def test_a_solve_that_stops_at_maxiter_reads_no_test_after_the_last_pass(
@@ -393,6 +400,8 @@ def _counts_of(fn):
 
 @pytest.mark.cuda
 def test_bsg_put_and_get_bytes_on_the_card(card):
+    """A put uploads the n real entries through a page-locked buffer and
+    scatters them on the card: no fetch of the permutation, no sync."""
     mesh = refine_uniform(box_mesh(6, 6, 6, "TETRA4"), 1)
     s = SteadyHeatSolver(mesh, dtype=torch.float32, device=card)
     A = s.operator
@@ -400,24 +409,53 @@ def test_bsg_put_and_get_bytes_on_the_card(card):
     n = A.n_rows
     b = s.rhs_for(BC)
     xd, put = _counts_of(lambda: A.put_vector(b, dtype=torch.float32))
-    assert put == {"h2d_bytes": A.n_pad * 4, "d2h_bytes": n * 8,
-                   "host_syncs": 1}
+    assert put == {"h2d_bytes": n * 4, "pinned_bytes": n * 4}
     x, get = _counts_of(lambda: A.get_vector(xd))
-    assert get == {"d2h_bytes": n * 4, "host_syncs": 1}
+    assert get == {"d2h_bytes": n * 4, "pinned_bytes": n * 4,
+                   "host_syncs": 1}
     np.testing.assert_array_equal(x, b.astype(np.float32))
 
 
 @pytest.mark.cuda
 def test_pad_stencil_put_and_get_bytes_on_the_card(card):
+    """A put uploads the real entries through a page-locked buffer and
+    pads them on the card."""
     n = 12
     sy = structured.structured_box_system(n, n, n)
     parts = structured.structured_box_parts(n, n, n, device=card)
     A = pad_stencil_from_parts(parts["parts"], device=card)
     xd, put = _counts_of(lambda: A.put_vector(sy.b, dtype=torch.float32))
-    assert put == {"h2d_bytes": A.n_pad * 4}
+    assert put == {"h2d_bytes": sy.n_free * 4, "pinned_bytes": sy.n_free * 4}
     x, get = _counts_of(lambda: A.get_vector(xd))
-    assert get == {"d2h_bytes": sy.n_free * 4, "host_syncs": 1}
+    assert get == {"d2h_bytes": sy.n_free * 4, "pinned_bytes": sy.n_free * 4,
+                   "host_syncs": 1}
     np.testing.assert_array_equal(x, sy.b.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_back_to_back_puts_and_fetches_keep_their_own_buffers(card):
+    """Puts made one after the other with no sync between them, as the
+    refinement stages b and then x0, each land their own input; an answer
+    already fetched does not change with the next fetch."""
+    n = 12
+    parts = structured.structured_box_parts(n, n, n, device=card)
+    A = pad_stencil_from_parts(parts["parts"], device=card)
+    rng = np.random.default_rng(11)
+    xs = [rng.uniform(-1, 1, A.n_rows) for _ in range(2)]
+    ds = [A.put_vector(x, dtype=torch.float64) for x in xs]
+    # Large flat vectors as well, so that a buffer reused before its copy
+    # had finished would show.
+    big = [rng.uniform(-1, 1, 1 << 22) for _ in range(4)]
+    bigd = [stage_vector(x, card, torch.float64) for x in big]
+    got = [A.get_vector(d) for d in ds]
+    for x, g in zip(xs, got):
+        np.testing.assert_array_equal(g, x)
+    for x, d in zip(big, bigd):
+        np.testing.assert_array_equal(fetch_vector(d), x)
+    again = A.get_vector(ds[1])
+    np.testing.assert_array_equal(got[0], xs[0])
+    np.testing.assert_array_equal(again, xs[1])
+    assert not np.shares_memory(again, got[1])
 
 
 @pytest.mark.cuda
