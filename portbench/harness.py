@@ -18,7 +18,9 @@ A run: set-up (the program's build and the kernels' load, counted in
 shapes, then a closed loop of requests for ``seconds``: one caller, the
 next request sent when the last answer is a host array.  Once the window
 has closed, the peak device memory is read, the program's state freed,
-and the reference judges a sample of the answers drawn from the seed.
+and the reference judges a sample of the answers drawn from the seed.  A
+cell on several cards runs this in step in one process per card
+(``group.py``); rank 0 judges and reports.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from . import traffic as traffic_mod
-from .tracing import Spans, mark_fine, profiler, reduce_trace, top
+from .tracing import (Spans, mark_fine, profiler, reduce_device,
+                      reduce_trace, top)
 
 PKG = pathlib.Path(__file__).resolve().parent
 ROOT = PKG.parent
@@ -189,10 +192,36 @@ class RunRecord:
     fine: Dict[str, str]  # metric family -> kernel whose launches it reads
     facts: Dict[str, int]  # the reference's own counts: n_free, nnz
     peak_bytes_per_s: Optional[float]
+    failed: frozenset = frozenset()  # records unconverged or over the limit
 
 
 def p95(values) -> float:
     return float(np.percentile(np.asarray(values, dtype=np.float64), 95))
+
+
+def answer_rate(run: RunRecord) -> float:
+    """Answers that came right, over the window's whole length."""
+    return (len(run.records) - len(run.failed)) / run.window_s
+
+
+def answer_p95(run: RunRecord) -> float:
+    """95th percentile of every request's time, a failed request counted
+    as the window's longest."""
+    times = [r.ms for r in run.records]
+    worst = max(times)
+    return p95([worst if i in run.failed else t
+                for i, t in enumerate(times)])
+
+
+# End-to-end metrics on the host's clock, taken by the harness itself; any
+# other end-to-end metric has a reader of its own, as per-layer ones do.
+HOST_CLOCK = {"answers_per_s": answer_rate, "answer_ms_p95": answer_p95}
+
+
+def device_timed(cell: Cell) -> bool:
+    """Whether the cell has an end-to-end metric read from the device's
+    trace, so that its untraced runs record the device's work too."""
+    return any(m["source"] == "device_trace" for m in cell.end_to_end)
 
 
 def _sync(device) -> None:
@@ -237,10 +266,16 @@ def warm_up(session, mix: dict, seed: int, count: int):
 
 
 def closed_loop(session, mix: dict, seed: int, seconds: float,
-                spans: Spans, sample: Sample):
+                spans: Spans, sample: Optional[Sample], side=None):
     """The measured window: requests one after the other until
     ``seconds`` have passed at the end of one, the answers offered to
-    ``sample``.  Returns the records and the window's length."""
+    ``sample``.  Returns the records and the window's length.
+
+    Across cards (``side``, a ``group.SideGroup``) every rank sends the
+    same requests in step; rank 0 alone keeps the records and the sample
+    (the others pass ``sample=None`` and keep none) and decides when the
+    window has ended, which the side group tells every rank after each
+    answer, in the ``client`` span."""
     reqs = traffic_mod.requests(mix, seed, traffic_mod.WINDOW)
     records: List[Record] = []
     with spans.span("window"):
@@ -253,10 +288,16 @@ def closed_loop(session, mix: dict, seed: int, seconds: float,
             with spans.span("request"):
                 ans = session.request(temps)
             t1 = time.perf_counter()
-            records.append(Record(temps, (t1 - t0) * 1e3, ans.solve_ms,
-                                  ans.copy_ms, ans.iterations, ans.converged))
-            sample.offer(len(records) - 1, ans.x, ans.iterations)
-            if t1 - w0 >= seconds:
+            ended = t1 - w0 >= seconds
+            if sample is not None:
+                records.append(Record(temps, (t1 - t0) * 1e3, ans.solve_ms,
+                                      ans.copy_ms, ans.iterations,
+                                      ans.converged))
+                sample.offer(len(records) - 1, ans.x, ans.iterations)
+            if side is not None:
+                with spans.span("client"):
+                    ended = side.ended(ended)
+            if ended:
                 return records, t1 - w0
 
 
@@ -270,45 +311,100 @@ def judge(ref, records: List[Record], sample: "Sample",
 
 
 class MissingMetrics(RuntimeError):
-    """A per-layer metric listed for the cell read nothing."""
+    """A metric listed for the cell read nothing."""
 
 
 def read_per_layer(cell: Cell, run: RunRecord, root: pathlib.Path,
-                   required: bool) -> dict:
-    """The cell's per-layer metrics from their readers.  A reader that
-    finds nothing returns None and its metric is left out; where
-    ``required`` (a traced run on the card), that fails the run, naming
-    the metrics on standard error."""
+                   required: bool, listed=None) -> dict:
+    """The cell's per-layer metrics (or the ``listed`` ones) from their
+    readers.  A reader that finds nothing returns None and its metric is
+    left out; where ``required`` (a traced run on the card), that fails
+    the run, naming the metrics on standard error."""
     metrics, missing = {}, []
-    for m in cell.per_layer:
+    for m in cell.per_layer if listed is None else listed:
         v = load_reader(m["name"], root)(run)
         if v is None:
             missing.append(m["name"])
         else:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     if missing and required:
-        log(f"per-layer metrics listed for {cell.name} read nothing: "
+        log(f"metrics listed for {cell.name} read nothing: "
             + ", ".join(missing))
         raise MissingMetrics(", ".join(missing))
     return metrics
 
 
+def card_report(device, mem_peak: int, tr) -> dict:
+    """What one rank's card did, for :func:`merge_devices`: its kind and
+    index, its peak memory and, in a traced run, its trace's busy time and
+    window."""
+    import torch
+
+    rep = {"kind": torch.cuda.get_device_name(device)
+           if device.type == "cuda" else "cpu",
+           "index": device.index, "memory_peak_bytes": int(mem_peak)}
+    if tr is not None:
+        rep["busy_s"] = tr.busy_s
+        rep["window_s"] = tr.window_s
+    return rep
+
+
+def merge_devices(reports: List[dict]) -> dict:
+    """The result's ``device`` from every rank's :func:`card_report`, in
+    rank order.  ``count`` is the number of distinct cards whose peak
+    memory is above zero, so a card that did no work is not counted;
+    ``memory_peak_bytes`` is the fullest card's; ``busy_s`` and
+    ``window_s``, where every rank traced its window, are means over the
+    ranks, so that their ratio is the mean busy share.  The per-rank
+    values stand beside them.  Cards of different kinds raise
+    ``ValueError``."""
+    kinds = sorted({r["kind"] for r in reports})
+    if len(kinds) != 1:
+        raise ValueError(f"the ranks ran on cards of different kinds: "
+                         f"{kinds}")
+    peaks = [r["memory_peak_bytes"] for r in reports]
+    dev = {"platform": "cpu" if kinds[0] == "cpu" else "gpu",
+           "kind": kinds[0],
+           "count": len({r["index"] for r in reports
+                         if r["memory_peak_bytes"] > 0}),
+           "memory_peak_bytes": max(peaks),
+           "memory_peak_bytes_per_card": peaks}
+    if all("busy_s" in r for r in reports):
+        busy = [r["busy_s"] for r in reports]
+        dev["busy_s"] = sum(busy) / len(busy)
+        dev["window_s"] = sum(r["window_s"] for r in reports) / len(reports)
+        dev["busy_s_per_card"] = busy
+    return dev
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
-             t_start: float, root: pathlib.Path = ROOT) -> dict:
-    """One run of ``cell``; returns the result's line as a dict."""
+             t_start: float, root: pathlib.Path = ROOT,
+             side=None) -> Optional[dict]:
+    """One run of ``cell``; returns the result's line as a dict.
+
+    Across cards (``side``, a ``group.SideGroup``) every rank runs this in
+    step on its own device: the same set-up, warm-up and requests.  Rank 0
+    alone logs, keeps the records and ends the window (:func:`closed_loop`);
+    once every rank has freed its card and sent its :func:`card_report`,
+    rank 0 judges and returns the line, whose ``device`` merges the
+    reports, and the others return None."""
     import torch
 
     from .reference.heat import reference_for
 
     device = torch.device(device)
     cuda = device.type == "cuda"
+    lead = side is None or side.rank == 0
     spans = Spans(tracing=trace and cuda)
+    # An untraced run of a cell with an end-to-end metric from the device's
+    # trace records the device's work alone, with no host events.
+    light = not trace and cuda and device_timed(cell)
     with spans.span("kernels"):
         device = open_device(device)
     session = open_session(cell, device, spans)
     with spans.span("warmup"):
         last = warm_up(session, cell.traffic, seed, WARMUP_REQUESTS)
-        sample = Sample(CHECK_SAMPLE, seed, last.x)
+        sample = Sample(CHECK_SAMPLE, seed, last.x) if lead else None
         fine = {}
         if spans.tracing:
             for kind, kernel, op in session.fine_operators():
@@ -316,26 +412,43 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                 fine[kind] = kernel
             with profiler():  # the profiler's own first start
                 warm_up(session, cell.traffic, seed, 1)
+        elif light:
+            with profiler(("cuda",)):
+                warm_up(session, cell.traffic, seed, 1)
         _sync(device)
+        if side is not None:
+            side.barrier()
     setup_s = time.perf_counter() - t_start
     setup_spans = dict(spans.totals)
-    log(f"set-up {setup_s:.3f} s: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in spans.totals.items()))
+    if lead:
+        log(f"set-up {setup_s:.3f} s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in spans.totals.items()))
 
-    prof = profiler() if spans.tracing else contextlib.nullcontext()
+    prof = (profiler() if spans.tracing else profiler(("cuda",)) if light
+            else contextlib.nullcontext())
     with prof as p:
         records, window_s = closed_loop(session, cell.traffic, seed,
-                                        seconds, spans, sample)
+                                        seconds, spans, sample, side)
+        if light:
+            _sync(device)
     mem_peak = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
-    tr = None
+    tr = dev_tr = None
     if spans.tracing:
         t0 = time.perf_counter()
         tr = reduce_trace(p)
-        log(f"trace: {len(tr.kernels) if tr else 0} kernels in the window, "
+    elif light:
+        t0 = time.perf_counter()
+        dev_tr = reduce_device(p)
+        if lead and dev_tr is not None:
+            log(f"device trace: busy {dev_tr.busy_s:.4f} s of "
+                f"{dev_tr.window_s:.4f} s, reduced in "
+                f"{time.perf_counter() - t0:.3f} s")
+    if tr is not None and lead:
+        log(f"trace: {len(tr.kernels)} kernels in the window, "
             f"reduced in {time.perf_counter() - t0:.3f} s")
         for kind, kernel in fine.items():
             ks = [k.seconds for k, _s in tr.launched_in(f"fine.{kind}.",
-                                                        kernel)] if tr else []
+                                                        kernel)]
             med = float(np.median(ks)) if ks else 0.0
             log(f"{kind}: {len(ks)} launches of {kernel} inside the fine "
                 f"operator's products, device ms min/median/max "
@@ -345,12 +458,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                    if ks else "-"))
 
     # The program's state goes before the reference runs.
-    ref_mesh = session.reference_mesh()
+    ref_mesh = session.reference_mesh() if lead else None
     session.close()
     del session
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    reports = [card_report(device, mem_peak, tr)]
+    if side is not None:
+        reports = side.finish(reports[0])
+        if not lead:
+            return None
     t0 = time.perf_counter()
     ref = reference_for(cell.config, mesh=ref_mesh, device=device)
     checked = judge(ref, records, sample)
@@ -369,33 +487,30 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     }
     correct = not failed and relres_max <= limit
 
-    times = [r.ms for r in records]
-    worst = max(times)
-    times = [worst if i in failed else t for i, t in enumerate(times)]
-    run = RunRecord(cell, records, window_s, setup_spans, tr, fine,
-                    {"n_free": int(ref.n_free), "nnz": int(ref.nnz)}, None)
+    dev = merge_devices(reports)
+    run = RunRecord(cell, records, window_s, setup_spans,
+                    tr if trace else dev_tr, fine,
+                    {"n_free": int(ref.n_free), "nnz": int(ref.nnz)},
+                    peak_bytes_per_s(dev["kind"]) if cuda else None,
+                    frozenset(failed))
     result = {"correct": bool(correct), "attempted": len(records),
               "failed": len(failed)}
-    if cuda:
-        kind = torch.cuda.get_device_name(device)
-        run.peak_bytes_per_s = peak_bytes_per_s(kind)
-        dev = {"platform": "gpu", "kind": kind, "count": 1,
-               "memory_peak_bytes": mem_peak}
-    else:
-        dev = {"platform": "cpu", "kind": "cpu", "count": 1,
-               "memory_peak_bytes": 0}
     metrics = {}
     if not trace:
-        values = {"answers_per_s": (len(records) - len(failed)) / window_s,
-                  "answer_ms_p95": p95(times), "setup_s": setup_s}
+        own = [m for m in cell.end_to_end
+               if m["name"] != "setup_s" and m["name"] not in HOST_CLOCK]
+        read = read_per_layer(cell, run, root, required=cuda, listed=own)
         for m in cell.end_to_end:
-            metrics[m["name"]] = {"value": values[m["name"]],
-                                  "unit": m["unit"]}
+            name = m["name"]
+            v = (setup_s if name == "setup_s" else HOST_CLOCK[name](run)
+                 if name in HOST_CLOCK else None)
+            if v is not None:
+                metrics[name] = {"value": v, "unit": m["unit"]}
+            elif name in read:
+                metrics[name] = read[name]
     else:
         metrics = read_per_layer(cell, run, root, required=spans.tracing)
         if tr is not None:
-            dev["busy_s"] = tr.busy_s
-            dev["window_s"] = tr.window_s
             result["breakdown"] = {"device_ops": top(tr.device_ops),
                                    "idle_gaps": top(tr.idle_by_span)}
     result["metrics"] = metrics

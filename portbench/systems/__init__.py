@@ -15,6 +15,16 @@ one request at a time and keeps its warm start between requests:
 - ``close()``: drops every reference to the program's state.
 
 Temperatures are a dict from nodeset id to value.
+
+A cell on several cards runs one process per card (``portbench/group.py``),
+each a rank of the program's group (``torch.distributed``, joined before
+``setup``).  ``setup`` runs on every rank, on that rank's device.
+``prepare`` and ``request`` are called in step on every rank, with the
+same temperatures; a request may run the program's collectives.  The
+answer's ``x`` is the whole host answer on rank 0 and may be None on the
+others; ``iterations`` and ``converged`` hold on every rank.
+``fine_operators`` and ``close`` run on every rank; ``reference_mesh``,
+and the judging of the answers, on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ __all__ = ["Answer"]
 
 @dataclasses.dataclass
 class Answer:
-    x: np.ndarray  # the answer on the free nodes, host array
+    x: Optional[np.ndarray]  # the answer on the free nodes, host array
     iterations: int  # CG iterations (summed over sweeps for refinement)
     converged: bool
     # Milliseconds of the request spent in the solver's iterations, where

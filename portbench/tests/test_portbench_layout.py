@@ -34,6 +34,49 @@ def tiny_root(tmp_path, tet=(6, 6, 6), box=26):
     return root
 
 
+def multicard_root(tmp_path, chips, cells=8):
+    """A checkout's benchmark files (:func:`tiny_root`) with one more cell,
+    ``slab_box.slab`` on ``chips`` cards, for the harness's tests alone:
+    its system module (``slab_session.py`` beside this file) drives the
+    port's slab CG across processes on a box of ``cells`` cubed cells, one
+    slab per rank, f64 Jacobi-CG to 1e-10."""
+    root = tiny_root(tmp_path)
+    pb = root / "portbench"
+    shutil.copy(pathlib.Path(__file__).parent / "slab_session.py",
+                pb / "systems" / "slab_session.py")
+    faces = {"100": "x = 0 face", "1000": "x = 1 face"}
+    (pb / "configs" / "slab_box.json").write_text(json.dumps({
+        "system": "slab_session",
+        "mesh": {"kind": "box_tet4_lattice", "cells": [cells] * 3,
+                 "nodesets": faces}}))
+    (pb / "traffic" / "slab.json").write_text(json.dumps({
+        "loop": "closed", "clients": 1, "entry": "slab_cg",
+        "temperatures": {"100": [100, 1000], "1000": [100, 1000]},
+        "tol": 1e-10, "maxiter": 2000}))
+    (pb / "cells" / "slab_box.slab.json").write_text(json.dumps({
+        "relres_limit": 1e-8, "control": {"kind": "round_float16"}}))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "slab_box", "source": "a test",
+                            "file": "portbench/configs/slab_box.json",
+                            "reduced": [], "why": "a test"})
+    spec["workloads"].append({"name": "slab_box.slab", "config": "slab_box",
+                              "traffic": "slab", "chips": chips,
+                              "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return root
+
+
+def chips_refused(workloads) -> list:
+    """What breaks the rule the driver holds cells to: ``chips`` is 1 or
+    4, and at most max(1, a quarter of the cells rounded down) ask for 4."""
+    bad = [f"{w['name']} on {w['chips']} cards" for w in workloads
+           if w["chips"] not in (1, 4)]
+    fours = sum(w["chips"] == 4 for w in workloads)
+    if fours > max(1, len(workloads) // 4):
+        bad.append(f"{fours} of {len(workloads)} cells on 4 cards")
+    return bad
+
+
 def test_benchmark_json_keys_and_names():
     assert set(SPEC) == {"command", "paths", "run_seconds", "configs",
                          "workloads", "end_to_end", "per_layer"}
@@ -47,14 +90,16 @@ def test_benchmark_json_keys_and_names():
         names.append(c["name"])
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert len(w["why"]) <= 200
         names += [w["name"], w["traffic"]]
+    assert not chips_refused(SPEC["workloads"])
     e2e = {m["name"] for m in SPEC["end_to_end"]}
     assert "setup_s" in e2e
     for m in SPEC["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source",
                           "workloads"}
-        assert 0.01 <= m["bound"] <= 0.25 and m["source"] == "host_clock"
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
     for m in SPEC["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
@@ -83,8 +128,31 @@ def test_every_cell_finds_its_files(cell):
     assert c.limits["relres_limit"] > 0 and c.limits["control"]["kind"]
     assert any(m["name"] == "setup_s" for m in c.end_to_end)
     assert len(c.end_to_end) >= 2 and c.per_layer
+    e2e = {m["name"] for m in c.end_to_end}
     for m in c.per_layer:
         assert callable(harness.load_reader(m["name"], ROOT))
+        assert m["moves"] in e2e  # each cell reports what its metrics move
+    for m in c.end_to_end:  # the harness's own, or a reader of its own
+        assert m["name"] == "setup_s" or m["name"] in harness.HOST_CLOCK \
+            or callable(harness.load_reader(m["name"], ROOT))
+
+
+@pytest.mark.parametrize("chips", [4, 2, 8])
+def test_a_throwaway_multicard_cell_under_the_chips_rule(tmp_path, chips):
+    root = multicard_root(tmp_path, chips)
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    assert bool(chips_refused(spec["workloads"])) == (chips != 4)
+    cell = harness.load_cell("slab_box.slab", root)
+    assert cell.chips == chips and cell.config["system"] == "slab_session"
+
+
+@pytest.mark.parametrize("cells,fours,refused", [
+    (3, 1, False), (4, 2, True), (8, 2, False), (8, 3, True), (24, 6, False),
+    (24, 7, True)])
+def test_at_most_a_quarter_of_the_cells_on_four_cards(cells, fours, refused):
+    wl = [{"name": f"c{i}", "chips": 4 if i < fours else 1}
+          for i in range(cells)]
+    assert bool(chips_refused(wl)) == refused
 
 
 def test_traffic_is_seeded_and_uniform():

@@ -35,8 +35,11 @@ def test_last_line_shape(root, cell, capsys):
     assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 1
     assert list(out)[:3] == ["correct", "attempted", "failed"]
     assert list(out)[-1] == "checks"
-    assert set(out["metrics"]) == {"answers_per_s", "answer_ms_p95",
-                                   "setup_s"}
+    c = harness.load_cell(cell, root)
+    # the CPU has no trace: an end-to-end metric from the device's is left out
+    assert set(out["metrics"]) == {m["name"] for m in c.end_to_end
+                                   if m["source"] == "host_clock"}
+    assert "setup_s" in out["metrics"]
     for m in out["metrics"].values():
         assert m["value"] > 0 and m["unit"]
     assert set(out["device"]) >= {"platform", "kind", "count",
@@ -60,7 +63,7 @@ def test_traced_line_has_per_layer_metrics(root, cell):
     names = {m["name"] for m in spec["per_layer"]
              if cell in m.get("workloads", [cell])}
     # the CPU has no trace: the readers that need one read nothing
-    assert "iters_per_answer" in out["metrics"]
+    assert {"iters_per_answer", "iters_per_answer.sweep"} & set(out["metrics"])
     assert set(out["metrics"]) <= names
     assert "breakdown" not in out  # no device trace on the CPU
 
@@ -159,3 +162,61 @@ def test_a_listed_metric_that_reads_nothing_fails_a_traced_run(tmp_path):
     assert "reads_nothing" not in got and "iters_per_answer" in got
     with pytest.raises(harness.MissingMetrics, match="reads_nothing"):
         harness.read_per_layer(cell, run, root, required=True)
+
+
+def _run_record(cell, records, failed=frozenset(), trace=None):
+    return harness.RunRecord(cell, records, 2.0, {}, trace, {},
+                             {"n_free": 1, "nnz": 1}, None, failed)
+
+
+def test_the_host_clock_metrics_and_their_per_layer_copies_agree(root):
+    """``answers_per_s.sweep`` and ``answer_ms_p95.sweep`` read a run as
+    the end-to-end ``answers_per_s`` and ``answer_ms_p95`` do: failed
+    answers left out of the rate and counted as the longest in the tail."""
+    cell = harness.load_cell("tet833k.sweep", root)
+    recs = [harness.Record({100: 1.0}, ms, None, None, 3, True)
+            for ms in (10.0, 20.0, 30.0, 40.0)]
+    run = _run_record(cell, recs, frozenset({0}))
+    assert harness.answer_rate(run) == 1.5
+    assert harness.answer_p95(run) == harness.p95([40.0, 20.0, 30.0, 40.0])
+    got = harness.read_per_layer(cell, run, root, required=False)
+    assert got["answers_per_s.sweep"]["value"] == 1.5
+    assert got["answer_ms_p95.sweep"]["value"] == harness.answer_p95(run)
+    assert got["iters_per_answer.sweep"]["value"] == 3.0
+
+
+def test_device_time_per_answer_from_a_trace_of_the_device_alone(
+        root, monkeypatch):
+    """The device's intervals are merged (overlaps once, ranges of host
+    spans and of collectives left out) and shared over the answers; with
+    no trace the metric reads nothing, which fails an untraced run on the
+    card."""
+    from portbench import tracing
+
+    from test_portbench_group import _Event
+
+    events = [
+        _Event("pb.window", 0, 1000),
+        _Event("nccl:all_reduce", 0, 900),
+        _Event("sell_spmv_kernel", 100, 400),
+        _Event("Memcpy HtoD (Pinned -> Device)", 300, 500),
+        _Event("vectorized_elementwise_kernel", 700, 800),
+        _Event("cudaLaunchKernel", 650, 660, device=False, corr=3),
+    ]
+    monkeypatch.setattr(tracing, "_events", lambda prof: events)
+    tr = tracing.reduce_device(None)
+    assert tr.busy_ns == 500 and tr.window_ns == (100, 800)
+    assert not tr.kernels and not tr.spans
+    cell = harness.load_cell("tet833k.sweep", root)
+    assert harness.device_timed(cell)
+    assert not harness.device_timed(harness.load_cell("box10m.cg", root))
+    recs = [harness.Record({100: 1.0}, 5.0, None, None, 3, True)] * 4
+    own = [m for m in cell.end_to_end if m["name"] == "device_ms_per_answer"]
+    got = harness.read_per_layer(cell, _run_record(cell, recs, trace=tr),
+                                 root, required=True, listed=own)
+    assert got["device_ms_per_answer"]["value"] == 500 / 1e6 / 4
+    with pytest.raises(harness.MissingMetrics, match="device_ms_per_answer"):
+        harness.read_per_layer(cell, _run_record(cell, recs), root,
+                               required=True, listed=own)
+    monkeypatch.setattr(tracing, "_events", lambda prof: events[:2])
+    assert tracing.reduce_device(None) is None

@@ -16,9 +16,14 @@ import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Spans", "Trace", "profiler", "reduce_trace", "mark_fine"]
+__all__ = ["Spans", "Trace", "profiler", "reduce_trace", "reduce_device",
+           "mark_fine"]
 
 PREFIX = "pb."
+# Device-side copies of host ranges, left out of the device's work: the
+# spans' own, and the ``nccl:<op>`` ranges that c10d puts around each
+# collective's kernel (a second entry for the same work).
+RANGES = (PREFIX, "nccl:")
 COPIES = ("Memcpy", "Memset")
 LAUNCHES = ("cudaLaunch", "cuLaunch")  # the runtime's and driver's calls
 
@@ -145,13 +150,13 @@ def reduce_trace(prof, window: str = "window") -> Optional[Trace]:
     cuda = torch.autograd.DeviceType.CUDA
     spans, device, kernels, launches = [], [], [], {}
     # Device events are kernels, copies and fills, and the device-side
-    # copies of the spans' ranges (named as the spans, left out); host
-    # events named pb.<span> are the spans; the launch calls share their
-    # kernels' correlation ids (other host events number theirs apart).
+    # copies of host ranges (:data:`RANGES`, left out); host events named
+    # pb.<span> are the spans; the launch calls share their kernels'
+    # correlation ids (other host events number theirs apart).
     for ev in _events(prof):
         if ev.device_type() == cuda:
             name = ev.name()
-            if name.startswith(PREFIX):
+            if name.startswith(RANGES):
                 continue
             s = ev.start_ns()
             e = s + ev.duration_ns()
@@ -181,6 +186,29 @@ def reduce_trace(prof, window: str = "window") -> Optional[Trace]:
         ops[n] = ops.get(n, 0.0) + (e - s) / 1e9
     return Trace((w0, w1), kernels, busy, ops,
                  _idle_by_span(merged, spans, window, w0, w1), spans)
+
+
+def reduce_device(prof) -> Optional[Trace]:
+    """The device's work in a trace of device activity alone, taken around
+    the window and nothing else: every kernel, copy and fill in it is the
+    window's; its span is the first start to the last end.  None when the
+    trace holds no device work."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    device = []
+    for ev in _events(prof):
+        if ev.device_type() == cuda and not ev.name().startswith(RANGES):
+            s = ev.start_ns()
+            device.append((ev.name(), s, s + ev.duration_ns()))
+    if not device:
+        return None
+    merged = _merge([(s, e) for _n, s, e in device])
+    ops: Dict[str, float] = {}
+    for n, s, e in device:
+        ops[n] = ops.get(n, 0.0) + (e - s) / 1e9
+    return Trace((merged[0][0], merged[-1][1]), [],
+                 sum(e - s for s, e in merged), ops, {}, [])
 
 
 def _idle_by_span(merged, spans, window, w0, w1) -> Dict[str, float]:
