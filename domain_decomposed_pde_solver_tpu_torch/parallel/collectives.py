@@ -33,6 +33,12 @@ when every process has a card of its own, gloo when processes share a card
 (NCCL refuses two ranks on one GPU) or compute on the CPU.  Over gloo,
 tensors on a card are staged through host memory here, always: the copy to
 the host and back is explicit, and the arithmetic stays on the card.
+
+Each of the three is a span of the recorder (:mod:`..utils.timers`):
+``comm.gather``, ``comm.exchange`` and ``comm.halo``, each counting
+``collectives`` (one per call) and ``comm_bytes`` (the bytes this process
+sends to the others).  Only a collective across processes runs one, so a
+process alone records none.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.timers import count, span
 
 __all__ = [
     "agree",
@@ -120,23 +128,39 @@ def _out(t: torch.Tensor) -> torch.Tensor:
     return t.cpu() if staged(t.device) else t
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _sends(nbytes: int) -> None:
+    """Count one collective of the innermost span, sending ``nbytes``."""
+    count("collectives")
+    count("comm_bytes", nbytes)
+
+
 def gather_parts(local: torch.Tensor) -> torch.Tensor:
     """``(k, ...)`` on every process -> ``(world*k, ...)``, the processes'
-    rows in rank order, on ``local``'s device (``all_gather``)."""
-    src = _out(local)
-    rows = [torch.empty_like(src) for _ in range(process_world())]
-    dist.all_gather(rows, src)
-    return torch.cat(rows).to(local.device)
+    rows in rank order, on ``local``'s device (``all_gather``; this
+    process's rows go to each of the others)."""
+    with span("comm.gather"):
+        src = _out(local)
+        w = process_world()
+        _sends((w - 1) * _nbytes(src))
+        rows = [torch.empty_like(src) for _ in range(w)]
+        dist.all_gather(rows, src)
+        return torch.cat(rows).to(local.device)
 
 
 def exchange_rows(send: torch.Tensor) -> torch.Tensor:
     """``(world, ...)`` -> ``(world, ...)``: row ``r`` of ``send`` goes to
     process ``r``, row ``s`` of the result came from process ``s``
-    (``all_to_all``)."""
-    src = _out(send)
-    recv = torch.empty_like(src)
-    dist.all_to_all_single(recv, src)
-    return recv.to(send.device)
+    (``all_to_all``; every row but this process's own is sent)."""
+    with span("comm.exchange"):
+        src = _out(send)
+        _sends((src.shape[0] - 1) * _nbytes(src[0]))
+        recv = torch.empty_like(src)
+        dist.all_to_all_single(recv, src)
+        return recv.to(send.device)
 
 
 def ring_strips(first: torch.Tensor,
@@ -145,21 +169,23 @@ def ring_strips(first: torch.Tensor,
     last strip to the next; returns ``(from_previous, from_next)``, the
     previous process's last strip and the next one's first, zeros at the
     ring ends (point-to-point sends and receives)."""
-    r, w = process_rank(), process_world()
-    first, last = _out(first), _out(last)
-    from_prev = torch.zeros_like(last)
-    from_next = torch.zeros_like(first)
-    ops = []
-    if r > 0:
-        ops += [dist.P2POp(dist.isend, first, r - 1),
-                dist.P2POp(dist.irecv, from_prev, r - 1)]
-    if r < w - 1:
-        ops += [dist.P2POp(dist.isend, last, r + 1),
-                dist.P2POp(dist.irecv, from_next, r + 1)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return from_prev, from_next
+    with span("comm.halo"):
+        r, w = process_rank(), process_world()
+        first, last = _out(first), _out(last)
+        from_prev = torch.zeros_like(last)
+        from_next = torch.zeros_like(first)
+        ops = []
+        if r > 0:
+            ops += [dist.P2POp(dist.isend, first, r - 1),
+                    dist.P2POp(dist.irecv, from_prev, r - 1)]
+        if r < w - 1:
+            ops += [dist.P2POp(dist.isend, last, r + 1),
+                    dist.P2POp(dist.irecv, from_next, r + 1)]
+        _sends((r > 0) * _nbytes(first) + (r < w - 1) * _nbytes(last))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return from_prev, from_next
 
 
 def max_scalar(value: int) -> int:

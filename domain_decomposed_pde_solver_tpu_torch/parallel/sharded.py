@@ -45,6 +45,7 @@ mesh's dot (:meth:`DeviceMesh.dot`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, List, Optional, Sequence
 
@@ -59,6 +60,7 @@ from ..solvers.power import PowerResult, power_method
 from ..solvers.precond.chebyshev import ChebyshevPreconditioner
 from ..solvers.precond.jacobi import DiagonalPreconditioner
 from ..utils.device import resolve_device
+from ..utils.timers import span
 from .collectives import (
     exchange_rows,
     gather_parts,
@@ -299,8 +301,12 @@ def psum_dot(a: torch.Tensor, b: torch.Tensor,
              mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """The global dot of two ``(P, n_local)`` vectors: each part's dot
     (:func:`part_sums`), then :func:`psum` in part order (JAX's
-    ``_psum_dot``), the same bits over any number of processes."""
-    return psum(part_sums(a * b, mesh))
+    ``_psum_dot``), the same bits over any number of processes.  Across
+    processes the whole dot is a span ``comm.dot`` of the recorder, the
+    parent of its gather's ``comm.gather``."""
+    with (span("comm.dot") if across_processes(a, mesh)
+          else contextlib.nullcontext()):
+        return psum(part_sums(a * b, mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ from ..ops.stencil_kernel import (
 )
 from ..solvers.cg import cg_solve
 from ..solvers.precond.jacobi import DiagonalPreconditioner
+from ..utils.timers import spanned, to_device, to_host
 from .collectives import ring_strips
 from .sharded import DeviceMesh, across_processes, all_parts, make_device_mesh
 from .slab import plan_mesh
@@ -200,20 +201,22 @@ class SlabPadPlan:
             mz, my, mx)
         return out.reshape(self.nparts, self.slab)
 
+    @spanned("request.put")
     def put_vector(self, x: np.ndarray, dtype=np.float32) -> torch.Tensor:
         """:meth:`scatter_vector` on the plan's device (this process's
-        parts over a mesh of several)."""
+        parts over a mesh of several), through pageable host memory."""
         xs = self.scatter_vector(x, dtype)
         if self.mesh is not None:
             xs = np.ascontiguousarray(self.mesh.local(xs))
-        return torch.from_numpy(xs).to(self.device)
+        return to_device(torch.from_numpy(xs), self.device)
 
+    @spanned("request.get")
     def gather_vector(self, x_parts) -> np.ndarray:
         """The logical ``(n_rows,)`` host vector of a ``(P, slab)`` one, or
         over a mesh of several processes of this process's ``(k, slab)``
         (every process's parts gathered: every process calls it)."""
         if isinstance(x_parts, torch.Tensor):
-            x_parts = all_parts(x_parts, self.mesh).detach().cpu().numpy()
+            x_parts = to_host(all_parts(x_parts, self.mesh).detach()).numpy()
         mx, my, mz = self.dims
         x3 = np.asarray(x_parts).reshape(self.nparts * self.L, self.myp,
                                          self.mxp)

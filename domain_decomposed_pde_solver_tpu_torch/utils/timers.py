@@ -21,7 +21,9 @@ events with it as without it.
   which ``pinned_bytes`` those whose host side is page-locked, and
   ``host_syncs``, each blocking read of a device value by the host
   (:func:`to_host`, :func:`host_value`), counted at the call on the CPU
-  too, where nothing waits.
+  too, where nothing waits; ``collectives`` and ``comm_bytes``, each
+  collective across processes and the bytes this process sends in it
+  (``parallel/collectives.py``).
 - Closed spans go into a bounded ring; the recorder counts those it drops
   and the instant from which it holds every span that started.  Each
   thread has its own stack of open spans.

@@ -21,6 +21,9 @@ Tasks:
   divide, and the other entry points over the process mesh (:func:`routes`).
 - ``cli ROUTES``: the drivers under a launcher (:func:`cli`); the process
   joins a group per run itself, from the ``DDPS_*`` variables.
+- ``comm``: the recorder's spans and counters of the collectives
+  (:func:`comm`): one halo exchange, one dot, one all-to-all and one f64
+  refinement over :data:`PAD_BOX`'s slabs, two per process.
 """
 
 import contextlib
@@ -336,6 +339,74 @@ def slab_routes(out: dict, mesh) -> None:
         out[f"slab_pad_refine_{name}_it"] = mr.inner_iterations
 
 
+def comm(out: dict) -> None:
+    """What the recorder holds of the collectives of one halo exchange of
+    the slab-pad operator, one dot, one ``exchange_rows`` and one f64
+    slab-pad refinement, each under a probe span of its own: per probe,
+    the names of the spans of its request and the sums of their
+    counters."""
+    from collections import Counter
+
+    from domain_decomposed_pde_solver_tpu_torch.io import box_mesh
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import pack_dia_host
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil import (
+        stencil_parts_from_packed,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_parts,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        build_slab_pad_amg,
+        slab_pad_amg_refine_solve,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel.collectives import (
+        exchange_rows,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers.precond.amg import (
+        infer_free_grid,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.utils.timers import RECORDER
+
+    m = box_mesh(*PAD_BOX, "TETRA4")
+    sy = assemble_heat_system(m)
+    dims = infer_free_grid(m, sy.free_to_node)
+    offs, data = pack_dia_host(sy.A, dtype=torch.float32)
+    pad_op = pad_stencil_from_parts(
+        stencil_parts_from_packed(offs, data, sy.A.n_rows, dims), bz=4,
+        device="cpu")
+    mesh = make_device_mesh(4, ["cpu"])
+    samg = build_slab_pad_amg(sy.A, dims, 4, pad_op=pad_op, mesh=mesh)
+    plan = samg.plan
+    x = plan.put_vector(np.arange(sy.A.n_rows, dtype=np.float32))
+    rank = torch.distributed.get_rank()
+    probes = {
+        "halo": lambda: samg.A.extended(x),
+        "dot": lambda: mesh.dot(x, x),
+        "exchange": lambda: exchange_rows(
+            torch.full((2, 3), float(rank), dtype=torch.float64)),
+        "refine": lambda: slab_pad_amg_refine_solve(samg, b=sy.b, tol=TOL),
+    }
+    for name, fn in probes.items():
+        with RECORDER.span("probe") as probe:
+            fn()
+        spans = [s for s in RECORDER.spans()
+                 if s.request == probe.request and s is not probe]
+        totals = Counter()
+        for s in spans:
+            totals.update(s.counts or {})
+        out[f"{name}_spans"] = np.array(sorted(s.name for s in spans))
+        out[f"{name}_collectives"] = totals["collectives"]
+        out[f"{name}_comm_bytes"] = totals["comm_bytes"]
+        out[f"{name}_parents"] = np.array(sorted(
+            f"{s.name}<{p.name}" for s in spans for p in spans
+            if s.parent == p.id))
+    out.update(layer=plan.myp * plan.mxp, local_parts=mesh.local_parts,
+               slab=plan.slab)
+
+
 def _patched(route: str, rank: int):
     """What a route changes in process 1, to see the others fail with it:
     ``mismatch`` swaps two parts of its partition, ``raise`` raises in
@@ -399,8 +470,8 @@ def main(task, rank, world, url, outdir, *args) -> int:
         os.environ.update(DDPS_NUM_PROCESSES=str(world),
                           DDPS_PROCESS_ID=str(rank))
     out = {"path": os.path.join(outdir, f"{task}.rank{rank}.npz")}
-    {"distassembly": distassembly, "slabcg": slabcg, "cli": cli}[task](
-        out, *args)
+    {"distassembly": distassembly, "slabcg": slabcg, "cli": cli,
+     "comm": comm}[task](out, *args)
     path = out.pop("path")
     np.savez(path, **out)
     if joins:
