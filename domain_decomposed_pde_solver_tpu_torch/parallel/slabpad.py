@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.dia import _torch_dtype
+from ..ops.ell import fetch_vector, stage_vector
 from ..ops.stencil_kernel import (
     PadStencilOperator,
     kernel_tables,
@@ -47,7 +49,7 @@ from ..ops.stencil_kernel import (
 )
 from ..solvers.cg import cg_solve
 from ..solvers.precond.jacobi import DiagonalPreconditioner
-from ..utils.timers import spanned, to_device, to_host
+from ..utils.timers import spanned
 from .collectives import ring_strips
 from .sharded import DeviceMesh, across_processes, all_parts, make_device_mesh
 from .slab import plan_mesh
@@ -201,26 +203,72 @@ class SlabPadPlan:
             mz, my, mx)
         return out.reshape(self.nparts, self.slab)
 
+    def _owned_layers(self, k: int) -> Tuple[int, int]:
+        """The global z-layers ``[z0, z1)`` of the real rows that this
+        process's ``k`` parts own (the mesh's ``parts_lo`` on): z-major
+        order makes them one contiguous range of the logical vector."""
+        lo = 0 if self.mesh is None else self.mesh.parts_lo
+        mz = self.dims[2]
+        return min(lo * self.L, mz), min((lo + k) * self.L, mz)
+
     @spanned("request.put")
     def put_vector(self, x: np.ndarray, dtype=np.float32) -> torch.Tensor:
-        """:meth:`scatter_vector` on the plan's device (this process's
-        parts over a mesh of several), through pageable host memory."""
-        xs = self.scatter_vector(x, dtype)
-        if self.mesh is not None:
-            xs = np.ascontiguousarray(self.mesh.local(xs))
-        return to_device(torch.from_numpy(xs), self.device)
+        """:meth:`scatter_vector` of this process's parts (all of them with
+        one process) on the plan's device.  Only the real rows those parts
+        own go up, cast to ``dtype`` on the host copy into a page-locked
+        buffer (:func:`..ops.ell.stage_vector`), and are laid out on the
+        device into a zeroed ``(k, slab)`` tensor: pad slots and the last
+        slab's dead layers stay 0."""
+        mx, my, mz = self.dims
+        k = self.nparts if self.mesh is None else self.mesh.local_parts
+        z0, z1 = self._owned_layers(k)
+        xs = np.asarray(x).reshape(-1)
+        if xs.size != mx * my * mz:
+            raise ValueError(f"a vector of {xs.size} rows on a plan of "
+                             f"{mx * my * mz}")
+        layer = mx * my
+        xd = stage_vector(xs[z0 * layer: z1 * layer], self.device,
+                          _torch_dtype(dtype))
+        out = torch.zeros((k * self.L, self.myp, self.mxp), dtype=xd.dtype,
+                          device=xd.device)
+        out[: z1 - z0, 1: my + 1, :mx] = xd.view(z1 - z0, my, mx)
+        return out.reshape(k, self.slab)
 
     @spanned("request.get")
     def gather_vector(self, x_parts) -> np.ndarray:
         """The logical ``(n_rows,)`` host vector of a ``(P, slab)`` one, or
         over a mesh of several processes of this process's ``(k, slab)``
-        (every process's parts gathered: every process calls it)."""
+        (every process's parts gathered: every process calls it).
+
+        Of a tensor, each process takes its parts' real rows into a compact
+        tensor on its device, the processes all-gather those pieces
+        (:func:`.sharded.all_parts`), and the joined vector comes
+        down through a page-locked buffer into a new array that the caller
+        owns (:func:`..ops.ell.fetch_vector`)."""
         if isinstance(x_parts, torch.Tensor):
-            x_parts = to_host(all_parts(x_parts, self.mesh).detach()).numpy()
+            return fetch_vector(self._logical(x_parts))
         mx, my, mz = self.dims
         x3 = np.asarray(x_parts).reshape(self.nparts * self.L, self.myp,
                                          self.mxp)
         return np.ascontiguousarray(x3[:mz, 1: my + 1, :mx]).reshape(-1)
+
+    def _logical(self, x_parts: torch.Tensor) -> torch.Tensor:
+        """The logical ``(n_rows,)`` vector of slab parts, on their device.
+        Each process's piece is padded to a whole process's ``k*L`` layers
+        for the gather; only the last process owns fewer
+        (:func:`slab_layers` leaves every other slab whole), so the pieces
+        in rank order start with the logical vector."""
+        mx, my, mz = self.dims
+        k = x_parts.shape[0]
+        z0, z1 = self._owned_layers(k)
+        own = x_parts.detach().reshape(k * self.L, self.myp, self.mxp)[
+            : z1 - z0, 1: my + 1, :mx]
+        if not across_processes(x_parts, self.mesh):
+            return own.reshape(-1)
+        piece = own.new_zeros((k * self.L, my, mx))
+        piece[: z1 - z0] = own
+        return all_parts(piece.reshape(k, -1), self.mesh).reshape(-1)[
+            : mx * my * mz]
 
     def make_ops(self) -> SlabPadStencilOperator:
         """The operator over the plan's parts, on its device."""

@@ -58,10 +58,15 @@ def slab_pad_amg_refine_solve(
     ``pad_op``: the global operator the hierarchy was built on (default
     ``samg.pad_op``; only checked for presence, as the slab operator
     carries its stencil).  ``x0``: an optional f64 warm start (one more
-    residual product); the default zero start knows ``r0 = b``.  The
-    result's ``x`` is the host f64 answer in the logical (lexicographic)
-    order; over a hierarchy built on a mesh of several processes, each
-    process runs its parts and gets the whole answer."""
+    residual product); the default zero start knows ``r0 = b``.  Each
+    process stages only its parts' real rows of ``b`` and ``x0``, and
+    ``||b||`` is the loop's own dot of the staged ``b`` on the device.
+    The result's ``x`` is the host f64 answer in the logical
+    (lexicographic) order, a new array: over a hierarchy built on a mesh
+    of several processes, each process runs its parts, the processes
+    gather the parts' real rows on their devices, and each process
+    fetches the whole answer through a page-locked buffer
+    (:meth:`.slabpad.SlabPadPlan.gather_vector`)."""
     if pad_op is None:
         pad_op = samg.pad_op
     if pad_op is None:
@@ -74,15 +79,14 @@ def slab_pad_amg_refine_solve(
 
     with span("refine.stage") as stage:
         op = samg.A
-        b64 = plan.put_vector(np.asarray(b, np.float64), dtype=np.float64)
-        bnorm = float(np.linalg.norm(np.asarray(b, np.float64))) or 1.0
+        b64 = plan.put_vector(b, dtype=np.float64)
+        bnorm = host_value(torch.sqrt(dot(b64, b64))) or 1.0
         if x0 is None:
             x64 = torch.zeros_like(b64)
             r64 = b64  # r0 = b exactly, no product
             relres = 1.0
         else:
-            x64 = plan.put_vector(np.asarray(x0, np.float64),
-                                  dtype=np.float64)
+            x64 = plan.put_vector(x0, dtype=np.float64)
             r64 = b64 - op.matvec(x64)
             relres = host_value(torch.sqrt(dot(r64, r64))) / bnorm
         _sync(dev)
@@ -106,7 +110,7 @@ def slab_pad_amg_refine_solve(
                 break
             x64, r64, relres = x_new, r_new, new_relres
     with span("refine.fetch") as fetch:
-        x_host = plan.gather_vector(x64).astype(np.float64)
+        x_host = plan.gather_vector(x64)
     return MixedSolveResult(
         x=x_host,
         refinements=refinements,

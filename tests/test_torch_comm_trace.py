@@ -9,9 +9,9 @@ Two processes over gloo (``tests/test_torch_multiproc_worker.py``'s task
 ``comm``) run one halo exchange, one dot, one all-to-all and one f64
 refinement over four slabs; one process running the same refinement
 records no ``comm.*`` span and no collective.  The ``cuda`` case counts
-the bytes of a plan's put and get on the card (pageable: no
-``pinned_bytes``) and skips without one; the file imports neither JAX nor
-the JAX package:
+the bytes of a plan's put and get on the card (the real rows only, all
+through page-locked buffers) and skips without one; the file imports
+neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_comm_trace.py
 """
@@ -135,8 +135,9 @@ def card():
 
 @pytest.mark.cuda
 def test_slab_plan_put_and_get_bytes_on_the_card(card):
-    """A plan's put uploads its slabs' padded layers, its get fetches
-    them, both through pageable host memory."""
+    """A plan's put uploads the vector's real rows and its get fetches
+    them, no pad slot and no dead layer, both through page-locked
+    buffers."""
     _sy, _dims, pad_op = _pad_box(card)
     plan = build_slab_pad_stencil(pad_op, 4, z_align=6)
     n = pad_op.n_rows
@@ -146,12 +147,12 @@ def test_slab_plan_put_and_get_bytes_on_the_card(card):
     for s in put:
         total.update(s.counts or {})
     assert [s.name for s in put] == ["request.put"]
-    assert total == {"h2d_bytes": plan.nparts * plan.slab * 8}
+    assert total == {"h2d_bytes": n * 8, "pinned_bytes": n * 8}
     back, get = _request_spans(lambda: plan.gather_vector(xd))
     total = Counter()
     for s in get:
         total.update(s.counts or {})
     assert [s.name for s in get] == ["request.get"]
-    assert total == {"d2h_bytes": plan.nparts * plan.slab * 8,
+    assert total == {"d2h_bytes": n * 8, "pinned_bytes": n * 8,
                      "host_syncs": 1}
     np.testing.assert_array_equal(back, x)

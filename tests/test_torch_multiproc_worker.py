@@ -24,6 +24,8 @@ Tasks:
 - ``comm``: the recorder's spans and counters of the collectives
   (:func:`comm`): one halo exchange, one dot, one all-to-all and one f64
   refinement over :data:`PAD_BOX`'s slabs, two per process.
+- ``slabio``: the slab-pad plan's put and get over :data:`PAD_BOX`'s
+  four slabs (:func:`slabio`), this process's share of them.
 """
 
 import contextlib
@@ -407,6 +409,61 @@ def comm(out: dict) -> None:
                slab=plan.slab)
 
 
+def slabio(out: dict) -> None:
+    """A slab-pad plan over :data:`PAD_BOX`'s four slabs of 6 layers (the
+    last one 3) on the process mesh: each put of a seeded vector in f32
+    and f64 beside this process's rows of the host scatter; the f64 put of
+    the vector with NaN in every row outside this process's layers; and
+    the gathers of the f64 put, the first written into before the second
+    is made."""
+    from domain_decomposed_pde_solver_tpu_torch.io import box_mesh
+    from domain_decomposed_pde_solver_tpu_torch.models import (
+        assemble_heat_system,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.dia import pack_dia_host
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil import (
+        stencil_parts_from_packed,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.ops.stencil_kernel import (
+        pad_stencil_from_parts,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.parallel import (
+        build_slab_pad_stencil,
+    )
+    from domain_decomposed_pde_solver_tpu_torch.solvers.precond.amg import (
+        infer_free_grid,
+    )
+
+    m = box_mesh(*PAD_BOX, "TETRA4")
+    sy = assemble_heat_system(m)
+    dims = infer_free_grid(m, sy.free_to_node)
+    offs, data = pack_dia_host(sy.A, dtype=torch.float32)
+    pad_op = pad_stencil_from_parts(
+        stencil_parts_from_packed(offs, data, sy.A.n_rows, dims), bz=4,
+        device="cpu")
+    mesh = make_device_mesh(4, ["cpu"])
+    plan = build_slab_pad_stencil(pad_op, 4, z_align=6, mesh=mesh)
+    x = np.random.default_rng(11).standard_normal(sy.A.n_rows)
+    for dt in (np.float32, np.float64):
+        name = np.dtype(dt).name
+        out[f"put_{name}"] = plan.put_vector(x, dtype=dt).numpy()
+        out[f"scatter_{name}"] = mesh.local(plan.scatter_vector(x, dt))
+    layer, mz = dims[0] * dims[1], dims[2]
+    lo, hi = (min(p * plan.L, mz) * layer
+              for p in (mesh.parts_lo, mesh.parts_lo + mesh.local_parts))
+    nan = np.full_like(x, np.nan)
+    nan[lo:hi] = x[lo:hi]
+    out["nan_put"] = plan.put_vector(nan, dtype=np.float64).numpy()
+    xd = plan.put_vector(x, dtype=np.float64)
+    first = plan.gather_vector(xd)
+    out.update(first_owns=first.flags.owndata,
+               first_shares=np.shares_memory(first, xd.numpy()),
+               first=first.copy())
+    first[:] = -1.0
+    out.update(again=plan.gather_vector(xd), put_after=xd.numpy(), x=x,
+               rows=(lo, hi), L=plan.L, local_parts=mesh.local_parts)
+
+
 def _patched(route: str, rank: int):
     """What a route changes in process 1, to see the others fail with it:
     ``mismatch`` swaps two parts of its partition, ``raise`` raises in
@@ -471,7 +528,7 @@ def main(task, rank, world, url, outdir, *args) -> int:
                           DDPS_PROCESS_ID=str(rank))
     out = {"path": os.path.join(outdir, f"{task}.rank{rank}.npz")}
     {"distassembly": distassembly, "slabcg": slabcg, "cli": cli,
-     "comm": comm}[task](out, *args)
+     "comm": comm, "slabio": slabio}[task](out, *args)
     path = out.pop("path")
     np.savez(path, **out)
     if joins:
